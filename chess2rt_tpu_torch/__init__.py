@@ -11,8 +11,10 @@ Layout:
     utils/       vec3 math, color/sRGB (host copies of the JAX package's)
     models/      typed scene object model + packed scene tensors
     ops/         camera, the round-0 kernel wrapper + its plain version,
-                 deferred bitmap texturing, the flagship renderer
+                 its differentiable form, deferred bitmap texturing and the
+                 texel-gradient histogram, the flagship renderer
     render/      render_frame dispatch, AA taps, compaction helper
+    grad/        inverse rendering (fit) and its checkpoints
     csrc/        hand-written CUDA kernels (sm_90a)
     cuda_build.py  nvcc build + ctypes binding of csrc/
     scenes.py    the code-built flagship stand-in scene

@@ -14,6 +14,13 @@
 // continuation with TIR.  Bitmap texels stay deferred: the kernel emits
 // (win, u, v) and the light sum, and ops/shade.py gathers the texels.
 //
+// The residual forms (the JAX kernel's want_hit / want_vis outputs, which
+// the gradient's backward pins its discrete decisions to) are the same
+// kernel with two more program flags: F_HIT adds the winning hit's t and
+// raw normal and the in-kernel diffuse color, F_VIS one 0/1 shadow bit per
+// light.  The flags are warp-uniform; a call without them writes no
+// residual row.
+//
 // Design.  The TPU kernel was generated per scene structure (Python
 // unrolled the node loops into the Mosaic program).  Here ONE compiled
 // kernel reads the structure from the int32 scene program that
@@ -54,14 +61,14 @@ constexpr float HALF_PI_F = 1.57079632679489661923f;
 constexpr float QUARTER_PI_F = 0.78539816339744830962f;
 
 // scene program layout (ops/round0.py: H_*, NODE_STRIDE, INSTR_STRIDE)
-constexpr int PROGRAM_VERSION = 1;
+constexpr int PROGRAM_VERSION = 2;
 enum {
   H_VERSION, H_NODES, H_LIGHTS, H_CAM, H_AMBIENT, H_AA, H_LIN, H_FLAGS,
   H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB
 };
 constexpr int NODE_STRIDE = 10;
 constexpr int INSTR_STRIDE = 8;
-enum { F_PHONG = 1, F_REFR = 2, F_EMIT_L = 4, F_CONT = 8 };
+enum { F_PHONG = 1, F_REFR = 2, F_EMIT_L = 4, F_CONT = 8, F_HIT = 16, F_VIS = 32 };
 enum { X_IDENT = 0, X_OFFSET = 1, X_MATRIX = 2 };
 enum { OP_PLANE = 0, OP_SPHERE = 1, OP_CUBE = 2, OP_CSG = 3 };
 enum { CSG_UNION = 0, CSG_INTER = 1, CSG_DIFF = 2 };
@@ -646,6 +653,12 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
     is_direct = shader == LAMBERT || shader == PHONG;
   }
 
+  // output rows: r, g, b, [lr lg lb u v], [rox..rdz], [t nx ny nz dr dg db],
+  // [vis0..]: the order of ops/round0.py layout()
+  const int cont_row = 3 + ((flags & F_EMIT_L) ? 5 : 0);
+  const int hit_row = cont_row + ((flags & F_CONT) ? 6 : 0);
+  const int vis_row = hit_row + ((flags & F_HIT) ? 7 : 0);
+
   // direct light with in-kernel shadow scans
   const int amb = __ldg(prog + H_AMBIENT);
   float lr = s.p(amb), lg = s.p(amb + 1), lb = s.p(amb + 2);
@@ -667,6 +680,7 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
     bool occ = false;
     for (int i = 0; i < n_nodes && !occ; ++i) occ = node_min_dist(s, i, sray) <= target;
     const bool vis = !occ;
+    if (flags & F_VIS) out[(size_t)(vis_row + li) * n + lane] = vis ? 1.0f : 0.0f;
     const float cos_t = ldx * nx + ldy * ny + ldz * nz;
     const float w = (vis && cos_t > 0.0f) ? cos_t / dist2 : 0.0f;
     lr += s.p(lbase + 3) * w;
@@ -699,14 +713,21 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
   out[1 * (size_t)n + lane] = shaded ? outg : 0.0f;
   out[2 * (size_t)n + lane] = shaded ? outb : 0.0f;
   win_out[lane] = win;
-  int row = 3;
   if (flags & F_EMIT_L) {
-    out[(size_t)(row + 0) * n + lane] = shaded ? lr : 0.0f;
-    out[(size_t)(row + 1) * n + lane] = shaded ? lg : 0.0f;
-    out[(size_t)(row + 2) * n + lane] = shaded ? lb : 0.0f;
-    out[(size_t)(row + 3) * n + lane] = hit.u;
-    out[(size_t)(row + 4) * n + lane] = hit.v;
-    row += 5;
+    out[(size_t)3 * n + lane] = shaded ? lr : 0.0f;
+    out[(size_t)4 * n + lane] = shaded ? lg : 0.0f;
+    out[(size_t)5 * n + lane] = shaded ? lb : 0.0f;
+    out[(size_t)6 * n + lane] = hit.u;
+    out[(size_t)7 * n + lane] = hit.v;
+  }
+  if (flags & F_HIT) {
+    out[(size_t)(hit_row + 0) * n + lane] = hit.t;
+    out[(size_t)(hit_row + 1) * n + lane] = hit.nx;
+    out[(size_t)(hit_row + 2) * n + lane] = hit.ny;
+    out[(size_t)(hit_row + 3) * n + lane] = hit.nz;
+    out[(size_t)(hit_row + 4) * n + lane] = dr;
+    out[(size_t)(hit_row + 5) * n + lane] = dg;
+    out[(size_t)(hit_row + 6) * n + lane] = db;
   }
   if (flags & F_CONT) {
     // mirror continuation (render/pipeline._whitted_round)
@@ -747,12 +768,12 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
         coz = hpz - nfz * EPS_SHADOW;
       }
     }
-    out[(size_t)(row + 0) * n + lane] = cox;
-    out[(size_t)(row + 1) * n + lane] = coy;
-    out[(size_t)(row + 2) * n + lane] = coz;
-    out[(size_t)(row + 3) * n + lane] = cdx;
-    out[(size_t)(row + 4) * n + lane] = cdy;
-    out[(size_t)(row + 5) * n + lane] = cdz;
+    out[(size_t)(cont_row + 0) * n + lane] = cox;
+    out[(size_t)(cont_row + 1) * n + lane] = coy;
+    out[(size_t)(cont_row + 2) * n + lane] = coz;
+    out[(size_t)(cont_row + 3) * n + lane] = cdx;
+    out[(size_t)(cont_row + 4) * n + lane] = cdy;
+    out[(size_t)(cont_row + 5) * n + lane] = cdz;
   }
 }
 
@@ -762,7 +783,8 @@ extern "C" {
 
 // Launches K1 on `stream` for n lanes.  `orig`/`dir` ([n, 3] f32) select
 // the ray-input form; both null select the screen-tap form.  `out` is
-// [K, n] f32 with K the layout's float outputs, `win` [n] int32.  Returns
+// [K, n] f32 with K the layout's float outputs (the program's flags say
+// which, residual rows included), `win` [n] int32.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 int c2rt_round0(const float* prm, const int* prog, const float* orig, const float* dir,
                 float* out, int* win, int n, int width, int height, void* stream) {

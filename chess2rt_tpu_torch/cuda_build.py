@@ -1,11 +1,12 @@
 """Builds the hand-written CUDA kernels (csrc/) with nvcc and binds them
 with ctypes.
 
-The pattern of chess2rt_tpu/native.py without its numpy fallback: the
-shared library is built at first use into ``build/``, named by a hash of
-the sources and the flags, and loaded once per process.  Nothing is built
-or loaded at import time.  A missing ``nvcc`` or a failed build raises:
-there is no CUDA path without the kernel.
+The pattern of chess2rt_tpu/native.py without its numpy fallback: each
+source is built at first use into its own shared library in ``build/``,
+named by a hash of that source and the flags, and loaded once per process.
+The missing libraries are built together, one ``nvcc`` per source, all
+started at once.  Nothing is built or loaded at import time.  A missing
+``nvcc`` or a failed build raises: there is no CUDA path without the kernel.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` (a plain C interface, so no PyTorch headers and no
@@ -26,16 +27,32 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("round0.cu",)
+# kernel name -> its source in csrc/
+SOURCES = {"round0": "round0.cu", "texel_hist": "texel_hist.cu"}
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+# exported C functions of each library: (name, argtypes, restype)
+_EXPORTS = {
+    "round0": (
+        ("c2rt_round0", [_vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
+        ("c2rt_program_version", [], _ci),
+        ("c2rt_error_string", [_ci], ctypes.c_char_p),
+    ),
+    "texel_hist": (
+        ("c2rt_texel_hist", [_vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
+        ("c2rt_error_string", [_ci], ctypes.c_char_p),
+    ),
+}
+
 _lock = threading.Lock()
-_lib = None
-# seconds the build took in this process (0.0 when the library was already
-# on disk), and nvcc's -Xptxas -v report of registers and spills
+_libs = {}
+# wall seconds of this process's parallel build (0.0 when every library was
+# already on disk), and nvcc's -Xptxas -v report (registers, stack, spills)
+# per kernel
 build_seconds = 0.0
-build_log = ""
+build_log = {}
 
 
 def nvcc_path() -> str:
@@ -49,49 +66,65 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path() -> str:
+def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
-            h.update(f.read())
+    with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
+        h.update(f.read())
     h.update(" ".join(ARCH_FLAGS + BASE_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libc2rt_cuda_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libc2rt_{name}_{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> str:
+def _build_missing() -> None:
+    """Build every library not yet on disk, one nvcc per source, in parallel."""
+    global build_seconds
+    missing = [k for k in SOURCES if not os.path.exists(_lib_path(k))]
+    if not missing:
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *ARCH_FLAGS, *BASE_FLAGS, "-Xptxas", "-v", "-o", tmp]
-    cmd += [os.path.join(_CSRC, name) for name in SOURCES]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(f"cuda_build: nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, path)
-    return res.stderr
+    t0 = time.perf_counter()
+    procs = {}
+    for k in missing:
+        tmp = f"{_lib_path(k)}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *ARCH_FLAGS, *BASE_FLAGS, "-Xptxas", "-v", "-o", tmp,
+               os.path.join(_CSRC, SOURCES[k])]
+        procs[k] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for k, (tmp, proc) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[k]} ({proc.returncode}):\n{err[-4000:]}")
+            continue
+        os.replace(tmp, _lib_path(k))
+        build_log[k] = err
+    build_seconds = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("cuda_build: nvcc failed for " + "\n".join(failed))
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' shared library (built on first use) with argtypes set."""
-    global _lib, build_seconds, build_log
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of kernel ``name`` (every missing one is built on
+    first use) with its argtypes set."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        path = _lib_path()
-        t0 = time.perf_counter()
-        if not os.path.exists(path):
-            build_log = _build(path)
-        build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(path)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.c2rt_round0.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        lib.c2rt_round0.restype = ci
-        lib.c2rt_program_version.argtypes = []
-        lib.c2rt_program_version.restype = ci
-        lib.c2rt_error_string.argtypes = [ci]
-        lib.c2rt_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        if name in _libs:
+            return _libs[name]
+        _build_missing()
+        lib = ctypes.CDLL(_lib_path(name))
+        for fn, argtypes, restype in _EXPORTS[name]:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
         return lib
 
 
-def error_string(err: int) -> str:
-    return f"{err} ({load().c2rt_error_string(err).decode()})"
+def load_all() -> None:
+    """Build (in parallel) and load every kernel's library."""
+    for name in SOURCES:
+        load(name)
+
+
+def error_string(name: str, err: int) -> str:
+    return f"{err} ({load(name).c2rt_error_string(err).decode()})"

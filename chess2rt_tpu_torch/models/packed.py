@@ -444,6 +444,46 @@ def pack_scene(
     return packed, static
 
 
+# The fixed order of a ScenePacked's tensor leaves: every ScenePacked field
+# but the camera, then every CameraPacked field as "camera.<field>" (the
+# keys of from_numpy / to_numpy).  The round-0 autograd Function, fit() and
+# the checkpoints all flatten a scene in this order.
+_SCENE_FIELDS = tuple(f.name for f in dataclasses.fields(ScenePacked) if f.name != "camera")
+_CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(CameraPacked))
+LEAF_NAMES = _SCENE_FIELDS + tuple(f"camera.{k}" for k in _CAMERA_FIELDS)
+
+
+def leaves(packed: ScenePacked) -> list:
+    """The scene's tensor leaves in LEAF_NAMES order."""
+    return [getattr(packed, k) for k in _SCENE_FIELDS] + [getattr(packed.camera, k) for k in _CAMERA_FIELDS]
+
+
+def from_leaves(values) -> ScenePacked:
+    """A ScenePacked from its leaves in LEAF_NAMES order."""
+    values = dict(zip(LEAF_NAMES, values, strict=True))
+    return ScenePacked(
+        **{k: values[k] for k in _SCENE_FIELDS},
+        camera=CameraPacked(**{k: values[f"camera.{k}"] for k in _CAMERA_FIELDS}),
+    )
+
+
+def replace_leaves(packed: ScenePacked, values: Dict[str, torch.Tensor]) -> ScenePacked:
+    """A copy of ``packed`` with the leaves named in ``values`` (LEAF_NAMES
+    keys) replaced."""
+    cam = {k.split(".", 1)[1]: v for k, v in values.items() if k.startswith("camera.")}
+    rest = {k: v for k, v in values.items() if not k.startswith("camera.")}
+    unknown = (set(rest) - set(_SCENE_FIELDS)) | (set(cam) - set(_CAMERA_FIELDS))
+    if unknown:
+        raise KeyError(f"replace_leaves: unknown leaves {sorted(unknown)}")
+    return dataclasses.replace(packed, **rest, camera=dataclasses.replace(packed.camera, **cam))
+
+
+def to_numpy(packed: ScenePacked) -> Dict[str, np.ndarray]:
+    """The inverse of from_numpy: {LEAF_NAMES key: numpy array}.  A
+    ScenePacked of gradients carries them across to numpy the same way."""
+    return {k: v.detach().cpu().numpy() for k, v in zip(LEAF_NAMES, leaves(packed))}
+
+
 def from_numpy(
     leaves: Dict[str, np.ndarray], static: SceneStatic, device="cpu"
 ) -> ScenePacked:
@@ -451,9 +491,7 @@ def from_numpy(
     ScenePacked field name to its array, and every CameraPacked field to
     ``"camera.<field>"`` — e.g. the leaves of the JAX package's ScenePacked,
     made into numpy.  Shapes are checked against ``static``."""
-    scene_fields = [f.name for f in dataclasses.fields(ScenePacked) if f.name != "camera"]
-    cam_fields = [f.name for f in dataclasses.fields(CameraPacked)]
-    want = set(scene_fields) | {f"camera.{k}" for k in cam_fields}
+    want = set(LEAF_NAMES)
     if set(leaves) != want:
         raise ValueError(
             f"from_numpy: missing {sorted(want - set(leaves))}, unknown {sorted(set(leaves) - want)}"
@@ -463,8 +501,8 @@ def from_numpy(
         return torch.from_numpy(np.array(leaves[name], copy=True)).to(device)
 
     packed = ScenePacked(
-        **{k: t(k) for k in scene_fields},
-        camera=CameraPacked(**{k: t(f"camera.{k}") for k in cam_fields}),
+        **{k: t(k) for k in _SCENE_FIELDS},
+        camera=CameraPacked(**{k: t(f"camera.{k}") for k in _CAMERA_FIELDS}),
     )
     nn = len(static.nodes)
     checks = {

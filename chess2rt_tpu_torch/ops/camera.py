@@ -1,9 +1,11 @@
-"""Device-side camera: the frame's screen corners (camera.d:77-117).
+"""Device-side camera: the frame's screen corners and pinhole rays
+(camera.d:77-147).
 
-Counterpart of chess2rt_tpu/ops/camera.py, uncompensated branch only (the
-df32 ``compensated_raygen`` opt-in is ROADMAP.md queue 1 item 10).  The op
-order is the JAX package's: the round-0 kernel's camera slot is built from
-these corners, and a reordered product moves knife-edge pixels.
+Counterpart of chess2rt_tpu/ops/camera.py, uncompensated pinhole branch
+only (the df32 ``compensated_raygen`` opt-in is ROADMAP.md queue 1 item 10,
+DoF and stereo item 7).  The op order is the JAX package's: the round-0
+kernel's camera slot is built from these corners, and a reordered product
+moves knife-edge pixels and camera gradients.
 """
 
 from __future__ import annotations
@@ -63,3 +65,24 @@ def begin_frame(cam: CameraPacked, aspect: float):
         "front_dir": rot[2],
         "pos": cam.pos,
     }
+
+
+def _norm(v):
+    return v / torch.sqrt((v * v).sum(-1, keepdim=True))
+
+
+def screen_rays(cam: CameraPacked, frame, width: float, height: float, x, y):
+    """Pinhole getScreenRay over a batch of (possibly fractional) pixel
+    coordinates (camera.d:119-147): -> (orig, dir), each [..., 3].  The
+    pos-free corners are interpolated (see begin_frame), so differentiable
+    in every camera leaf the corners depend on."""
+    fx = (x / width)[..., None]
+    fy = (y / height)[..., None]
+    target_rel = (
+        frame["up_left_rel"]
+        + (frame["up_right_rel"] - frame["up_left_rel"]) * fx
+        + (frame["down_left_rel"] - frame["up_left_rel"]) * fy
+    )
+    dir = _norm(target_rel)
+    orig = torch.broadcast_to(frame["pos"], target_rel.shape)
+    return orig, dir

@@ -17,6 +17,12 @@ acceptable in bring-up; a later PR can keep the decision on the device.
 Every round-0 call goes through one function, ``trace``: the wrapper
 ``round0`` by default (the CUDA kernel for CUDA tensors), or its plain
 version ``round0_reference`` to render the same frame without the kernel.
+When a gradient of the scene is wanted (decided once per frame by
+``round0_call``), each call goes through ``round0_grad.diff_round0``
+around ``trace``: K1's residual form forward, the leaf-pinned re-shade
+backward, so the frame is differentiable in every ScenePacked leaf (the
+in-place ``index_add_`` and aa-slot writes below are on tensors autograd
+tracks).  A forward frame calls ``trace`` directly.
 ``bounce_rounds`` counts the bounce rounds run, so a caller can tell how
 many kernel launches a frame should have made.
 """
@@ -25,9 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from ..models.packed import REFLECTION, REFRACTION, TEX_BITMAP, ScenePacked, SceneStatic
+from ..models.packed import REFLECTION, REFRACTION, TEX_BITMAP, ScenePacked, SceneStatic, leaves
 from . import shade as S
 from .round0 import BOUNCE_BLOCK, TILE_N, layout, round0
+from .round0_grad import diff_round0
 
 # bounce rounds run (each is one round-0 call); callers zero and read it
 bounce_rounds = 0
@@ -61,12 +68,22 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
     return color, cont, atten, ro, rd
 
 
-def _round(packed, static, lay, prm, carry, trace):
+def round0_call(packed: ScenePacked, trace=round0):
+    """The frame's round-0 call ``(lay, prm[, orig, dir]) -> outputs``:
+    ``trace`` itself, or ``diff_round0`` around it when grad mode is on and
+    a leaf of ``packed`` requires grad.  Decided once per frame, so a
+    forward frame pays nothing per call for the gradient machinery."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in leaves(packed)):
+        return lambda lay, prm, *rays: diff_round0(lay, prm, packed, *rays, trace=trace)
+    return trace
+
+
+def _round(packed, static, lay, prm, carry, call):
     """One bounce round through the ray-input kernel."""
     global bounce_rounds
     bounce_rounds += 1
     color, at, a, o3, d3 = carry
-    o = trace(lay, prm, o3.contiguous(), d3.contiguous())
+    o = call(lay, prm, o3.contiguous(), d3.contiguous())
     c, cont, mult, ro, rd = combine_outputs(packed, static, o)
     color = color + torch.where(a[..., None], at * c, 0.0)
     cont = cont & a
@@ -76,10 +93,11 @@ def _round(packed, static, lay, prm, carry, trace):
     return color, at, cont, o3, d3
 
 
-def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes: int, trace=round0):
+def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes: int):
     """Reflection/refraction bounce rounds for an ``n_lanes``-wide ray
-    buffer: returns ``finish(packed, prm, color, cont, atten, ro, rd)``,
-    with ``prm`` the frame's packed parameters at aa offset (0, 0)."""
+    buffer: returns ``finish(packed, prm, color, cont, atten, ro, rd,
+    call)``, with ``prm`` the frame's packed parameters at aa offset (0, 0)
+    and ``call`` the frame's round-0 call (``round0_call``)."""
     from ..render.pipeline import compact_indices
 
     has_refl = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
@@ -95,16 +113,16 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         cap_blk = static.bounce_block_capacity or -(-nblk // 12)
         cap_blk = max(lanes_per_tile, -(-cap_blk // lanes_per_tile) * lanes_per_tile)
 
-    def fullwidth_bounces(packed, prm, color, atten, alive, orig, dir, n_rounds):
+    def fullwidth_bounces(packed, prm, color, atten, alive, orig, dir, n_rounds, call):
         """Bounce rounds at full width; all-dead rounds are skipped."""
         carry = (color, atten, alive, orig, dir)
         for _ in range(n_rounds):
             if not bool(carry[2].any()):  # host sync (see module docstring)
                 break
-            carry = _round(packed, static, lay, prm, carry, trace)
+            carry = _round(packed, static, lay, prm, carry, call)
         return carry[0]
 
-    def block_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds):
+    def block_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call):
         """Bounce rounds on a BLOCK-compacted buffer: whole 128-lane blocks
         with any live lane are gathered, rounds run through the ray-input
         kernel at that width, and results add back into their blocks.
@@ -117,7 +135,7 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         blk_alive = alive.reshape(nblk, B).any(dim=1)
         count = int(blk_alive.sum())  # host sync (see module docstring)
         if count > cap_blk:
-            return fullwidth_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds)
+            return fullwidth_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call)
         if count == 0:
             return color
         sel = compact_indices(blk_alive, nblk, cap_blk)[:count].long()
@@ -132,17 +150,17 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         for _ in range(n_rounds):
             if not bool(carry[2].any()):  # host sync (see module docstring)
                 break
-            carry = _round(packed, static, lay, prm, carry, trace)
+            carry = _round(packed, static, lay, prm, carry, call)
         out = color.reshape(nblk, B, 3).clone()
         out.index_add_(0, sel, carry[0].reshape(count, B, 3))
         return out.reshape(n, 3)
 
-    def finish(packed, prm, color, cont, atten, ro, rd):
+    def finish(packed, prm, color, cont, atten, ro, rd, call):
         if not has_refl:
             return color
         if block_bounce:
-            return block_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1)
-        return fullwidth_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1)
+            return block_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
+        return fullwidth_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
 
     return finish
 
@@ -157,28 +175,29 @@ def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=
 
     n = width * height
     lay = layout(static, width, height)
-    finish = build_bounce_finisher(static, width, height, n, trace)
+    finish = build_bounce_finisher(static, width, height, n)
     a0 = lay.off["aa"]
 
-    def render_tap(packed: ScenePacked, prm0, prm_tap):
-        o = trace(lay, prm_tap)
+    def render_tap(packed: ScenePacked, prm0, prm_tap, call):
+        o = call(lay, prm_tap)
         color, cont, atten, ro, rd = combine_outputs(packed, static, o)
-        return finish(packed, prm0, color, cont, atten, ro, rd)
+        return finish(packed, prm0, color, cont, atten, ro, rd, call)
 
     def render(packed: ScenePacked):
         prm0 = lay.pack(packed)
+        call = round0_call(packed, trace)
         if not static.aa_enabled:
-            return render_tap(packed, prm0, prm0).reshape(height, width, 3)
+            return render_tap(packed, prm0, prm0, call).reshape(height, width, 3)
         # the 5 taps' parameter vectors differ only in the aa slot
         offsets = torch.tensor(((0.0, 0.0),) + AA_KERNEL, dtype=torch.float32, device=prm0.device)
         prms = prm0.repeat(len(offsets), 1)
         prms[:, a0:a0 + 2] = offsets
         img = torch.zeros((n, 3), dtype=torch.float32, device=prm0.device)
         for k in range(len(offsets)):
-            img = img + render_tap(packed, prm0, prms[k])
+            img = img + render_tap(packed, prm0, prms[k], call)
         return (img / 5.0).reshape(height, width, 3)
 
     render.tap = lambda packed, aa_offset=(0.0, 0.0): render_tap(
-        packed, lay.pack(packed), lay.pack(packed, aa_offset)
+        packed, lay.pack(packed), lay.pack(packed, aa_offset), round0_call(packed, trace)
     )
     return render

@@ -59,13 +59,13 @@ EPS_SHADOW = 1e-3  # f32 self-intersection offset (ops/shade.shadow_eps)
 # per-thread hit-list capacity compiled into csrc/round0.cu (MAX_HITS there)
 MAX_HITS = 16
 
-# kernel launches made by ``round0`` (the CUDA path only); chip_smoke.py
-# zeroes it before driving the main path and reads it after
+# kernel launches made by ``round0`` (the CUDA path only): every launch, and
+# those of them that also wrote the residual rows (want_hit / want_vis);
+# chip_smoke.py zeroes both before driving a path and reads them after
 launches = 0
+resid_launches = 0
 
 _TODO_LIN = "the lin-input form is not ported yet (ROADMAP.md §2, K1 lin-input form)"
-_TODO_HIT = "want_hit outputs are not ported yet (ROADMAP.md §2, K1 want_hit form)"
-_TODO_VIS = "want_vis outputs are not ported yet (ROADMAP.md §2, K1 want_vis form)"
 
 
 def supports(static: SceneStatic) -> bool:
@@ -309,26 +309,27 @@ def make_packer(static: SceneStatic, width: int, height: int):
 # --------------------------------------------------------------------------
 
 # header slots; keep in sync with the H_* constants in csrc/round0.cu
-PROGRAM_VERSION = 1
+PROGRAM_VERSION = 2
 (H_VERSION, H_NODES, H_LIGHTS, H_CAM, H_AMBIENT, H_AA, H_LIN, H_FLAGS,
  H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB) = range(12)
 HEADER = 16
 NODE_STRIDE = 10
 INSTR_STRIDE = 8
-# flags
-F_PHONG, F_REFR, F_EMIT_L, F_CONT = 1, 2, 4, 8
+# flags; F_HIT / F_VIS add the residual rows (want_hit / want_vis)
+F_PHONG, F_REFR, F_EMIT_L, F_CONT, F_HIT, F_VIS = 1, 2, 4, 8, 16, 32
 # transform kinds, leaf/CSG opcodes, CSG ops
 X_IDENT, X_OFFSET, X_MATRIX = 0, 1, 2
 OP_PLANE, OP_SPHERE, OP_CUBE, OP_CSG = 0, 1, 2, 3
 CSG_OPS = {"union": 0, "inter": 1, "diff": 2}
 
 
-def scene_program(static: SceneStatic, off: dict, expr_tables) -> np.ndarray:
+def scene_program(static: SceneStatic, off: dict, expr_tables, want_hit=False, want_vis=False) -> np.ndarray:
     """Encode the scene's structure as an int32 table (layout in
     csrc/round0.cu): a header, one NODE_STRIDE record per node, the
     geometry expressions as postfix instructions, and the compare-exchange
     pairs of every CSG merge.  Parameters stay in the packer's f32 vector;
-    this table only says where they are and what to do with them."""
+    this table only says where they are and what to do with them.  The
+    flags also select the output rows, the residual ones included."""
     for i, ns in enumerate(static.nodes):
         if max_hits(ns.geom) > MAX_HITS:
             raise ValueError(
@@ -373,10 +374,14 @@ def scene_program(static: SceneStatic, off: dict, expr_tables) -> np.ndarray:
         flags |= F_PHONG
     if REFRACTION in kinds:
         flags |= F_REFR
-    if TEX_BITMAP in static.tex_kinds_present:
+    if TEX_BITMAP in static.tex_kinds_present or want_hit:
         flags |= F_EMIT_L
     if kinds & {REFLECTION, REFRACTION}:
         flags |= F_CONT
+    if want_hit:
+        flags |= F_HIT
+    if want_vis:
+        flags |= F_VIS
 
     lights = [off[f"light{li}"] for li in range(static.n_lights)]
     light_tab = HEADER
@@ -418,6 +423,12 @@ class Round0Layout:
     names: Tuple[str, ...]  # float output rows, in order ("win" is separate)
     emit_L: bool
     has_cont: bool
+    want_hit: bool = False
+    want_vis: bool = False
+
+    @property
+    def residual(self) -> bool:
+        return self.want_hit or self.want_vis
 
     def program_on(self, device) -> torch.Tensor:
         return _program_tensor(self, torch.device(device))
@@ -429,24 +440,36 @@ def _program_tensor(lay: Round0Layout, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def layout(static: SceneStatic, width: int, height: int) -> Round0Layout:
+def layout(static: SceneStatic, width: int, height: int, want_hit: bool = False,
+           want_vis: bool = False) -> Round0Layout:
     """The round-0 layout of a scene structure at a frame size (cached by
-    the hashable SceneStatic, like the JAX package's kernel builds)."""
+    the hashable SceneStatic, like the JAX package's kernel builds).
+
+    ``want_hit`` adds the rows t, nx, ny, nz (the winning hit's distance
+    and raw, pre-faceforward normal) and dr, dg, db (the in-kernel diffuse
+    color), and turns on the light-sum and u, v rows; ``want_vis`` adds one
+    0/1 shadow-visibility row per light.  Row order is the JAX kernel's
+    (pallas_trace.py:1039-1052)."""
     if not _supports_scene(static):
         raise ValueError("round0: the fused kernel does not cover this scene (see supports())")
     pack, off, expr_tables, n_prm = make_packer(static, width, height)
-    emit_L = TEX_BITMAP in static.tex_kinds_present
+    emit_L = TEX_BITMAP in static.tex_kinds_present or want_hit
     has_cont = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
     names = ["r", "g", "b"]
     if emit_L:
         names += ["lr", "lg", "lb", "u", "v"]
     if has_cont:
         names += ["rox", "roy", "roz", "rdx", "rdy", "rdz"]
+    if want_hit:
+        names += ["t", "nx", "ny", "nz", "dr", "dg", "db"]
+    if want_vis:
+        names += [f"vis{li}" for li in range(static.n_lights)]
     return Round0Layout(
         static=static, width=width, height=height, pack=pack, off=off,
         expr_tables=tuple(expr_tables), n_prm=n_prm,
-        program=scene_program(static, off, expr_tables),
+        program=scene_program(static, off, expr_tables, want_hit, want_vis),
         names=tuple(names), emit_L=emit_L, has_cont=has_cont,
+        want_hit=want_hit, want_vis=want_vis,
     )
 
 
@@ -914,6 +937,7 @@ def round0_reference(lay: Round0Layout, prm: torch.Tensor, orig=None, dir=None) 
     sx = hpx + nx * EPS_SHADOW
     sy = hpy + ny * EPS_SHADOW
     sz = hpz + nz * EPS_SHADOW
+    vis_rows = {}
     for li in range(static.n_lights):
         lbase = off[f"light{li}"]
         lx, ly, lz = p(lbase), p(lbase + 1), p(lbase + 2)
@@ -930,6 +954,8 @@ def round0_reference(lay: Round0Layout, prm: torch.Tensor, orig=None, dir=None) 
         for i in range(len(static.nodes)):
             occ = occ | (node_min_dist(i, sx, sy, sz, sdx, sdy, sdz) <= target)
         vis = ~occ
+        if lay.want_vis:
+            vis_rows[f"vis{li}"] = torch.where(vis, 1.0, 0.0)
         cos_t = ldx * nx + ldy * ny + ldz * nz
         gate = vis & (cos_t > 0)
         w = torch.where(gate, cos_t / dist2, 0.0)
@@ -1017,6 +1043,9 @@ def round0_reference(lay: Round0Layout, prm: torch.Tensor, orig=None, dir=None) 
             coy = torch.where(is_refr, rfoy, coy)
             coz = torch.where(is_refr, rfoz, coz)
         out.update(rox=cox, roy=coy, roz=coz, rdx=cdx, rdy=cdy, rdz=cdz)
+    if lay.want_hit:
+        out.update(t=hit["t"], nx=hit["nx"], ny=hit["ny"], nz=hit["nz"], dr=dr, dg=dg, db=db)
+    out.update(vis_rows)
     return out
 
 
@@ -1039,15 +1068,16 @@ def round0(
     (N = width * height lanes, ray-gen in-kernel from the camera slot and
     the aa offset in ``prm``), ray-input form with ``orig``/``dir`` [N, 3].
 
+    ``want_hit`` / ``want_vis`` add the residual rows (see ``layout``); a
+    layout built with them does the same.
+
     ``prm`` on a CUDA device launches csrc/round0.cu (or raises); on the
     CPU it runs ``round0_reference``.  There is no fallback between the two.
     Returns the same dict as ``round0_reference``."""
     if lin_input:
         raise NotImplementedError(_TODO_LIN)
-    if want_hit:
-        raise NotImplementedError(_TODO_HIT)
-    if want_vis:
-        raise NotImplementedError(_TODO_VIS)
+    if want_hit or want_vis:
+        lay = layout(lay.static, lay.width, lay.height, lay.want_hit or want_hit, lay.want_vis or want_vis)
     if (orig is None) != (dir is None):
         raise ValueError("round0: pass both orig and dir (ray-input form) or neither (screen-tap form)")
     if prm.device.type == "cpu":
@@ -1072,7 +1102,7 @@ def _check(name, t, dtype, shape, device):
 
 def _round0_cuda(lay, prm, orig=None, dir=None):
     """Check the inputs, allocate the outputs and launch csrc/round0.cu."""
-    global launches
+    global launches, resid_launches
     from .. import cuda_build
 
     dev = prm.device
@@ -1085,7 +1115,7 @@ def _round0_cuda(lay, prm, orig=None, dir=None):
         _check("dir", dir, torch.float32, (n, 3), dev)
     if n >= 2**31:
         raise ValueError(f"round0: {n} lanes exceed the kernel's int32 lane index")
-    lib = cuda_build.load()
+    lib = cuda_build.load("round0")
     if lib.c2rt_program_version() != PROGRAM_VERSION:
         raise RuntimeError("round0: csrc/round0.cu and scene_program() disagree on the program layout")
     prog = lay.program_on(dev)
@@ -1106,8 +1136,9 @@ def _round0_cuda(lay, prm, orig=None, dir=None):
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"round0: kernel launch failed: {cuda_build.error_string(err)}")
+        raise RuntimeError(f"round0: kernel launch failed: {cuda_build.error_string('round0', err)}")
     launches += 1
+    resid_launches += lay.residual
     res = dict(zip(lay.names, out.unbind(0)))
     res["win"] = win
     return res

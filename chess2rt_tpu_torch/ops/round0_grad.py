@@ -1,0 +1,422 @@
+"""The differentiable round-0 call: K1 forward, leaf-pinned re-shade backward.
+
+Counterpart of chess2rt_tpu/ops/pallas_grad.py (``build_diff_round0`` with
+``pin_mode="leaf"``, its screen-tap and ray-input forms):
+
+* **forward** = K1 itself.  With grad mode off, or no input requiring a
+  gradient, it is the plain call (``round0``, no residual rows), so a
+  forward frame does exactly what it did before.  Under differentiation
+  the forward runs K1's residual form (``want_hit`` and ``want_vis``): the
+  same lanes plus the winning ``t``, the raw normal and one shadow bit per
+  light.
+* **backward** = the vector-Jacobian product of a torch re-shade that
+  recomputes K1's continuous math with its discrete decisions pinned to the
+  kernel's own:
+    - the winning node ``win`` and, matched once on stop-gradient values
+      against every leaf's closed-form roots, the winning leaf and root or
+      face (``compute_leaf_pins``), so the recompute is one closed form per
+      leaf (``leaf_pinned_record``): no CSG walk, no sort network;
+    - the shadow bits, so no shadow scan runs (their derivative is zero).
+  Camera cotangents flow through the ray-gen twin (``_gen_rays``); the
+  ray-input form also returns cotangents for ``orig`` and ``dir``, so the
+  bounce chain is differentiated.
+
+``diff_round0`` is the entry point; its autograd Function takes the
+ScenePacked leaves in models/packed.LEAF_NAMES order.  The full-scan
+``pin_mode="node"``, the lin-input form and the bump hybrid
+(``build_bump_round0``) are not ported (ROADMAP.md queue 1 items 5, 6, 9).
+
+Discrete-pin caveat (as in the JAX package): on knife-edge lanes where the
+kernel's float decisions and the recompute's would differ, the gradient
+follows the kernel's decision.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.packed import (
+    LAMBERT,
+    PHONG,
+    REFLECTION,
+    REFRACTION,
+    TEX_BITMAP,
+    TEX_CHECKER,
+    TEX_PROC2,
+    ScenePacked,
+    SceneStatic,
+    from_leaves,
+    leaf_table,
+    leaves,
+)
+from . import geometry as G
+from . import shade as S
+from .camera import begin_frame, screen_rays
+from .round0 import EPS_SHADOW, INF, Round0Layout, _rsqrt, layout, round0
+
+_norm = G._norm
+dot = G.dot
+
+# --------------------------------------------------------------------------
+# The re-shade with pinned discrete structure
+# --------------------------------------------------------------------------
+
+
+def _node_space(packed, static, i, orig, dir):
+    """Node-i canonic-space rays (the node.d:51-67 round trip): returns
+    (orig_l, dir_l, inv_dl, m_inv); inv_dl/m_inv are None for
+    identity/offset-only nodes (no dist rescale, no normal transform)."""
+    ns = static.nodes[i]
+    if ns.identity_transform:
+        return orig, dir, None, None
+    offset = packed.node_offset[i]
+    if ns.offset_only:
+        return orig - offset, dir, None, None
+    m_inv = torch.linalg.inv_ex(packed.node_matrix[i])[0]
+    co = (orig - offset) @ m_inv
+    cd = dir @ m_inv
+    dlen = torch.sqrt(torch.clamp_min(dot(cd, cd), 1e-30))
+    return co, cd / dlen[..., None], 1.0 / dlen, m_inv
+
+
+def _leaf_candidates(packed, kind, k, o_l, d_l):
+    """Closed-form candidate distances of one leaf in LOCAL units, INF-masked
+    like the intersectors; one (dist, sel) pair per solution branch (plane:
+    1; sphere: the two roots; cube: the six faces)."""
+    if kind == "plane":
+        rec = G.plane_closest(packed.plane_y[k], packed.plane_limit[k], o_l, d_l)
+        return [(rec["dist"], 0)]
+    if kind == "sphere":
+        has, x1, x2 = G._sphere_roots(packed.sphere_center[k], packed.sphere_r[k], o_l, d_l)
+        return [
+            (torch.where(has & (x2 >= 0), x2, INF), 0),
+            (torch.where(has & (x1 >= 0), x1, INF), 1),
+        ]
+    faces = G._cube_face_candidates(packed.cube_center[k], packed.cube_side[k], o_l, d_l)
+    return [(faces["dist"][..., fi], fi) for fi in range(6)]
+
+
+def compute_leaf_pins(packed, static, orig, dir, win, t_pin):
+    """(gleaf, sel) int32 pins: which global leaf (models/packed.leaf_table
+    numbering) and which of its solution branches produced the kernel's
+    winning hit, by nearest-|t| matching against the saved winning distance.
+    Forward-only compare-selects: callers run it under torch.no_grad()."""
+    lvs, _ = leaf_table(static)
+    best = torch.full(win.shape, INF, dtype=t_pin.dtype, device=win.device)
+    gleaf = torch.zeros(win.shape, dtype=torch.int32, device=win.device)
+    sel = torch.zeros(win.shape, dtype=torch.int32, device=win.device)
+    space = {}
+    for g, (i, kind, k) in enumerate(lvs):
+        if i not in space:
+            space[i] = _node_space(packed, static, i, orig, dir)
+        o_l, d_l, inv_dl, _ = space[i]
+        for t_loc, s in _leaf_candidates(packed, kind, k, o_l, d_l):
+            t_w = t_loc if inv_dl is None else torch.where(t_loc >= INF, INF, t_loc * inv_dl)
+            err = torch.where(win == i, torch.abs(t_w - t_pin), INF)
+            better = err < best
+            best = torch.where(better, err, best)
+            gleaf = torch.where(better, g, gleaf)
+            sel = torch.where(better, s, sel)
+    return gleaf, sel
+
+
+def leaf_pinned_record(packed, static, orig, dir, gleaf, sel, n_pin):
+    """Differentiable winning-hit record (dist, normal, u, v) rebuilt from
+    the pinned (leaf, solution) ids: one primitive's closed form per ray,
+    selected across the static leaf list.  The CsgDiff eaten-surface normal
+    flip (geometry.d:377-397) is recovered by sign-matching against the
+    kernel's saved raw normal ``n_pin`` (on stop-gradient values)."""
+    lvs, _ = leaf_table(static)
+    rec = None
+    space = {}
+    keys = ("dist", "normal", "u", "v")
+    for g, (i, kind, k) in enumerate(lvs):
+        if i not in space:
+            space[i] = _node_space(packed, static, i, orig, dir)
+        o_l, d_l, inv_dl, m_inv = space[i]
+        if kind == "plane":
+            cand = G.plane_closest(packed.plane_y[k], packed.plane_limit[k], o_l, d_l)
+        elif kind == "sphere":
+            c, r = packed.sphere_center[k], packed.sphere_r[k]
+            has, x1, x2 = G._sphere_roots(c, r, o_l, d_l)
+            t = torch.where(sel == 1, x1, x2)
+            ok = has & (t >= 0)
+            cand = G._sphere_record(c, r, o_l, d_l, torch.where(ok, t, 0.0))
+            cand["dist"] = torch.where(ok, t, INF)
+        else:  # cube: the pinned face
+            faces = G._cube_face_candidates(packed.cube_center[k], packed.cube_side[k], o_l, d_l)
+            cand = {
+                "dist": faces["dist"][..., 0],
+                "normal": faces["normal"][..., 0, :],
+                "u": faces["u"][..., 0],
+                "v": faces["v"][..., 0],
+            }
+            for fi in range(1, 6):
+                m = sel == fi
+                cand = {
+                    "dist": torch.where(m, faces["dist"][..., fi], cand["dist"]),
+                    "normal": torch.where(m[..., None], faces["normal"][..., fi, :], cand["normal"]),
+                    "u": torch.where(m, faces["u"][..., fi], cand["u"]),
+                    "v": torch.where(m, faces["v"][..., fi], cand["v"]),
+                }
+        if inv_dl is not None:
+            miss = cand["dist"] >= INF
+            cand["dist"] = torch.where(miss, INF, cand["dist"] * inv_dl)
+            cand["normal"] = _norm(cand["normal"] @ m_inv.T)
+        m = gleaf == g
+        if rec is None:
+            rec = {key: cand[key] for key in keys}
+        else:
+            rec = {
+                key: torch.where(m if cand[key].dim() == m.dim() else m[..., None], cand[key], rec[key])
+                for key in keys
+            }
+    flip = torch.where(dot(n_pin, rec["normal"].detach()) < 0, -1.0, 1.0)
+    rec["normal"] = rec["normal"] * flip[..., None]
+    return rec
+
+
+def _diffuse_nobitmap(packed, static, winc, u, v, onehot):
+    """texture_color minus the bitmap branch: K1 defers bitmap texels to the
+    combine step and emits dr = 0 for bitmap nodes, so the re-shade does
+    the same."""
+    tk = S.tex_kind_of(static, winc)
+    out = S.node_gather(onehot, packed.mat_color)
+    present = static.tex_kinds_present
+
+    if TEX_CHECKER in present:
+        size = S.node_gather(onehot, packed.checker_size)
+        x = torch.floor(u / size).to(torch.int32)
+        y = torch.floor(v / size).to(torch.int32)
+        white = ((x + y) & 1).to(torch.bool)
+        checker = torch.where(
+            white[..., None],
+            S.node_gather(onehot, packed.checker_c2),
+            S.node_gather(onehot, packed.checker_c1),
+        )
+        out = torch.where((tk == TEX_CHECKER)[..., None], checker, out)
+
+    if TEX_PROC2 in present:
+        su = torch.sin(u[..., None] * S.node_gather(onehot, packed.proc2_freq_u))
+        sv = torch.sin(v[..., None] * S.node_gather(onehot, packed.proc2_freq_v))
+        proc = (S.node_gather(onehot, packed.proc2_color_u) * su[..., None]).sum(-2) + (
+            S.node_gather(onehot, packed.proc2_color_v) * sv[..., None]
+        ).sum(-2)
+        out = torch.where((tk == TEX_PROC2)[..., None], proc, out)
+
+    if TEX_BITMAP in present:
+        out = torch.where((tk == TEX_BITMAP)[..., None], 0.0, out)
+    return out
+
+
+def reshade(packed: ScenePacked, static: SceneStatic, orig, dir, win, vis_list, rec_pins):
+    """Differentiable torch recompute of K1's float outputs given the pinned
+    (win, vis) and leaf pins ``rec_pins`` = (gleaf, sel, n_pin): the same
+    keys as the plain layout, minus ``win``.  ``vis_list`` holds one bool
+    [N] mask per light."""
+    rec = leaf_pinned_record(packed, static, orig, dir, *rec_pins)
+    return _shade_pinned(packed, static, orig, dir, win, vis_list, rec)
+
+
+def _shade_pinned(packed, static, orig, dir, win, vis_list, rec):
+    """The shading half of ``reshade``: direct light, continuation and the
+    output rows for a given winning-hit record, in K1's op order."""
+    has_bitmap = TEX_BITMAP in static.tex_kinds_present
+    has_refr = REFRACTION in static.shader_kinds_present
+    has_cont = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
+    has_phong = PHONG in static.shader_kinds_present
+
+    hitmask = win >= 0
+    winc = torch.clamp_min(win, 0)
+    onehot = S.node_onehot(static, winc)
+
+    # world hit point from the winning t.  Dead lanes, and knife-edge lanes
+    # where the kernel hit what the recompute just misses (dist == INF), are
+    # clamped to t = 0: the forward masks them out either way, but an INF
+    # here would send NaN cotangents through the untaken where-branches
+    t_ok = hitmask & (rec["dist"] < INF)
+    ts = torch.where(t_ok, rec["dist"], 0.0)
+    hp = orig + dir * ts[..., None]
+
+    # faceforward (imported_types.d:69-73), kernel-style sign select
+    ndotd = dot(dir, rec["normal"])
+    sgn = torch.where(ndotd < 0, 1.0, -1.0)
+    N = rec["normal"] * sgn[..., None]
+    sfrom = hp + N * EPS_SHADOW
+
+    diffuse = _diffuse_nobitmap(packed, static, winc, rec["u"], rec["v"], onehot)
+
+    # direct light; the shadow scans are replaced by the pinned bits
+    L = torch.broadcast_to(packed.ambient, hp.shape)
+    spec = torch.zeros_like(hp) if has_phong else None
+    if has_phong:
+        exponent = S.node_gather(onehot, packed.mat_exponent)
+        strength = S.node_gather(onehot, packed.mat_strength)
+    for li in range(static.n_lights):
+        lc = packed.light_color[li] * packed.light_power[li]
+        vis = vis_list[li]
+        to_l = packed.light_pos[li] - hp
+        dist2 = dot(to_l, to_l)
+        ldir = to_l * _rsqrt(dist2)[..., None]
+        cos_t = dot(ldir, N)
+        w = torch.where(vis & (cos_t > 0), cos_t / dist2, 0.0)
+        L = L + lc * w[..., None]
+        if has_phong:
+            # R = reflect(-lightDir, N); cosGamma = R . -d (shader.d:226-249).
+            # torch's pow derivative in the exponent is 0 where the base is
+            # 0 (not 0 * log 0), so the masked lanes stay finite
+            mdotn = dot(-ldir, N)
+            R = -ldir - 2.0 * mdotn[..., None] * N
+            R = R * _rsqrt(dot(R, R))[..., None]
+            cos_g = dot(R, -dir)
+            sw = torch.where(
+                vis & (cos_g > 0),
+                torch.pow(torch.clamp_min(cos_g, 0.0), exponent) * strength / dist2,
+                0.0,
+            )
+            spec = spec + lc * sw[..., None]
+
+    color = diffuse * L
+    if has_phong:
+        is_phong = S.shader_kind_of(static, winc) == PHONG
+        color = color + torch.where(is_phong[..., None], spec, 0.0)
+
+    is_direct = S.static_select(winc, [int(ns.shader_kind in (LAMBERT, PHONG)) for ns in static.nodes])
+    shaded = hitmask & is_direct.to(torch.bool)
+
+    out = {
+        "r": torch.where(shaded, color[..., 0], 0.0),
+        "g": torch.where(shaded, color[..., 1], 0.0),
+        "b": torch.where(shaded, color[..., 2], 0.0),
+    }
+    if has_bitmap:
+        out["lr"] = torch.where(shaded, L[..., 0], 0.0)
+        out["lg"] = torch.where(shaded, L[..., 1], 0.0)
+        out["lb"] = torch.where(shaded, L[..., 2], 0.0)
+        out["u"] = rec["u"]
+        out["v"] = rec["v"]
+
+    if has_cont:
+        # mirror continuation + single-sided refraction with TIR fallback
+        ddn = dot(dir, N)
+        rd = dir - 2.0 * ddn[..., None] * N
+        rd = rd * _rsqrt(dot(rd, rd))[..., None]
+        ro = sfrom
+        if has_refr:
+            rn = rec["normal"]
+            ior = S.node_gather(onehot, packed.mat_ior)
+            is_refr = S.shader_kind_of(static, winc) == REFRACTION
+            cos_in = -dot(dir, rn)
+            entering = cos_in > 0
+            eta = torch.where(entering, 1.0 / ior, ior)
+            nf = rn * torch.where(entering, 1.0, -1.0)[..., None]
+            ci = torch.abs(cos_in)
+            kk = 1.0 - eta * eta * (1.0 - ci * ci)
+            tir = kk < 0
+            # the TIR boundary (kk = 0): sqrt's derivative is infinite there
+            coef = eta * ci - G._safe_sqrt(torch.clamp_min(kk, 0.0))
+            f = eta[..., None] * dir + coef[..., None] * nf
+            f = f * _rsqrt(dot(f, f))[..., None]
+            rfd = torch.where(tir[..., None], rd, f)
+            rfo = torch.where(tir[..., None], hp + nf * EPS_SHADOW, hp - nf * EPS_SHADOW)
+            rd = torch.where(is_refr[..., None], rfd, rd)
+            ro = torch.where(is_refr[..., None], rfo, ro)
+        out["rox"], out["roy"], out["roz"] = ro.unbind(-1)
+        out["rdx"], out["rdy"], out["rdz"] = rd.unbind(-1)
+    return out
+
+
+def _gen_rays(packed, width, height, aa):
+    """Twin of K1's in-kernel ray-gen (ops/camera.screen_rays' op order)."""
+    n = width * height
+    frame = begin_frame(packed.camera, width / height)
+    dt = packed.camera.pos.dtype
+    lin = torch.arange(n, device=packed.device)
+    xs = (lin % width).to(dt) + aa[0]
+    ys = (lin // width).to(dt) + aa[1]
+    return screen_rays(packed.camera, frame, float(width), float(height), xs, ys)
+
+
+# --------------------------------------------------------------------------
+# The autograd Function
+# --------------------------------------------------------------------------
+
+
+class _DiffRound0(torch.autograd.Function):
+    """Inputs: (residual layout, primal row names, trace, prm, ray_input,
+    [orig, dir,] *leaves in LEAF_NAMES order).  Outputs: the primal rows in
+    ``names`` order, then ``win``."""
+
+    @staticmethod
+    def forward(ctx, lay_r: Round0Layout, names, trace, prm, ray_input, *tensors):
+        rays = tensors[:2] if ray_input else ()
+        o = trace(lay_r, prm, *rays)
+        win = o["win"]
+        vis = torch.stack([o[f"vis{li}"] for li in range(lay_r.static.n_lights)]) > 0.5
+        n_pin = torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1)
+        ctx.lay, ctx.names, ctx.ray_input = lay_r, names, ray_input
+        ctx.save_for_backward(prm, win, vis, o["t"], n_pin, *tensors)
+        ctx.mark_non_differentiable(win)
+        ctx.set_materialize_grads(False)
+        return tuple(o[k] for k in names) + (win,)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        prm, win, vis, t_pin, n_pin, *tensors = ctx.saved_tensors
+        lay, static = ctx.lay, ctx.lay.static
+        need = ctx.needs_input_grad[5:]
+        pairs = [(k, g) for k, g in zip(ctx.names, grads[:-1]) if g is not None]
+        result = [None] * len(tensors)
+        if not pairs or not any(need):
+            return (None,) * 5 + tuple(result)
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(nd) for t, nd in zip(tensors, need)]
+            nr = 2 if ctx.ray_input else 0
+            packed = from_leaves(xs[nr:])
+            if ctx.ray_input:
+                orig, dir = xs[0], xs[1]
+            else:
+                a0 = lay.off["aa"]
+                orig, dir = _gen_rays(packed, lay.width, lay.height, prm[a0:a0 + 2])
+            with torch.no_grad():
+                gleaf, sel = compute_leaf_pins(packed, static, orig, dir, win, t_pin)
+            out = reshade(packed, static, orig, dir, win, list(vis.unbind(0)), (gleaf, sel, n_pin))
+            pairs = [(out[k], g) for k, g in pairs if out[k].requires_grad]
+            wanted = [i for i, x in enumerate(xs) if x.requires_grad]
+            if pairs:
+                got = torch.autograd.grad(
+                    [o for o, _ in pairs], [xs[i] for i in wanted], [g for _, g in pairs], allow_unused=True
+                )
+                for i, g in zip(wanted, got):
+                    result[i] = g
+        return (None,) * 5 + tuple(result)
+
+
+def diff_round0(lay: Round0Layout, prm, packed: ScenePacked, orig=None, dir=None, *, trace=round0,
+                pin_mode: str = "leaf", lin_input: bool = False):
+    """The differentiable round-0 call: ``trace(lay, prm[, orig, dir])``
+    (K1 through ``round0``, or its plain version ``round0_reference``) with
+    gradients to every ScenePacked leaf and, in the ray-input form, to
+    ``orig`` and ``dir``.  ``prm`` must be ``lay.pack(packed, aa)``: the
+    forward reads the scene from it, the backward from ``packed``.  Returns
+    the dict ``trace`` returns for ``lay``."""
+    static = lay.static
+    if pin_mode != "leaf":
+        raise NotImplementedError(
+            'diff_round0: pin_mode="node" (the full-scan _pinned_record) is not ported (ROADMAP.md queue 1 item 5)'
+        )
+    if lin_input:
+        raise NotImplementedError("diff_round0: the lin-input form is not ported (ROADMAP.md queue 1 item 6)")
+    if static.has_bump:
+        raise NotImplementedError(
+            "diff_round0: bump scenes take the bump hybrid (build_bump_round0), not ported (ROADMAP.md queue 1 item 9)"
+        )
+    rays = () if orig is None else (orig, dir)
+    tensors = (*rays, *leaves(packed))
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return trace(lay, prm, *rays)
+    lay_r = layout(static, lay.width, lay.height, want_hit=True, want_vis=True)
+    outs = _DiffRound0.apply(lay_r, lay.names, trace, prm.detach(), bool(rays), *tensors)
+    res = dict(zip(lay.names, outs[:-1]))
+    res["win"] = outs[-1]
+    return res

@@ -5,7 +5,10 @@ flagship combine needs.  Material and texture parameters live in
 node-indexed tables and are picked by the per-ray winning-node id; bitmap
 texels are fetched as one 12-float quad row per ray from an unpadded flat
 quad table.  The JAX package gathered that row in XLA, outside any Pallas
-kernel, so here it is plain tensor indexing (``quad_gather_flat``).
+kernel, so here it is plain tensor indexing (``quad_gather_flat``).  Its
+backward is the texel-gradient custom VJP of the JAX package's
+``histogram`` mode: the cotangent rows sorted by texel key, then summed per
+key by the texel-histogram kernel K2 (ops/texel_hist.py).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..models.packed import ScenePacked, SceneStatic
+from .texel_hist import texel_histogram
 
 
 def static_select(winc, values, dtype=torch.int32):
@@ -97,17 +101,52 @@ def bitmap_plan(packed: ScenePacked, static: SceneStatic, winc, u, v, onehot=Non
     # would make the int cast undefined: pin them to texel 0
     ixi = torch.nan_to_num(ix, nan=0.0).to(torch.int32)
     iyi = torch.nan_to_num(iy, nan=0.0).to(torch.int32)
-    quads2d = _quad_atlas_flat(packed.bitmap_atlas, static.bitmap_sizes)
+    atlas = packed.bitmap_atlas
+    if not static.train_textures:
+        # no texel gradient (and no texel cotangents to pay for) when the
+        # atlas is not trained
+        atlas = atlas.detach()
+    quads2d = _quad_atlas_flat(atlas, static.bitmap_sizes)
     key = _quad_row_key(
         static.bitmap_sizes, winc, [max(n.bitmap_idx, 0) for n in static.nodes], ixi, iyi,
     )
     return quads2d, key, p, q
 
 
+class _QuadGather(torch.autograd.Function):
+    """``table[key]`` whose backward sums the cotangent rows per key: a
+    stable sort of the rows by key (JAX's ``lax.sort``, outside the kernel
+    there too), then K2 on the sorted runs."""
+
+    @staticmethod
+    def forward(ctx, table, key):
+        ctx.save_for_backward(key)
+        ctx.n_rows = table.shape[0]
+        return table[key.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (key,) = ctx.saved_tensors
+        if g.dtype != torch.float32:
+            raise NotImplementedError(
+                "quad_gather_flat: texel gradients of non-f32 tables are not ported yet "
+                "(ROADMAP.md queue 1 item 5, the texel-grad f64 path)"
+            )
+        kf = key.reshape(-1)
+        gf = g.reshape(kf.shape[0], g.shape[-1])
+        sk, perm = torch.sort(kf, stable=True)
+        return texel_histogram(sk, gf[perm].contiguous(), ctx.n_rows), None
+
+
 def quad_gather_flat(table, key):
-    """``table[key]`` for a flat [rows, C] quad table; out-of-range keys
-    clamp, like the JAX gather."""
-    return table[key.clamp(0, table.shape[0] - 1).long()]
+    """``table[key]`` for a flat [rows, C] quad table (int32 keys); out-of-
+    range keys clamp, like the JAX gather.  Differentiable in ``table``
+    through the texel-histogram VJP (plain indexing when no gradient is
+    wanted, which keeps a forward frame free of the Function's cost)."""
+    key = key.clamp(0, table.shape[0] - 1)
+    if not (table.requires_grad and torch.is_grad_enabled()):
+        return table[key.long()]
+    return _QuadGather.apply(table, key)
 
 
 def bitmap_color(packed: ScenePacked, static: SceneStatic, winc, u, v, onehot=None):

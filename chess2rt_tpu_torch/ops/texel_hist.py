@@ -1,0 +1,80 @@
+"""The texel-gradient histogram (K2): wrapper and plain version.
+
+Counterpart of chess2rt_tpu/ops/texel_hist.py.  The VJP of the bilinear
+quad gather (ops/shade.quad_gather_flat) sums the per-ray [N, C] cotangent
+rows into the flat quad table by texel key.  The caller sorts the rows by
+key; this sums each key's run:
+
+    dq[t] = sum of sorted_vals[i] over the rows with sorted_keys[i] == t
+
+with keys outside [0, n_texels) dropped (the JAX kernel's ``mode="drop"``
+parity).
+
+* ``texel_histogram`` launches csrc/texel_hist.cu for CUDA tensors (or
+  raises) and runs the plain version for CPU tensors.
+* ``texel_histogram_reference`` is the plain version: an ``index_add_`` of
+  the in-range rows into a zero table.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MAX_CHANNELS = 16  # the JAX kernel's CH; csrc/texel_hist.cu MAX_C
+
+# kernel launches made by ``texel_histogram`` (the CUDA path only)
+launches = 0
+
+
+def texel_histogram_reference(sorted_keys: torch.Tensor, sorted_vals: torch.Tensor, n_texels: int):
+    """The plain version: [n_texels, C] sums of the rows by key."""
+    keep = (sorted_keys >= 0) & (sorted_keys < n_texels)
+    out = torch.zeros((n_texels, sorted_vals.shape[1]), dtype=sorted_vals.dtype, device=sorted_vals.device)
+    return out.index_add_(0, sorted_keys[keep].long(), sorted_vals[keep])
+
+
+def _check(sorted_keys, sorted_vals):
+    if sorted_keys.dtype != torch.int32:
+        raise TypeError(f"texel_histogram: keys must be int32, got {sorted_keys.dtype}")
+    if sorted_vals.dtype != torch.float32:
+        raise TypeError(f"texel_histogram: values must be float32, got {sorted_vals.dtype}")
+    if sorted_keys.dim() != 1 or sorted_vals.dim() != 2 or sorted_vals.shape[0] != sorted_keys.shape[0]:
+        raise ValueError(
+            f"texel_histogram: want keys [N] and values [N, C], got {tuple(sorted_keys.shape)} "
+            f"and {tuple(sorted_vals.shape)}"
+        )
+    if not 0 < sorted_vals.shape[1] <= MAX_CHANNELS:
+        raise ValueError(f"texel_histogram: C = {sorted_vals.shape[1]} outside 1..{MAX_CHANNELS}")
+    if sorted_keys.device != sorted_vals.device:
+        raise ValueError(f"texel_histogram: keys on {sorted_keys.device}, values on {sorted_vals.device}")
+
+
+def texel_histogram(sorted_keys: torch.Tensor, sorted_vals: torch.Tensor, n_texels: int):
+    """sorted_keys [N] int32 (ascending), sorted_vals [N, C <= 16] f32 ->
+    [n_texels, C] f32.  CUDA tensors launch K2 or raise; CPU tensors run
+    the plain version.  Unsorted keys give wrong sums on the card."""
+    _check(sorted_keys, sorted_vals)
+    dev = sorted_keys.device
+    if dev.type == "cpu":
+        return texel_histogram_reference(sorted_keys, sorted_vals, n_texels)
+    if dev.type != "cuda":
+        raise RuntimeError(f"texel_histogram: no kernel for device {dev}")
+    return _texel_hist_cuda(sorted_keys.contiguous(), sorted_vals.contiguous(), n_texels)
+
+
+def _texel_hist_cuda(keys, vals, n_texels):
+    global launches
+    from .. import cuda_build
+
+    n, c = vals.shape
+    if n >= 2**31 or n_texels * c >= 2**31:
+        raise ValueError("texel_histogram: sizes exceed the kernel's int32 indices")
+    lib = cuda_build.load("texel_hist")
+    out = torch.zeros((n_texels, c), dtype=torch.float32, device=keys.device)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = lib.c2rt_texel_hist(keys.data_ptr(), vals.data_ptr(), out.data_ptr(), n, c, n_texels, stream)
+    if err != 0:
+        raise RuntimeError(f"texel_histogram: kernel launch failed: {cuda_build.error_string('texel_hist', err)}")
+    launches += 1
+    return out

@@ -120,7 +120,8 @@ def unproject(v, a, b, c):
 
 
 def _rot_axis(i, j, angle, xp):
-    angle = xp.asarray(angle)
+    if xp is np or not isinstance(angle, xp.Tensor):  # a torch tensor keeps its autograd graph
+        angle = xp.asarray(angle)
     c, s = xp.cos(angle), xp.sin(angle)
     one = xp.ones_like(c)
     zero = xp.zeros_like(c)

@@ -1,4 +1,6 @@
-"""K1's CUDA kernel against its plain PyTorch version, on the card.
+"""The hand-written kernels against their plain PyTorch versions, on the
+card: K1 (csrc/round0.cu) in its screen-tap, ray-input and residual forms,
+K2 (csrc/texel_hist.cu), and the round-0 gradient through each.
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -17,9 +19,11 @@ import pytest
 import torch
 
 from chess2rt_tpu_torch.models import types as T
-from chess2rt_tpu_torch.models.packed import pack_scene
+from chess2rt_tpu_torch.models.packed import LEAF_NAMES, from_leaves, leaves, pack_scene
 from chess2rt_tpu_torch.ops import flagship as F
 from chess2rt_tpu_torch.ops import round0 as R
+from chess2rt_tpu_torch.ops import texel_hist as K2
+from chess2rt_tpu_torch.ops.round0_grad import diff_round0
 from chess2rt_tpu_torch.scenes import flagship_standin, random_scene
 
 pytestmark = pytest.mark.gpu
@@ -101,3 +105,80 @@ def test_wrapper_checks_its_inputs(cuda):
         R.round0(lay, prm, rays.cpu(), rays.cpu())
     empty = R.round0(lay, prm, rays[:0], rays[:0])
     assert empty["win"].shape == (0,)
+
+
+def _rays(name, n, cuda):
+    rng = np.random.default_rng(len(name))
+    scale = 150.0 if name in ("standin", "glass") else 6.0
+    center = (0.0, 120.0, 220.0) if scale > 100 else (0.0, 0.0, 0.0)
+    orig = torch.as_tensor(np.asarray(center) + rng.uniform(-scale, scale, (n, 3)), dtype=torch.float32)
+    d = rng.normal(size=(n, 3))
+    dir = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True), dtype=torch.float32)
+    return orig.to(cuda), dir.to(cuda)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_residual_rows_match_plain(cuda, name):
+    """want_hit and want_vis: every row at the limits above; each shadow bit
+    differs on < 1% of the lanes where win agrees."""
+    tp, ts = pack_scene(SCENES[name](), device=cuda)
+    lay = R.layout(ts, ts.width, ts.height, want_hit=True, want_vis=True)
+    prm = lay.pack(tp, (0.3, 0.6))
+    before = R.resid_launches
+    for rays in ((), _rays(name, ts.width * ts.height, cuda)):
+        out, ref = R.round0(lay, prm, *rays), R.round0_reference(lay, prm, *rays)
+        vis = [k for k in lay.names if k.startswith("vis")]
+        _assert_close(out, ref, [k for k in lay.names if k not in vis])
+        agree = out["win"] == ref["win"]
+        for k in vis:
+            assert (out[k][agree] != ref[k][agree]).double().mean().item() < 0.01, k
+    assert R.resid_launches == before + 2
+
+
+@pytest.mark.parametrize("c", [12, 6])
+def test_texel_hist_matches_plain(cuda, c):
+    """K2 against texel_histogram_reference: sorted keys with long runs and
+    out-of-range keys; |a - b| <= 1e-4 * max(1, max|b|)."""
+    rng = np.random.default_rng(c)
+    n, n_texels = 200_000, 81_920
+    keys = np.concatenate([rng.integers(-3, n_texels + 3, n - 50_000), np.zeros(50_000, np.int64)])
+    keys = torch.as_tensor(np.sort(keys), dtype=torch.int32, device=cuda)
+    vals = torch.as_tensor(rng.normal(size=(n, c)), dtype=torch.float32, device=cuda)
+    before = K2.launches
+    out = K2.texel_histogram(keys, vals, n_texels)
+    ref = K2.texel_histogram_reference(keys, vals, n_texels)
+    assert K2.launches == before + 1
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert out.shape == (n_texels, c)
+
+
+@pytest.mark.parametrize("form", ["screen-tap", "ray-input"])
+def test_round0_grads_match_plain(cuda, form):
+    """diff_round0 through K1 against diff_round0 through the plain version
+    at 160x120, the same seeded cotangents: every leaf at rtol 2e-3, atol
+    2e-6 + 2e-3 * max|plain| (tests/test_pallas_grad.py:51-66)."""
+    tp, ts = pack_scene(flagship_standin(T, 160, 120), device=cuda)
+    lay = R.layout(ts, 160, 120)
+    n = 160 * 120
+    rays = () if form == "screen-tap" else _rays("standin", n, cuda)
+    rng = np.random.default_rng(3)
+    cot = {k: torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda) for k in lay.names}
+    grads = []
+    for trace in (R.round0, R.round0_reference):
+        xs = [x.detach().clone().requires_grad_() for x in leaves(tp)]
+        p = from_leaves(xs)
+        r = [x.detach().clone().requires_grad_() for x in rays]
+        o = diff_round0(lay, lay.pack(p, (0.3, 0.3)), p, *r, trace=trace)
+        torch.autograd.backward([o[k] for k in lay.names], [cot[k] for k in lay.names])
+        grads.append({k: x.grad for k, x in zip(LEAF_NAMES, xs)} | {f"ray{i}": x.grad for i, x in enumerate(r)})
+    compared = 0
+    for k, b in grads[1].items():
+        a = grads[0][k]
+        if b is None:
+            assert a is None, k
+            continue
+        assert bool(torch.isfinite(a).all()), k
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-6 + 2e-3 * scale, msg=k)
+        compared += scale > 0
+    assert compared >= 3

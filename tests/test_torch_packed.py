@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from chess2rt_tpu.ops.pallas_trace import _make_packer
-from chess2rt_tpu_torch.models.packed import from_numpy
+from chess2rt_tpu_torch.models.packed import from_numpy, to_numpy
 from chess2rt_tpu_torch.ops import round0 as R
 
 from torch_port_cases import RANDOM_SEEDS, H, W, jax_leaves, packed_pair
@@ -51,6 +51,11 @@ def test_from_numpy_carries_jax_leaves(case):
     tl, cl = _torch_leaves(tp), _torch_leaves(carried)
     for k in tl:
         np.testing.assert_array_equal(cl[k], tl[k], err_msg=k)
+    # to_numpy is its inverse, keyed the same way
+    back = to_numpy(carried)
+    assert set(back) == set(jax_leaves(jp))
+    for k, v in jax_leaves(jp).items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
 
 
 def test_from_numpy_rejects_missing_leaves():
@@ -199,9 +204,16 @@ def test_unported_forms_raise_with_their_roadmap_item():
     _, _, tp, ts = packed_pair("standin")
     lay = R.layout(ts, W, H)
     prm = lay.pack(tp)
-    for kw in ("lin_input", "want_hit", "want_vis"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        R.round0(lay, prm, lin_input=True)
+    # the residual forms are ported: they add their rows
+    out = R.round0(lay, prm, want_hit=True, want_vis=True)
+    assert {"t", "nx", "dr", "vis0", "vis1"} <= set(out)
+    from chess2rt_tpu_torch.ops.round0_grad import diff_round0
+
+    for kw in ({"pin_mode": "node"}, {"lin_input": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            R.round0(lay, prm, **{kw: True})
+            diff_round0(lay, prm, tp, **kw)
 
 
 def test_render_frame_raises_for_unported_modes():
