@@ -3,7 +3,9 @@
 // Replaces the TPU kernel chess2rt_tpu/ops/pallas_trace.py
 // build_round0_kernel (body `kernel`; its screen-tap and ray-input
 // pallas_calls).  It computes what that kernel computes, lane for lane:
-// pinhole ray-gen (screen-tap form) or caller rays (ray-input form), the
+// pinhole ray-gen (screen-tap form; the lin-input form is the same ray-gen
+// for the n pixels from the lane base in the parameter vector's lin slot,
+// its pallas_call with lin_input=True) or caller rays (ray-input form), the
 // closest hit over every node (plane / sphere / cube leaves, offset and
 // full-matrix transforms with the dist rescaling, CSG union / inter / diff
 // as fixed-capacity all-hits lists sorted by the same compare-exchange
@@ -44,13 +46,30 @@
 // Tuning (register caps, splitting the scan from the shading, a warp-level
 // work queue for the bounce rounds) is later work.
 //
+// The stage probes (K3).  demos/kernel_probe.py build_stage traced four cut
+// copies of the TPU kernel (empty, raygen, scan, shadow) to find where a
+// tap's time goes.  Here the cut is made at compile time: -DC2RT_STAGE=k
+// compiles this same device code with an early return after stage k, each
+// stage writing the probe's two f32 rows, so the compiler drops what the
+// stage does not reach and its registers, stack and time are the stage's
+// own.  Without the define (stage 0) this file is K1.
+//
 // Arithmetic follows the JAX kernel's op order; no --use_fast_math (it
 // changes division, sqrt and sin and moves knife-edge winners).  min/max
 // propagate NaN like jnp.minimum / torch.minimum.
 
 #include <cuda_runtime.h>
 
+#ifndef C2RT_STAGE
+#define C2RT_STAGE 0
+#endif
+
 namespace {
+
+// stage cuts (ops/round0_probe.py STAGES); 0 is the whole kernel
+enum { STAGE_FULL = 0, STAGE_EMPTY = 1, STAGE_RAYGEN = 2, STAGE_SCAN = 3, STAGE_SHADOW = 4 };
+constexpr int STAGE = C2RT_STAGE;
+static_assert(STAGE >= STAGE_FULL && STAGE <= STAGE_SHADOW, "C2RT_STAGE must be 0..4");
 
 constexpr int MAX_HITS = 16;  // ops/round0.py MAX_HITS
 constexpr float INF = 1e30f;
@@ -61,14 +80,14 @@ constexpr float HALF_PI_F = 1.57079632679489661923f;
 constexpr float QUARTER_PI_F = 0.78539816339744830962f;
 
 // scene program layout (ops/round0.py: H_*, NODE_STRIDE, INSTR_STRIDE)
-constexpr int PROGRAM_VERSION = 2;
+constexpr int PROGRAM_VERSION = 3;
 enum {
   H_VERSION, H_NODES, H_LIGHTS, H_CAM, H_AMBIENT, H_AA, H_LIN, H_FLAGS,
   H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB
 };
 constexpr int NODE_STRIDE = 10;
 constexpr int INSTR_STRIDE = 8;
-enum { F_PHONG = 1, F_REFR = 2, F_EMIT_L = 4, F_CONT = 8, F_HIT = 16, F_VIS = 32 };
+enum { F_PHONG = 1, F_REFR = 2, F_EMIT_L = 4, F_CONT = 8, F_HIT = 16, F_VIS = 32, F_UV = 64 };
 enum { X_IDENT = 0, X_OFFSET = 1, X_MATRIX = 2 };
 enum { OP_PLANE = 0, OP_SPHERE = 1, OP_CUBE = 2, OP_CSG = 3 };
 enum { CSG_UNION = 0, CSG_INTER = 1, CSG_DIFF = 2 };
@@ -568,6 +587,14 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
   const int n_lights = __ldg(prog + H_LIGHTS);
   const int flags = __ldg(prog + H_FLAGS);
 
+  if (STAGE == STAGE_EMPTY) {
+    // the grid and store floor: the lane index times the aa offset
+    const float v = (float)lane * s.p(__ldg(prog + H_AA));
+    out[lane] = v;
+    out[(size_t)n + lane] = v + 1.0f;
+    return;
+  }
+
   Ray r;
   if (orig != nullptr) {
     r.ox = orig[3 * lane];
@@ -595,6 +622,11 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
     r.oy = s.p(c + 10);
     r.oz = s.p(c + 11);
   }
+  if (STAGE == STAGE_RAYGEN) {
+    out[lane] = r.dx + r.dy;
+    out[(size_t)n + lane] = r.dz + r.ox + r.oy + r.oz;
+    return;
+  }
 
   // closest hit over every node; ties go to the later node (renderer.d:336-338)
   Rec hit = {INF, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -609,6 +641,11 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
       hit = cand;
     }
   }
+  if (STAGE == STAGE_SCAN) {
+    out[lane] = hit.t;
+    out[(size_t)n + lane] = (float)win + ((flags & F_UV) ? hit.u : hit.nx);
+    return;
+  }
   const bool hitmask = win >= 0;
   const float ts = hitmask ? hit.t : 0.0f;
   const float hpx = r.ox + r.dx * ts, hpy = r.oy + r.dy * ts, hpz = r.oz + r.dz * ts;
@@ -617,6 +654,27 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
   const float ndotd = r.dx * hit.nx + r.dy * hit.ny + r.dz * hit.nz;
   const float fsg = ndotd < 0.0f ? 1.0f : -1.0f;
   const float nx = hit.nx * fsg, ny = hit.ny * fsg, nz = hit.nz * fsg;
+
+  if (STAGE == STAGE_SHADOW) {
+    // the shadow scans alone: lights the hit point sees (missed lanes
+    // shade from t = 0, as in the whole kernel), and the winning t
+    const float px = hpx + nx * EPS_SHADOW, py = hpy + ny * EPS_SHADOW, pz = hpz + nz * EPS_SHADOW;
+    const int tab = __ldg(prog + H_LIGHT_TAB);
+    float acc = 0.0f;
+    for (int li = 0; li < n_lights; ++li) {
+      const int lbase = __ldg(prog + tab + li);
+      const float tx2 = s.p(lbase) - px, ty2 = s.p(lbase + 1) - py, tz2 = s.p(lbase + 2) - pz;
+      const float target = sqrtf(jmax(tx2 * tx2 + ty2 * ty2 + tz2 * tz2, 1e-30f));
+      const float inv_t = 1.0f / target;
+      const Ray sray = {px, py, pz, tx2 * inv_t, ty2 * inv_t, tz2 * inv_t};
+      bool occ = false;
+      for (int i = 0; i < n_nodes && !occ; ++i) occ = node_min_dist(s, i, sray) <= target;
+      acc += occ ? 0.0f : 1.0f;
+    }
+    out[lane] = acc;
+    out[(size_t)n + lane] = hit.t;
+    return;
+  }
 
   // the winning node's diffuse color and material
   float dr = 0.0f, dg = 0.0f, db = 0.0f, exp_t = 1.0f, str_t = 0.0f;
@@ -782,9 +840,12 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
 extern "C" {
 
 // Launches K1 on `stream` for n lanes.  `orig`/`dir` ([n, 3] f32) select
-// the ray-input form; both null select the screen-tap form.  `out` is
-// [K, n] f32 with K the layout's float outputs (the program's flags say
-// which, residual rows included), `win` [n] int32.  Returns
+// the ray-input form; both null select in-kernel ray-gen for the n pixels
+// from the lane base in prm's lin slot (the screen-tap form: base 0, n =
+// width * height; the lin-input form: any slice).  `out` is [K, n] f32
+// with K the layout's float outputs (the program's flags say which,
+// residual rows included), `win` [n] int32.  A stage build (C2RT_STAGE
+// 1..4) writes two rows into `out` and leaves `win` alone.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 int c2rt_round0(const float* prm, const int* prog, const float* orig, const float* dir,
                 float* out, int* win, int n, int width, int height, void* stream) {
@@ -797,6 +858,8 @@ int c2rt_round0(const float* prm, const int* prog, const float* orig, const floa
 }
 
 int c2rt_program_version() { return PROGRAM_VERSION; }
+
+int c2rt_stage() { return STAGE; }
 
 const char* c2rt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

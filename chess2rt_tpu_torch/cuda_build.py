@@ -2,10 +2,11 @@
 with ctypes.
 
 The pattern of chess2rt_tpu/native.py without its numpy fallback: each
-source is built at first use into its own shared library in ``build/``,
-named by a hash of that source and the flags, and loaded once per process.
-The missing libraries are built together, one ``nvcc`` per source, all
-started at once.  Nothing is built or loaded at import time.  A missing
+library is built at first use into ``build/``, named by a hash of its
+source and its flags, and loaded once per process.  A source can give
+several libraries: the stage probes (K3) are csrc/round0.cu compiled with
+``-DC2RT_STAGE=k``.  The missing libraries are built together, one ``nvcc``
+per library, all started at once.  Nothing is built or loaded at import time.  A missing
 ``nvcc`` or a failed build raises: there is no CUDA path without the kernel.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -27,19 +28,28 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-# kernel name -> its source in csrc/
-SOURCES = {"round0": "round0.cu", "texel_hist": "texel_hist.cu"}
+# the stage probes of K1 (ops/round0_probe.py), by C2RT_STAGE value
+STAGES = {"empty": 1, "raygen": 2, "scan": 3, "shadow": 4}
+# library name -> (its source in csrc/, its own flags)
+SOURCES = {
+    "round0": ("round0.cu", ()),
+    "texel_hist": ("texel_hist.cu", ()),
+    **{f"round0_{stage}": ("round0.cu", (f"-DC2RT_STAGE={k}",)) for stage, k in STAGES.items()},
+}
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # exported C functions of each library: (name, argtypes, restype)
+_ROUND0_EXPORTS = (
+    ("c2rt_round0", [_vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
+    ("c2rt_program_version", [], _ci),
+    ("c2rt_stage", [], _ci),
+    ("c2rt_error_string", [_ci], ctypes.c_char_p),
+)
 _EXPORTS = {
-    "round0": (
-        ("c2rt_round0", [_vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
-        ("c2rt_program_version", [], _ci),
-        ("c2rt_error_string", [_ci], ctypes.c_char_p),
-    ),
+    "round0": _ROUND0_EXPORTS,
+    **{f"round0_{stage}": _ROUND0_EXPORTS for stage in STAGES},
     "texel_hist": (
         ("c2rt_texel_hist", [_vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
         ("c2rt_error_string", [_ci], ctypes.c_char_p),
@@ -50,7 +60,7 @@ _lock = threading.Lock()
 _libs = {}
 # wall seconds of this process's parallel build (0.0 when every library was
 # already on disk), and nvcc's -Xptxas -v report (registers, stack, spills)
-# per kernel
+# per library
 build_seconds = 0.0
 build_log = {}
 
@@ -67,15 +77,16 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
+    source, flags = SOURCES[name]
     h = hashlib.sha256()
-    with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
+    with open(os.path.join(_CSRC, source), "rb") as f:
         h.update(f.read())
-    h.update(" ".join(ARCH_FLAGS + BASE_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + BASE_FLAGS + flags).encode())
     return os.path.join(BUILD_DIR, f"libc2rt_{name}_{h.hexdigest()[:16]}.so")
 
 
 def _build_missing() -> None:
-    """Build every library not yet on disk, one nvcc per source, in parallel."""
+    """Build every library not yet on disk, one nvcc per library, in parallel."""
     global build_seconds
     missing = [k for k in SOURCES if not os.path.exists(_lib_path(k))]
     if not missing:
@@ -85,8 +96,9 @@ def _build_missing() -> None:
     procs = {}
     for k in missing:
         tmp = f"{_lib_path(k)}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *ARCH_FLAGS, *BASE_FLAGS, "-Xptxas", "-v", "-o", tmp,
-               os.path.join(_CSRC, SOURCES[k])]
+        source, flags = SOURCES[k]
+        cmd = [nvcc_path(), *ARCH_FLAGS, *BASE_FLAGS, *flags, "-Xptxas", "-v", "-o", tmp,
+               os.path.join(_CSRC, source)]
         procs[k] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
     for k, (tmp, proc) in procs.items():
@@ -96,7 +108,7 @@ def _build_missing() -> None:
             proc.kill()
             _, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{SOURCES[k]} ({proc.returncode}):\n{err[-4000:]}")
+            failed.append(f"{k} ({SOURCES[k][0]}, {proc.returncode}):\n{err[-4000:]}")
             continue
         os.replace(tmp, _lib_path(k))
         build_log[k] = err
@@ -128,3 +140,19 @@ def load_all() -> None:
 
 def error_string(name: str, err: int) -> str:
     return f"{err} ({load(name).c2rt_error_string(err).decode()})"
+
+
+def ptxas_usage(name: str):
+    """(registers, stack bytes, spill store bytes, spill load bytes) of
+    library ``name``'s largest kernel from this process's build log, or None
+    when the library was already on disk and nothing was logged."""
+    import re
+
+    text = build_log.get(name)
+    if not text:
+        return None
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame", text)]
+    st = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+    ld = [int(x) for x in re.findall(r"(\d+) bytes spill loads", text)]
+    return max(regs, default=0), max(stack, default=0), max(st, default=0), max(ld, default=0)

@@ -261,13 +261,26 @@ def _geom_expr(geom: T.Geometry, tables) -> Tuple:
     raise TypeError(type(geom))
 
 
+def _resolve_device(device, who: str) -> torch.device:
+    """The device an entry point places a scene on: the caller's, or the
+    current CUDA device when none is given.  Without a card and without
+    ``device=`` it raises: nothing carries on on the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(f'{who}: no CUDA device; pass device="cpu" to run on the CPU')
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def pack_scene(
-    scene: T.Scene, dtype=torch.float32, device="cpu"
+    scene: T.Scene, dtype=torch.float32, device=None
 ) -> Tuple[ScenePacked, SceneStatic]:
     """Scene (host object model) -> (ScenePacked on ``device``, SceneStatic).
+    ``device=None`` is the current CUDA device (see ``_resolve_device``).
 
     The tables are assembled in numpy exactly as the JAX packer assembles
     them (float64 host values, one rounding to ``dtype``)."""
+    device = _resolve_device(device, "pack_scene")
     tables = {
         "geom_ids": {},
         "plane_y": [],
@@ -485,12 +498,14 @@ def to_numpy(packed: ScenePacked) -> Dict[str, np.ndarray]:
 
 
 def from_numpy(
-    leaves: Dict[str, np.ndarray], static: SceneStatic, device="cpu"
+    leaves: Dict[str, np.ndarray], static: SceneStatic, device=None
 ) -> ScenePacked:
     """Carry a packed scene across from numpy arrays: ``leaves`` maps every
     ScenePacked field name to its array, and every CameraPacked field to
     ``"camera.<field>"`` — e.g. the leaves of the JAX package's ScenePacked,
-    made into numpy.  Shapes are checked against ``static``."""
+    made into numpy.  Shapes are checked against ``static``.
+    ``device=None`` is the current CUDA device (see ``_resolve_device``)."""
+    device = _resolve_device(device, "from_numpy")
     want = set(LEAF_NAMES)
     if set(leaves) != want:
         raise ValueError(

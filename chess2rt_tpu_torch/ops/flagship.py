@@ -1,18 +1,28 @@
-"""The flagship forward renderer: round-0 kernel taps + torch glue.
+"""The flagship renderer: round-0 kernel taps + torch glue.
 
 Counterpart of the renderer half of chess2rt_tpu/ops/pallas_trace.py
-(``combine_outputs``, ``build_bounce_finisher``, ``build_flagship_renderer``)
-for the un-chunked, deterministic 5-tap Whitted frame:
+(``combine_outputs``, ``build_bounce_finisher``, ``build_flagship_renderer``,
+``build_rows_renderer``) for the deterministic Whitted frame:
 
     for each AA tap:   round0 (screen-tap)  ->  combine_outputs (deferred
                        bitmap quad gather, continuation carry)  ->  bounce
                        rounds: round0 (ray-input) on a block-compacted
                        buffer, full width when it overflows
 
-Where JAX decided "all rounds dead" and "compacted buffer overflows" on the
-device with ``lax.cond``, this port reads the two counts on the host
-(``.item()``): one device sync per bounce round and one per tap.  That is
-acceptable in bring-up; a later PR can keep the decision on the device.
+* ``build_flagship_renderer``: the whole frame on one device, un-chunked or
+  in ``chunk_pixels`` slabs (rays from ``screen_rays`` into the ray-input
+  form at slab width, so peak memory follows the slab), with quirk AA (5
+  taps everywhere) or adaptive AA (4 more taps only on the pixels
+  ``aa_detect`` flags, lane-compacted through the ray-input form).
+* ``build_rows_renderer``: one contiguous slice of the flat pixel grid
+  through K1's lin-input form (ray-gen in the kernel from the slice's lane
+  base): the per-shard body of parallel/mesh.py.
+
+Where JAX decided "all rounds dead", "compacted buffer overflows" and
+"flagged pixels fit" on the device with ``lax.cond``, this port reads the
+counts on the host (``.item()``): one device sync per bounce round, per tap
+and per adaptive frame.  That is acceptable in bring-up; a later PR can
+keep the decisions on the device.
 
 Every round-0 call goes through one function, ``trace``: the wrapper
 ``round0`` by default (the CUDA kernel for CUDA tensors), or its plain
@@ -21,8 +31,8 @@ When a gradient of the scene is wanted (decided once per frame by
 ``round0_call``), each call goes through ``round0_grad.diff_round0``
 around ``trace``: K1's residual form forward, the leaf-pinned re-shade
 backward, so the frame is differentiable in every ScenePacked leaf (the
-in-place ``index_add_`` and aa-slot writes below are on tensors autograd
-tracks).  A forward frame calls ``trace`` directly.
+in-place ``index_add_`` and parameter-slot writes below are on tensors
+autograd tracks).  A forward frame calls ``trace`` directly.
 ``bounce_rounds`` counts the bounce rounds run, so a caller can tell how
 many kernel launches a frame should have made.
 """
@@ -33,7 +43,8 @@ import torch
 
 from ..models.packed import REFLECTION, REFRACTION, TEX_BITMAP, ScenePacked, SceneStatic, leaves
 from . import shade as S
-from .round0 import BOUNCE_BLOCK, TILE_N, layout, round0
+from .camera import begin_frame, screen_rays
+from .round0 import BOUNCE_BLOCK, TILE_N, exact_lane_base, layout, round0, supports
 from .round0_grad import diff_round0
 
 # bounce rounds run (each is one round-0 call); callers zero and read it
@@ -69,13 +80,24 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
 
 
 def round0_call(packed: ScenePacked, trace=round0):
-    """The frame's round-0 call ``(lay, prm[, orig, dir]) -> outputs``:
-    ``trace`` itself, or ``diff_round0`` around it when grad mode is on and
-    a leaf of ``packed`` requires grad.  Decided once per frame, so a
-    forward frame pays nothing per call for the gradient machinery."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in leaves(packed)):
-        return lambda lay, prm, *rays: diff_round0(lay, prm, packed, *rays, trace=trace)
-    return trace
+    """The frame's round-0 call ``call(lay, prm[, orig, dir], lin=None)``:
+    ``trace``, or ``diff_round0`` around it when grad mode is on and a leaf
+    of ``packed`` requires grad.  ``lin=(lin_base, n_lanes)`` selects the
+    lin-input form, with ``prm`` packed at that base.  Decided once per
+    frame, so a forward frame pays nothing per call for the gradient
+    machinery."""
+    diff = torch.is_grad_enabled() and any(x.requires_grad for x in leaves(packed))
+
+    def call(lay, prm, *rays, lin=None):
+        if lin is not None:
+            if diff:
+                return diff_round0(lay, prm, packed, trace=trace, lin_input=True, lin_base=lin[0], n_lanes=lin[1])
+            return trace(lay, prm, lin_input=True, n_lanes=lin[1])
+        if diff:
+            return diff_round0(lay, prm, packed, *rays, trace=trace)
+        return trace(lay, prm, *rays)
+
+    return call
 
 
 def _round(packed, static, lay, prm, carry, call):
@@ -93,11 +115,13 @@ def _round(packed, static, lay, prm, carry, call):
     return color, at, cont, o3, d3
 
 
-def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes: int):
+def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes: int, is_slab: bool = False):
     """Reflection/refraction bounce rounds for an ``n_lanes``-wide ray
     buffer: returns ``finish(packed, prm, color, cont, atten, ro, rd,
     call)``, with ``prm`` the frame's packed parameters at aa offset (0, 0)
-    and ``call`` the frame's round-0 call (``round0_call``)."""
+    and ``call`` the frame's round-0 call (``round0_call``).  ``is_slab``
+    says the buffer is a part of the frame (a chunk slab, a mesh shard, the
+    compacted adaptive-AA taps), which sets the block capacity."""
     from ..render.pipeline import compact_indices
 
     has_refl = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
@@ -108,9 +132,12 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
     if block_bounce:
         nblk = n // BOUNCE_BLOCK
         lanes_per_tile = TILE_N // BOUNCE_BLOCK
-        # the JAX package's capacity (~1/12 of the frame's blocks, rounded to
-        # whole 1024-lane tiles), so both packages take the same branch
-        cap_blk = static.bounce_block_capacity or -(-nblk // 12)
+        # the JAX package's capacity, rounded to whole 1024-lane tiles, so
+        # both packages take the same branch: ~1/12 of a whole frame's
+        # blocks, 1/4 of a slab's (a slab concentrates the frame's
+        # reflective set).  Overflow falls back to full-width rounds, never
+        # to wrong pixels
+        cap_blk = static.bounce_block_capacity or -(-nblk // (4 if is_slab else 12))
         cap_blk = max(lanes_per_tile, -(-cap_blk // lanes_per_tile) * lanes_per_tile)
 
     def fullwidth_bounces(packed, prm, color, atten, alive, orig, dir, n_rounds, call):
@@ -165,23 +192,118 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
     return finish
 
 
+def _chunk_slabs(static: SceneStatic, n: int):
+    """(C, S) of a ``chunk_pixels`` pass over ``n`` lanes: S slabs of C lanes,
+    C the chunk rounded up to whole 1024-lane tiles, or None when the pass
+    is not chunked."""
+    if not (static.chunk_pixels and static.chunk_pixels < n):
+        return None
+    C = -(-static.chunk_pixels // TILE_N) * TILE_N
+    return C, -(-n // C)
+
+
+def _aa_capacity(cap: int) -> int:
+    """The lane capacity of the compacted adaptive-AA taps: whole tiles."""
+    return max(TILE_N, -(-cap // TILE_N) * TILE_N)
+
+
+def _tap_params(prm0, a0: int):
+    """The 5 AA taps' parameter vectors ([5, n_prm]): ``prm0`` with the aa
+    slot set to (0, 0) and the four AA_KERNEL offsets."""
+    from ..render.pipeline import AA_KERNEL
+
+    offsets = torch.tensor(((0.0, 0.0),) + AA_KERNEL, dtype=torch.float32, device=prm0.device)
+    prms = prm0.repeat(len(offsets), 1)
+    prms[:, a0:a0 + 2] = offsets
+    return prms
+
+
+def _ray_tap(packed, static, lay, prm0, finish, lin, aa, call):
+    """One tap through the ray-input form at the flat pixel indices ``lin``
+    ([C] integers) plus the offset ``aa``: ``screen_rays``, round 0,
+    combine, bounce rounds -> [C, 3]."""
+    W, H = lay.width, lay.height
+    frame = begin_frame(packed.camera, W / H)
+    dt = packed.dtype
+    xs = (lin % W).to(dt) + aa[0]
+    ys = (lin // W).to(dt) + aa[1]
+    o3, d3 = screen_rays(packed.camera, frame, float(W), float(H), xs, ys)
+    o = call(lay, prm0, o3.contiguous(), d3.contiguous())
+    color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+    return finish(packed, prm0, color, cont, atten, ro, rd, call)
+
+
+def _adaptive_taps(base, mask, full_taps, compact):
+    """The adaptive-AA blend of a base tap ``base`` [n, 3] under the
+    needs-AA ``mask`` [n].  ``compact`` is None (the taps run full width
+    and the mask only selects: ``full_taps(base)`` returns base plus the 4
+    other taps) or ``(cap_aa, tap)``: when the flagged pixels fit in
+    ``cap_aa`` lanes (decided on the host), the 4 taps run lane-compacted,
+    ``tap(selc, aa)`` rendering the flagged lanes ``selc`` at offset ``aa``,
+    and only those pixels are replaced; otherwise full width."""
+    from ..render.pipeline import AA_KERNEL, compact_indices
+
+    n = mask.shape[0]
+    count = int(mask.sum()) if compact is not None else None  # host sync (see module docstring)
+    if compact is None or count > compact[0]:
+        return torch.where(mask[:, None], full_taps(base) / 5.0, base)
+    if count == 0:
+        return base
+    cap_aa, tap = compact
+    sel = compact_indices(mask, n, cap_aa).long()
+    selc = sel.clamp_max(n - 1)  # junk slots re-render the last lane and are dropped
+    acc = base[selc]
+    for aa in AA_KERNEL:
+        acc = acc + tap(selc, aa)
+    # every compacted lane is flagged; an out-of-place scatter, since the
+    # graph may hold ``base``
+    return base.index_put((sel[:count],), acc[:count] / 5.0)
+
+
 def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=round0):
     """Flagship forward renderer: fn(packed) -> [H, W, 3] radiance.
 
-    Covers the un-chunked, deterministic (non-MC, non-adaptive) frame, with
-    or without the 5 AA taps; callers dispatch here through
+    Covers the deterministic (non-MC) frame: with or without AA, quirk AA
+    (all 5 taps everywhere) or adaptive AA (``aa_adaptive``: the 4 extra
+    taps lane-compacted onto the flagged pixels, ``aa_capacity`` lanes or
+    1/32 of the frame, full width on overflow), un-chunked or in
+    ``chunk_pixels`` slabs.  Callers dispatch here through
     render/pipeline.render_frame, which raises for every other mode."""
-    from ..render.pipeline import AA_KERNEL
+    from ..render.pipeline import aa_detect
 
     n = width * height
     lay = layout(static, width, height)
-    finish = build_bounce_finisher(static, width, height, n)
     a0 = lay.off["aa"]
+    slabs = _chunk_slabs(static, n)
 
-    def render_tap(packed: ScenePacked, prm0, prm_tap, call):
-        o = call(lay, prm_tap)
-        color, cont, atten, ro, rd = combine_outputs(packed, static, o)
-        return finish(packed, prm0, color, cont, atten, ro, rd, call)
+    if slabs is None:
+        finish = build_bounce_finisher(static, width, height, n)
+
+        def render_tap(packed: ScenePacked, prm0, prm_tap, call):
+            o = call(lay, prm_tap)
+            color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+            return finish(packed, prm0, color, cont, atten, ro, rd, call)
+
+    else:
+        # memory-bounded: the frame in S slabs of C lanes, rays from
+        # screen_rays into the ray-input form, so a slab's temporaries (not
+        # the frame's) set the peak.  Each slab runs inside _ray_tap and
+        # leaves only its [C, 3] result behind
+        C, n_slabs = slabs
+        finish_slab = build_bounce_finisher(static, width, height, C, is_slab=True)
+
+        def render_tap(packed: ScenePacked, prm0, prm_tap, call):
+            aa = prm_tap[a0:a0 + 2].detach()
+            out = []
+            for s in range(n_slabs):
+                # pad lanes clamp onto the last pixel (recomputed, sliced off)
+                lin = torch.arange(s * C, (s + 1) * C, device=prm0.device).clamp_max(n - 1)
+                out.append(_ray_tap(packed, static, lay, prm0, finish_slab, lin, aa, call))
+            return torch.cat(out)[:n]
+
+    if static.aa_enabled and static.aa_adaptive and slabs is None:
+        cap_aa = _aa_capacity(static.aa_capacity or -(-n // 32))
+        finish_aa = build_bounce_finisher(static, width, height, cap_aa, is_slab=True)
 
     def render(packed: ScenePacked):
         prm0 = lay.pack(packed)
@@ -189,15 +311,124 @@ def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=
         if not static.aa_enabled:
             return render_tap(packed, prm0, prm0, call).reshape(height, width, 3)
         # the 5 taps' parameter vectors differ only in the aa slot
-        offsets = torch.tensor(((0.0, 0.0),) + AA_KERNEL, dtype=torch.float32, device=prm0.device)
-        prms = prm0.repeat(len(offsets), 1)
-        prms[:, a0:a0 + 2] = offsets
-        img = torch.zeros((n, 3), dtype=torch.float32, device=prm0.device)
-        for k in range(len(offsets)):
-            img = img + render_tap(packed, prm0, prms[k], call)
-        return (img / 5.0).reshape(height, width, 3)
+        prms = _tap_params(prm0, a0)
 
-    render.tap = lambda packed, aa_offset=(0.0, 0.0): render_tap(
-        packed, lay.pack(packed), lay.pack(packed, aa_offset), round0_call(packed, trace)
-    )
+        def taps(acc, ks):
+            for k in ks:
+                acc = acc + render_tap(packed, prm0, prms[k], call)
+            return acc
+
+        if not static.aa_adaptive:
+            img = taps(torch.zeros((n, 3), dtype=torch.float32, device=prm0.device), range(5)) / 5.0
+            return img.reshape(height, width, 3)
+        base = render_tap(packed, prm0, prm0, call)
+        mask = aa_detect(base.reshape(height, width, 3)).reshape(-1)
+        compact = None
+        if slabs is None:
+            compact = (cap_aa, lambda selc, aa: _ray_tap(packed, static, lay, prm0, finish_aa, selc, aa, call))
+        img = _adaptive_taps(base, mask, lambda b: taps(b, range(1, 5)), compact)
+        return img.reshape(height, width, 3)
+
+    def tap(packed, aa_offset=(0.0, 0.0)):
+        prm0 = lay.pack(packed)
+        return render_tap(packed, prm0, lay.pack(packed, aa_offset), round0_call(packed, trace))
+
+    render.tap = tap
     return render
+
+
+def build_rows_renderer(static: SceneStatic, width: int, height: int, n_lanes: int, trace=round0):
+    """The flagship renderer for ONE contiguous slice of the flat pixel
+    grid: the per-shard body of the sharded renderer (parallel/mesh.py).
+
+    Returns ``rows(packed, lin_base, mask=None, base=None) -> [n_lanes, 3]``
+    rendering pixels [lin_base, lin_base + n_lanes).  Ray-gen happens in the
+    kernel from the lane base (K1's lin-input form), so a lane does what the
+    whole-frame kernel's lane of the same pixel does.  Lanes past the
+    frame's last pixel render pixels below the frame; the caller slices
+    them off.  ``rows.tap(packed, lin_base, aa_offset)`` is the single tap
+    (the sharded adaptive-AA base pass).
+
+    * quirk AA (``aa_adaptive`` off): every pixel averages the 5 taps;
+    * adaptive AA: the caller computes the needs-AA mask on the WHOLE frame
+      (the detect reads neighbours across slices) and passes this slice's
+      ``mask``; the 4 extra taps lane-compact within the slice, through the
+      ray-input form at the flagged lanes' GLOBAL pixel indices.
+      ``base=None`` re-renders the base tap inside the graph, so unflagged
+      pixels keep their gradient (gradient callers rely on this);
+    * ``chunk_pixels`` is honoured per slice (slabs through the lin-input
+      form at bases ``lin_base + C * s``; adaptive taps then run full width
+      with the mask selecting).
+
+    Deterministic Whitted scenes only (``supports(static)``, no DoF, stereo
+    or GI)."""
+    if not supports(static) or static.dof or static.stereo:
+        raise ValueError("build_rows_renderer: deterministic Whitted scenes that the round-0 kernel covers only")
+    n = n_lanes
+    lay = layout(static, width, height)
+    a0, l0 = lay.off["aa"], lay.off["lin"]
+    slabs = _chunk_slabs(static, n)
+
+    def lin_tap(packed, prm0, prm_tap, base, lanes, finish, call):
+        """One tap of ``lanes`` pixels from ``base`` through the lin-input form."""
+        prm = prm_tap.clone()
+        prm[l0] = float(exact_lane_base(base))
+        o = call(lay, prm, lin=(base, lanes))
+        color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+        return finish(packed, prm0, color, cont, atten, ro, rd, call)
+
+    if slabs is None:
+        finish = build_bounce_finisher(static, width, height, n, is_slab=n < width * height)
+
+        def render_tap(packed, prm0, prm_tap, lin_base, call):
+            return lin_tap(packed, prm0, prm_tap, lin_base, n, finish, call)
+
+    else:
+        C, n_slabs = slabs
+        finish_slab = build_bounce_finisher(static, width, height, C, is_slab=True)
+
+        def render_tap(packed, prm0, prm_tap, lin_base, call):
+            out = [lin_tap(packed, prm0, prm_tap, lin_base + C * s, C, finish_slab, call) for s in range(n_slabs)]
+            return torch.cat(out)[:n]
+
+    if static.aa_enabled and static.aa_adaptive and slabs is None:
+        # this slice's share of the frame-level aa_capacity knob
+        if static.aa_capacity:
+            cap_aa = -(-static.aa_capacity * n // (width * height))
+        else:
+            cap_aa = -(-n // 32)
+        cap_aa = _aa_capacity(cap_aa)
+        finish_aa = build_bounce_finisher(static, width, height, cap_aa, is_slab=True)
+
+    def rows(packed: ScenePacked, lin_base: int, mask=None, base=None):
+        lin_base = exact_lane_base(lin_base)
+        prm0 = lay.pack(packed)
+        call = round0_call(packed, trace)
+        if not static.aa_enabled:
+            return render_tap(packed, prm0, prm0, lin_base, call)
+        prms = _tap_params(prm0, a0)
+
+        def taps(acc, ks):
+            for k in ks:
+                acc = acc + render_tap(packed, prm0, prms[k], lin_base, call)
+            return acc
+
+        if not static.aa_adaptive:
+            # the reference's quirk: every pixel is the average of the 5 taps
+            return taps(torch.zeros((n, 3), dtype=torch.float32, device=prm0.device), range(5)) / 5.0
+        if mask is None:
+            raise ValueError("rows: adaptive AA needs this slice of the whole frame's needs-AA mask")
+        if base is None:
+            base = render_tap(packed, prm0, prm0, lin_base, call)
+        compact = None
+        if slabs is None:
+            compact = (cap_aa, lambda selc, aa: _ray_tap(packed, static, lay, prm0, finish_aa, lin_base + selc, aa, call))
+        return _adaptive_taps(base, mask, lambda b: taps(b, range(1, 5)), compact)
+
+    def tap(packed, lin_base, aa_offset=(0.0, 0.0)):
+        prm0 = lay.pack(packed)
+        return render_tap(packed, prm0, lay.pack(packed, aa_offset), exact_lane_base(lin_base),
+                          round0_call(packed, trace))
+
+    rows.tap = tap
+    return rows

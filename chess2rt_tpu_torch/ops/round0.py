@@ -2,8 +2,9 @@
 
 Counterpart of the kernel half of chess2rt_tpu/ops/pallas_trace.py
 (``build_round0_kernel`` and ``_make_packer``).  One call traces one ray
-per lane through a whole Whitted round: pinhole ray-gen (screen-tap form)
-or caller rays (ray-input form), closest hit over every node (plane /
+per lane through a whole Whitted round: pinhole ray-gen (screen-tap form,
+or the lin-input form for a contiguous slice of the frame's pixels) or
+caller rays (ray-input form), closest hit over every node (plane /
 sphere / cube leaves, offset and full-matrix transforms, CSG union / inter
 / diff as fixed-capacity all-hits lists), faceforward, per-node material
 select with in-kernel checker and procedure2, a dist-only shadow scan per
@@ -59,13 +60,14 @@ EPS_SHADOW = 1e-3  # f32 self-intersection offset (ops/shade.shadow_eps)
 # per-thread hit-list capacity compiled into csrc/round0.cu (MAX_HITS there)
 MAX_HITS = 16
 
-# kernel launches made by ``round0`` (the CUDA path only): every launch, and
-# those of them that also wrote the residual rows (want_hit / want_vis);
-# chip_smoke.py zeroes both before driving a path and reads them after
+# kernel launches made by ``round0`` (the CUDA path only): every launch,
+# those of them that also wrote the residual rows (want_hit / want_vis),
+# and those in the ray-input and in the lin-input form; chip_smoke.py zeroes
+# them before driving a path and reads them after
 launches = 0
 resid_launches = 0
-
-_TODO_LIN = "the lin-input form is not ported yet (ROADMAP.md §2, K1 lin-input form)"
+ray_launches = 0
+lin_launches = 0
 
 
 def supports(static: SceneStatic) -> bool:
@@ -172,6 +174,15 @@ def _oddeven_pairs(n: int):
 # --------------------------------------------------------------------------
 
 
+def exact_lane_base(lin_base) -> int:
+    """``lin_base`` as an int, refused unless the parameter vector's f32
+    lin slot holds it exactly (the kernel reads the base back from there)."""
+    base = int(lin_base)
+    if base != lin_base or base < 0 or base >= 2**31 or int(np.float32(base)) != base:
+        raise ValueError(f"round0: lane base {lin_base} is not a non-negative integer that f32 holds exactly")
+    return base
+
+
 def make_packer(static: SceneStatic, width: int, height: int):
     """Computes the flat parameter-vector layout for this scene structure.
 
@@ -208,7 +219,9 @@ def make_packer(static: SceneStatic, width: int, height: int):
         lambda p, f, a: torch.as_tensor(a, dtype=torch.float32, device=p.device).reshape(2),
     )
     # base linear pixel index of lane 0 (0 for full frames; the lin-input
-    # form's slab base) — f32-exact for tile-multiple bases
+    # form's slice base).  The kernel reads it back as an int, so pack()
+    # refuses a base that f32 does not hold exactly (every multiple of 128
+    # below 2^31 is exact; an 8K frame's shard bases lie above 2^24)
     slot("lin", 1, None)
     for li in range(static.n_lights):
         slot(
@@ -292,6 +305,7 @@ def make_packer(static: SceneStatic, width: int, height: int):
     n_prm = sum(e[1] for e in entries)
 
     def pack(packed: ScenePacked, aa_offset=(0.0, 0.0), lin_base=0):
+        lin_base = exact_lane_base(lin_base)
         frame = begin_frame(packed.camera, width / height)
         parts = []
         for name, _, g in entries:
@@ -309,14 +323,15 @@ def make_packer(static: SceneStatic, width: int, height: int):
 # --------------------------------------------------------------------------
 
 # header slots; keep in sync with the H_* constants in csrc/round0.cu
-PROGRAM_VERSION = 2
+PROGRAM_VERSION = 3
 (H_VERSION, H_NODES, H_LIGHTS, H_CAM, H_AMBIENT, H_AA, H_LIN, H_FLAGS,
  H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB) = range(12)
 HEADER = 16
 NODE_STRIDE = 10
 INSTR_STRIDE = 8
-# flags; F_HIT / F_VIS add the residual rows (want_hit / want_vis)
-F_PHONG, F_REFR, F_EMIT_L, F_CONT, F_HIT, F_VIS = 1, 2, 4, 8, 16, 32
+# flags; F_HIT / F_VIS add the residual rows (want_hit / want_vis); F_UV says
+# that some node's records carry UVs (read by the scan stage probe only)
+F_PHONG, F_REFR, F_EMIT_L, F_CONT, F_HIT, F_VIS, F_UV = 1, 2, 4, 8, 16, 32, 64
 # transform kinds, leaf/CSG opcodes, CSG ops
 X_IDENT, X_OFFSET, X_MATRIX = 0, 1, 2
 OP_PLANE, OP_SPHERE, OP_CUBE, OP_CSG = 0, 1, 2, 3
@@ -382,6 +397,8 @@ def scene_program(static: SceneStatic, off: dict, expr_tables, want_hit=False, w
         flags |= F_HIT
     if want_vis:
         flags |= F_VIS
+    if any(_needs_uv(ns) for ns in static.nodes):
+        flags |= F_UV
 
     lights = [off[f"light{li}"] for li in range(static.n_lights)]
     light_tab = HEADER
@@ -767,7 +784,7 @@ def _raygen(p, off, width, height, n, device):
     return zero + p(c + 9), zero + p(c + 10), zero + p(c + 11), dx, dy, dz
 
 
-def _node_builders(p, static, off, expr_tables):
+def _node_scans(p, static, off, expr_tables):
     """Per-node intersection with transforms (node.d:23-68)."""
     expr_closest, expr_min_dist = _geom_builders(p)
 
@@ -856,11 +873,13 @@ def _node_builders(p, static, off, expr_tables):
     return node_closest, node_min_dist, scene_scan
 
 
-def round0_reference(lay: Round0Layout, prm: torch.Tensor, orig=None, dir=None) -> Dict[str, torch.Tensor]:
+def round0_reference(lay: Round0Layout, prm: torch.Tensor, orig=None, dir=None, *, lin_input: bool = False,
+                     n_lanes: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version of K1.  Screen-tap form when ``orig`` is
-    None (N = width * height lanes), ray-input form otherwise (``orig`` and
-    ``dir`` are [N, 3]).  Returns {name: [N] f32} for ``lay.names`` plus
-    "win" ([N] int32, -1 = miss)."""
+    None (N = width * height lanes), lin-input form with ``lin_input``
+    (N = ``n_lanes`` pixels from the base in ``prm``'s lin slot), ray-input
+    form otherwise (``orig`` and ``dir`` are [N, 3]).  Returns {name: [N]
+    f32} for ``lay.names`` plus "win" ([N] int32, -1 = miss)."""
     static, off = lay.static, lay.off
     device = prm.device
 
@@ -868,14 +887,14 @@ def round0_reference(lay: Round0Layout, prm: torch.Tensor, orig=None, dir=None) 
         return prm[k]
 
     if orig is None:
-        n = lay.width * lay.height
+        n = _lane_count(lay, lin_input, n_lanes)
         ox, oy, oz, dx, dy, dz = _raygen(p, off, lay.width, lay.height, n, device)
     else:
         ox, oy, oz = orig.unbind(-1)
         dx, dy, dz = dir.unbind(-1)
         n = ox.shape[0]
 
-    node_closest, node_min_dist, scene_scan = _node_builders(p, static, off, lay.expr_tables)
+    node_closest, node_min_dist, scene_scan = _node_scans(p, static, off, lay.expr_tables)
     has_refr = REFRACTION in static.shader_kinds_present
     has_phong = PHONG in static.shader_kinds_present
 
@@ -1054,6 +1073,18 @@ def round0_reference(lay: Round0Layout, prm: torch.Tensor, orig=None, dir=None) 
 # --------------------------------------------------------------------------
 
 
+def _lane_count(lay: Round0Layout, lin_input: bool, n_lanes: Optional[int]) -> int:
+    """Lanes of a call without rays: the frame (screen-tap form) or
+    ``n_lanes`` (lin-input form)."""
+    if not lin_input:
+        if n_lanes is not None:
+            raise ValueError("round0: n_lanes belongs to the lin-input form (lin_input=True)")
+        return lay.width * lay.height
+    if n_lanes is None or n_lanes <= 0:
+        raise ValueError("round0: the lin-input form needs n_lanes > 0")
+    return int(n_lanes)
+
+
 def round0(
     lay: Round0Layout,
     prm: torch.Tensor,
@@ -1061,12 +1092,19 @@ def round0(
     dir: Optional[torch.Tensor] = None,
     *,
     lin_input: bool = False,
+    n_lanes: Optional[int] = None,
     want_hit: bool = False,
     want_vis: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """One fused Whitted round (K1).  Screen-tap form with ``orig=None``
     (N = width * height lanes, ray-gen in-kernel from the camera slot and
     the aa offset in ``prm``), ray-input form with ``orig``/``dir`` [N, 3].
+    Lin-input form with ``lin_input=True``: ray-gen in-kernel for the
+    ``n_lanes`` pixels [lin_base, lin_base + n_lanes) of the flat frame,
+    with ``prm = lay.pack(packed, aa_offset, lin_base)``; each lane does
+    what the screen-tap form's lane of the same pixel does.  Lanes past the
+    frame's last pixel compute pixels below the frame; callers slice them
+    off.
 
     ``want_hit`` / ``want_vis`` add the residual rows (see ``layout``); a
     layout built with them does the same.
@@ -1074,17 +1112,18 @@ def round0(
     ``prm`` on a CUDA device launches csrc/round0.cu (or raises); on the
     CPU it runs ``round0_reference``.  There is no fallback between the two.
     Returns the same dict as ``round0_reference``."""
-    if lin_input:
-        raise NotImplementedError(_TODO_LIN)
     if want_hit or want_vis:
         lay = layout(lay.static, lay.width, lay.height, lay.want_hit or want_hit, lay.want_vis or want_vis)
     if (orig is None) != (dir is None):
         raise ValueError("round0: pass both orig and dir (ray-input form) or neither (screen-tap form)")
+    if lin_input and orig is not None:
+        raise ValueError("round0: the lin-input form takes no rays")
+    n = _lane_count(lay, lin_input, n_lanes) if orig is None else None
     if prm.device.type == "cpu":
-        return round0_reference(lay, prm, orig, dir)
+        return round0_reference(lay, prm, orig, dir, lin_input=lin_input, n_lanes=n_lanes)
     if prm.device.type != "cuda":
         raise RuntimeError(f"round0: no kernel for device {prm.device}")
-    return _round0_cuda(lay, prm, orig, dir)
+    return _round0_cuda(lay, prm, orig, dir, n, lin_input)
 
 
 def _check(name, t, dtype, shape, device):
@@ -1100,19 +1139,20 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"round0: {name} must be contiguous")
 
 
-def _round0_cuda(lay, prm, orig=None, dir=None):
-    """Check the inputs, allocate the outputs and launch csrc/round0.cu."""
-    global launches, resid_launches
+def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False):
+    """Check the inputs, allocate the outputs and launch csrc/round0.cu on
+    ``n`` lanes (the rays' count in the ray-input form)."""
+    global launches, resid_launches, ray_launches, lin_launches
     from .. import cuda_build
 
     dev = prm.device
     _check("prm", prm, torch.float32, (lay.n_prm,), dev)
-    if orig is None:
-        n = lay.width * lay.height
-    else:
+    if orig is not None:
         n = orig.shape[0]
         _check("orig", orig, torch.float32, (n, 3), dev)
         _check("dir", dir, torch.float32, (n, 3), dev)
+    elif n is None:
+        n = lay.width * lay.height
     if n >= 2**31:
         raise ValueError(f"round0: {n} lanes exceed the kernel's int32 lane index")
     lib = cuda_build.load("round0")
@@ -1139,6 +1179,8 @@ def _round0_cuda(lay, prm, orig=None, dir=None):
         raise RuntimeError(f"round0: kernel launch failed: {cuda_build.error_string('round0', err)}")
     launches += 1
     resid_launches += lay.residual
+    ray_launches += orig is not None
+    lin_launches += lin_input
     res = dict(zip(lay.names, out.unbind(0)))
     res["win"] = win
     return res

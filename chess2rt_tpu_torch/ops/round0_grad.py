@@ -1,7 +1,7 @@
 """The differentiable round-0 call: K1 forward, leaf-pinned re-shade backward.
 
 Counterpart of chess2rt_tpu/ops/pallas_grad.py (``build_diff_round0`` with
-``pin_mode="leaf"``, its screen-tap and ray-input forms):
+``pin_mode="leaf"``, its screen-tap, ray-input and lin-input forms):
 
 * **forward** = K1 itself.  With grad mode off, or no input requiring a
   gradient, it is the plain call (``round0``, no residual rows), so a
@@ -17,14 +17,15 @@ Counterpart of chess2rt_tpu/ops/pallas_grad.py (``build_diff_round0`` with
       face (``compute_leaf_pins``), so the recompute is one closed form per
       leaf (``leaf_pinned_record``): no CSG walk, no sort network;
     - the shadow bits, so no shadow scan runs (their derivative is zero).
-  Camera cotangents flow through the ray-gen twin (``_gen_rays``); the
+  Camera cotangents flow through the ray-gen twin (``_gen_rays``, and
+  ``_gen_rays_lin`` for the lin-input form's pixel slice); the
   ray-input form also returns cotangents for ``orig`` and ``dir``, so the
   bounce chain is differentiated.
 
 ``diff_round0`` is the entry point; its autograd Function takes the
 ScenePacked leaves in models/packed.LEAF_NAMES order.  The full-scan
-``pin_mode="node"``, the lin-input form and the bump hybrid
-(``build_bump_round0``) are not ported (ROADMAP.md queue 1 items 5, 6, 9).
+``pin_mode="node"`` and the bump hybrid (``build_bump_round0``) are not
+ported (ROADMAP.md queue 1 items 5, 9).
 
 Discrete-pin caveat (as in the JAX package): on knife-edge lanes where the
 kernel's float decisions and the recompute's would differ, the gradient
@@ -328,10 +329,16 @@ def _shade_pinned(packed, static, orig, dir, win, vis_list, rec):
 
 def _gen_rays(packed, width, height, aa):
     """Twin of K1's in-kernel ray-gen (ops/camera.screen_rays' op order)."""
-    n = width * height
+    return _gen_rays_lin(packed, width, height, aa, 0, width * height)
+
+
+def _gen_rays_lin(packed, width, height, aa, lin_base: int, n: int):
+    """``_gen_rays`` for the contiguous pixel slice [lin_base, lin_base +
+    n): the twin of the lin-input form's ray-gen.  ``lin_base`` is data, an
+    integer, never a leaf."""
     frame = begin_frame(packed.camera, width / height)
     dt = packed.camera.pos.dtype
-    lin = torch.arange(n, device=packed.device)
+    lin = int(lin_base) + torch.arange(n, device=packed.device)
     xs = (lin % width).to(dt) + aa[0]
     ys = (lin // width).to(dt) + aa[1]
     return screen_rays(packed.camera, frame, float(width), float(height), xs, ys)
@@ -343,18 +350,22 @@ def _gen_rays(packed, width, height, aa):
 
 
 class _DiffRound0(torch.autograd.Function):
-    """Inputs: (residual layout, primal row names, trace, prm, ray_input,
-    [orig, dir,] *leaves in LEAF_NAMES order).  Outputs: the primal rows in
-    ``names`` order, then ``win``."""
+    """Inputs: (residual layout, primal row names, trace, prm, form,
+    [orig, dir,] *leaves in LEAF_NAMES order), with ``form`` None for the
+    screen-tap form, "rays" for the ray-input form, or (lin_base, n_lanes)
+    for the lin-input form.  Outputs: the primal rows in ``names`` order,
+    then ``win``."""
 
     @staticmethod
-    def forward(ctx, lay_r: Round0Layout, names, trace, prm, ray_input, *tensors):
+    def forward(ctx, lay_r: Round0Layout, names, trace, prm, form, *tensors):
+        ray_input = form == "rays"
         rays = tensors[:2] if ray_input else ()
-        o = trace(lay_r, prm, *rays)
+        lin = {} if form is None or ray_input else {"lin_input": True, "n_lanes": form[1]}
+        o = trace(lay_r, prm, *rays, **lin)
         win = o["win"]
         vis = torch.stack([o[f"vis{li}"] for li in range(lay_r.static.n_lights)]) > 0.5
         n_pin = torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1)
-        ctx.lay, ctx.names, ctx.ray_input = lay_r, names, ray_input
+        ctx.lay, ctx.names, ctx.ray_input, ctx.form = lay_r, names, ray_input, form
         ctx.save_for_backward(prm, win, vis, o["t"], n_pin, *tensors)
         ctx.mark_non_differentiable(win)
         ctx.set_materialize_grads(False)
@@ -377,7 +388,8 @@ class _DiffRound0(torch.autograd.Function):
                 orig, dir = xs[0], xs[1]
             else:
                 a0 = lay.off["aa"]
-                orig, dir = _gen_rays(packed, lay.width, lay.height, prm[a0:a0 + 2])
+                base, n = ctx.form or (0, lay.width * lay.height)
+                orig, dir = _gen_rays_lin(packed, lay.width, lay.height, prm[a0:a0 + 2], base, n)
             with torch.no_grad():
                 gleaf, sel = compute_leaf_pins(packed, static, orig, dir, win, t_pin)
             out = reshade(packed, static, orig, dir, win, list(vis.unbind(0)), (gleaf, sel, n_pin))
@@ -393,20 +405,25 @@ class _DiffRound0(torch.autograd.Function):
 
 
 def diff_round0(lay: Round0Layout, prm, packed: ScenePacked, orig=None, dir=None, *, trace=round0,
-                pin_mode: str = "leaf", lin_input: bool = False):
+                pin_mode: str = "leaf", lin_input: bool = False, n_lanes=None, lin_base: int = 0):
     """The differentiable round-0 call: ``trace(lay, prm[, orig, dir])``
     (K1 through ``round0``, or its plain version ``round0_reference``) with
     gradients to every ScenePacked leaf and, in the ray-input form, to
     ``orig`` and ``dir``.  ``prm`` must be ``lay.pack(packed, aa)``: the
-    forward reads the scene from it, the backward from ``packed``.  Returns
-    the dict ``trace`` returns for ``lay``."""
+    forward reads the scene from it, the backward from ``packed``.
+
+    ``lin_input`` is the lin-input form, ``trace(lay, prm, lin_input=True,
+    n_lanes=n_lanes)`` with ``prm = lay.pack(packed, aa, lin_base)``: the
+    backward's ray-gen twin needs the same ``lin_base`` as an integer (the
+    forward reads it from ``prm``), so the caller passes it here too.
+    Returns the dict ``trace`` returns for ``lay``."""
     static = lay.static
     if pin_mode != "leaf":
         raise NotImplementedError(
             'diff_round0: pin_mode="node" (the full-scan _pinned_record) is not ported (ROADMAP.md queue 1 item 5)'
         )
-    if lin_input:
-        raise NotImplementedError("diff_round0: the lin-input form is not ported (ROADMAP.md queue 1 item 6)")
+    if lin_input and (orig is not None or n_lanes is None):
+        raise ValueError("diff_round0: the lin-input form takes n_lanes and no rays")
     if static.has_bump:
         raise NotImplementedError(
             "diff_round0: bump scenes take the bump hybrid (build_bump_round0), not ported (ROADMAP.md queue 1 item 9)"
@@ -414,9 +431,10 @@ def diff_round0(lay: Round0Layout, prm, packed: ScenePacked, orig=None, dir=None
     rays = () if orig is None else (orig, dir)
     tensors = (*rays, *leaves(packed))
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
-        return trace(lay, prm, *rays)
+        return trace(lay, prm, *rays, **({"lin_input": True, "n_lanes": n_lanes} if lin_input else {}))
     lay_r = layout(static, lay.width, lay.height, want_hit=True, want_vis=True)
-    outs = _DiffRound0.apply(lay_r, lay.names, trace, prm.detach(), bool(rays), *tensors)
+    form = "rays" if rays else ((int(lin_base), int(n_lanes)) if lin_input else None)
+    outs = _DiffRound0.apply(lay_r, lay.names, trace, prm.detach(), form, *tensors)
     res = dict(zip(lay.names, outs[:-1]))
     res["win"] = outs[-1]
     return res

@@ -2,10 +2,10 @@
 """Drives the PyTorch/CUDA port (chess2rt_tpu_torch) once on one NVIDIA card.
 
     python chip_smoke.py                 # from the repository root
-    python chip_smoke.py --profile       # also one frame under torch.profiler
+    python chip_smoke.py --profile       # also the frames and the step under torch.profiler
 
-Two main paths, each driven with the launch counters zeroed just before
-it and read just after:
+Main paths, each driven with the launch counters zeroed just before it and
+read just after:
 
 * the flagship forward frame: ``render_frame`` on the flagship stand-in
   scene (chess2rt_tpu_torch/scenes.py) at 1920x1080, 5 AA taps,
@@ -16,12 +16,21 @@ it and read just after:
   gradients on, ``((render_frame(p) - 0) ** 2).mean()`` differentiated in
   every ScenePacked leaf.  Every round-0 call runs K1's residual form,
   every bitmap gather's backward the texel-histogram kernel K2
-  (chess2rt_tpu_torch/csrc/texel_hist.cu).
+  (chess2rt_tpu_torch/csrc/texel_hist.cu);
+* the pixel-slice paths: the 1080p frame sharded over a mesh of 4 entries
+  of the one card (``parallel.make_sharded_render_fn``, K1's lin-input
+  form), the frame in ``chunk_pixels`` slabs, the adaptive-AA frame, and
+  the 640x480 gradient step sharded 4 ways
+  (``parallel.make_sharded_value_and_grad``);
+* the stage ladder of K1 (``ladder`` below, K3: the kernel cut
+  after empty, raygen, scan and shadow, csrc/round0.cu built with
+  -DC2RT_STAGE=k) at 1080p.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit, CUDA and nvcc versions;
-2. build: K1 and K2 from the checkout's sources, one nvcc each, in parallel;
+2. build: K1, K2 and K3's four stages from the checkout's sources, one nvcc
+   each, in parallel;
 3. K1 against its plain PyTorch version on the card: screen-tap and
    ray-input at 320x240, then at the main path's shapes (a 1080p tap and
    its block-compacted bounce rays);
@@ -41,7 +50,31 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. ``fit``: 5 Adam steps toward a target rendered from a perturbed scene,
    the loss falls;
 10. timing: ms per gradient step (kernel and plain paths), K1's residual
-    form and K2 beside their plain versions, peak device memory of a step.
+    form and K2 beside their plain versions, peak device memory of a step;
+11. K1's lin-input form against its plain version at 320x240 in 4 slices,
+    plain and residual rows, and the slices against the screen-tap launch
+    (differing lanes counted, 0 expected);
+12. the sharded 1080p frame (4 entries of the one card) against the single
+    frame (max abs <= 2e-5) and the plain path; its time beside the single
+    frame's; K1's lin-input form against its plain version at every
+    shard's tap (518,400 lanes at its base);
+13. the chunked 1080p frame (``chunk_pixels`` 262,144: 8 slabs) against the
+    un-chunked frame, time and peak memory of both; the adaptive-AA frame
+    against the plain path, flagged pixels, capacity, time, and the branch
+    it took, held to that branch's launch counts;
+14. the sharded 640x480 gradient step (4 entries) against the
+    single-device step at the phase 8 rule, and the residual lin-input form
+    against its plain version at every shard's tap; its time;
+15. K3: every stage against its plain version at 320x240 and at 1080p, then
+    the ladder at 1080p: ms per launch of empty, raygen, scan, shadow and the whole
+    K1, registers and stack per stage.
+
+Every kernels-line entry carries ``bound_ms``, the least time the card could
+take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
+read once, outputs written once) over 3.35 TB/s, and ``bound_ops_ms``, its
+arithmetic over 67 TFLOP/s (f32 outside the tensor cores).  The bytes term
+follows from the shapes alone; K1's arithmetic is ``k1_ops``'s count by
+hand from the kernel's source (the tables below say what is counted).
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and
@@ -89,6 +122,45 @@ LOSS_RTOL = 1e-3
 GRAD_AGREE = 1e-5
 # K2 vs its plain version: both sum f32 in another order
 K2_LIMIT = 1e-4  # |a - b| <= K2_LIMIT * max(1, max|b|)
+# the sharded frame against the single frame: the JAX package's gate between
+# its sharded and single-chip fused frames (tests/test_parallel.py:166-174)
+SHARD_LIMIT = 2e-5
+MESH_ENTRIES = 4
+CHUNK_PIXELS = 262144
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
+# f32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+
+# K1's f32 arithmetic per lane, counted by hand from csrc/round0.cu, the
+# function named on each line.  One per add, subtract, multiply, divide and
+# sqrt, so a multiply-add is 2 and a 3-vector dot product 5; powf is 2.
+# Compares, selects, fabs, negations, integer and address work are NOT
+# counted, nor are the texture lookups and the CSG difference's normal
+# probes (they depend on the lane).  Where the kernel does more than the
+# function needs, the cheaper form is counted: a cube's closest hit is
+# counted as the slab test the kernel's own shadow scans use, plus the hit
+# point, and not as the six-face walk of cube_two_hits.  The count is a
+# floor on the arithmetic, not the kernel's instruction mix.
+#   plane_closest: -1/dy 1, t 2, px and pz 4
+OPS_PLANE = 7
+#   sphere_roots: h 3, A 5, B 6, C 7, D 4, sqrt 1, 1/(2A) 2, the two roots 4
+OPS_SPHERE_ROOTS = 32
+#   sphere_record: the hit point less the centre 9, rsq 7, the normal 3;
+#   UVs: atan2_poly 17 (+2), asin_poly 21 (+4)
+OPS_SPHERE_RECORD, OPS_SPHERE_UV = 19, 44
+#   cube_slab_dists: half 1, per axis c -+ half 2, - o 2, 1/d 1, * 2;
+#   the record: the hit point 6, UVs 2
+OPS_CUBE_SLAB, OPS_CUBE_RECORD, OPS_CUBE_UV = 22, 6, 2
+#   node_closest / node_min_dist, full matrix: o - f 3, two mulr 30, dlen 7,
+#   d / dlen 3 (43); back: t 1, and for a record the normal 15 + 7 + 3
+OPS_MATRIX = (69, 44)  # (closest-hit record, dist-only); an offset costs 3
+#   round0_kernel: ray-gen (xpix, ypix 4, d 12, 1/len 7, d / len 3); the
+#   hit point 6, faceforward 8, the shadow origin 6; per light the shadow
+#   ray 13 (to 3, target 6, 1/target 1, dir 3), Lambert 25 (to 3, dist2 5,
+#   rsq 2, dir 3, cos 5, w 1, += 6), Phong 37 (mdotn 5, R 9, rsq 7, cos_g 6,
+#   powf * strength / dist2 4, += 6); diffuse * light 3; the mirror
+#   continuation 24 (ddn 5, R 9, rsq 7, scale 3)
+OPS_RAYGEN, OPS_HITPOINT, OPS_SHADOW_RAY, OPS_LIGHT, OPS_PHONG, OPS_OUT, OPS_CONT = 26, 20, 13, 25, 37, 3, 24
 
 
 def log(msg: str) -> None:
@@ -149,6 +221,97 @@ def compare_frames(label, img, ref):
     return d.max().item()
 
 
+def _node_ops(static, expr_tables):
+    """[(closest-hit ops, dist-only ops)] per node, from the tables above.
+    Inside a CSG expression a sphere and a cube give both crossings."""
+    from chess2rt_tpu_torch.ops.round0 import _needs_uv
+
+    def leaf(kind, uv, both):
+        k = 2 if both else 1
+        if kind == "plane":
+            return OPS_PLANE, OPS_PLANE
+        if kind == "sphere":
+            return OPS_SPHERE_ROOTS + k * (OPS_SPHERE_RECORD + uv * OPS_SPHERE_UV), OPS_SPHERE_ROOTS
+        return OPS_CUBE_SLAB + k * (OPS_CUBE_RECORD + uv * OPS_CUBE_UV), OPS_CUBE_SLAB
+
+    def walk(expr, uv, both):
+        if expr[0] != "csg":
+            return leaf(expr[0], uv, both)
+        (lh, ld), (rh, rd) = walk(expr[2], uv, True), walk(expr[3], uv, True)
+        return lh + rh, ld + rd  # the merge and the parity walk are compares
+
+    out = []
+    for ns, expr in zip(static.nodes, expr_tables):
+        hit, dist = walk(expr, int(_needs_uv(ns)), False)
+        if not ns.identity_transform:
+            xh, xd = (3, 3) if ns.offset_only else OPS_MATRIX
+            hit, dist = hit + xh, dist + xd
+        out.append((hit, dist))
+    return out
+
+
+def k1_ops(lay, n, lit, stage="full", ray_input=False):
+    """Arithmetic of one K1 launch on ``n`` lanes, as this run's data needs
+    it.  Every lane scans every node for its closest hit and shades (missed
+    lanes shade from t = 0).  A shadow scan stops at the first occluder:
+    ``lit[l]`` is the share of lanes light l reaches (all nodes scanned),
+    the others count one node, the least an occluded lane can need."""
+    nodes = _node_ops(lay.static, lay.expr_tables)
+    if stage == "empty":
+        return 2.0 * n
+    per = 0.0 if ray_input else OPS_RAYGEN
+    if stage == "raygen":
+        return (per + 4.0) * n
+    per += sum(h for h, _ in nodes)
+    if stage == "scan":
+        return (per + 1.0) * n
+    per += OPS_HITPOINT
+    scan_all = sum(d for _, d in nodes)
+    scan_one = min(d for _, d in nodes)
+    for share in lit:
+        per += OPS_SHADOW_RAY + share * scan_all + (1.0 - share) * scan_one
+        if stage == "shadow":
+            per += 1
+        else:
+            per += OPS_LIGHT + (OPS_PHONG if 1 in lay.static.shader_kinds_present else 0)  # 1: PHONG
+    if stage == "full":
+        per += OPS_OUT + (OPS_CONT if lay.has_cont else 0)
+    return per * n
+
+
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by, bytes_ms, ops_ms): the larger of bytes over the
+    card's memory rate and operations over its f32 rate, and both terms."""
+    t_bytes, t_ops = 1e3 * n_bytes / PEAK_BYTES, 1e3 * ops / PEAK_F32
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops
+
+
+def k1_bound(lay, n, lit, stage="full", ray_input=False):
+    """``bound`` of one K1 launch (or one K3 stage): the parameter vector,
+    the scene program and the rays read once, every output row written once."""
+    rows = 2 if stage != "full" else len(lay.names) + 1
+    n_bytes = 4 * lay.n_prm + 4 * lay.program.size + (24 * n if ray_input else 0) + 4 * rows * n
+    return bound(n_bytes, k1_ops(lay, n, lit, stage, ray_input))
+
+
+def lit_shares(out, n_lights):
+    """Per light, the share of lanes it reaches, from a residual-form
+    launch's shadow bits."""
+    return [out[f"vis{li}"].mean().item() for li in range(n_lights)]
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, bound_bytes_ms,
+                 bound_ops_ms, library_ms=None):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
+            "library_ms": library_ms}
+
+
+K1_SOURCE = "chess2rt_tpu_torch/csrc/round0.cu"
+K1_REPLACES = "chess2rt_tpu/ops/pallas_trace.py:757"
+
+
 def jittered(packed, k):
     """The camera moved by ~1e-4 units: every timed frame renders anew."""
     rng = np.random.default_rng(k)
@@ -199,6 +362,61 @@ def profile_run(label, run):
         f"({busy_ms / span_ms:.1%}), idle {1 - busy_ms / span_ms:.1%}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
+
+
+def compare_stage(label, out, ref):
+    """Hold one K3 stage's two rows against the plain version's (the phase 3
+    limits per row); returns the largest absolute difference over lanes that
+    hit on both (t = 1e30 on missed lanes)."""
+    import torch
+    from chess2rt_tpu_torch.ops.round0 import INF
+
+    worst, report = 0.0, []
+    for row, (a, b) in enumerate(zip(out, ref)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"K3 {label}: row {row} has non-finite lanes")
+        d = lane_error(a, b)
+        frac, med = (d > D_EDGE).double().mean().item(), d.median().item()
+        both = (a < INF) & (b < INF)
+        worst = max(worst, (a.double() - b.double()).abs()[both].max().item())
+        report.append(f"row {row} {frac:.1e}/{med:.1e}")
+        if frac >= FRAC_LIMIT or med >= MEDIAN_LIMIT:
+            raise AssertionError(f"K3 {label}: row {row}: {frac:.4f} of lanes above {D_EDGE}, median {med:.2e}")
+    log(f"  {label}: n={out[0].numel()} ok (frac>2e-3/median per row) {' '.join(report)}")
+    return worst
+
+
+def ladder(lay, prm, reps=20, warm=3):
+    """ms per launch of every K3 stage and of the whole K1 ("full") on
+    ``lay``'s frame, by CUDA events: ({stage: called_ms}, {stage: queued_ms}).
+
+    * called: the median of ``reps`` single calls after ``warm``, an event
+      before and after each.  A call costs the host some tens of
+      microseconds (checks, allocation, the launch), which the device waits
+      out, so the short stages read the wrapper's floor, not the kernel;
+    * queued: ``reps`` launches enqueued behind a long matrix product that
+      keeps the device busy meanwhile, so they run back to back: the time
+      from the first launch's start to the last one's end over ``reps`` is
+      the kernel's own time."""
+    import torch
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.ops import round0_probe as K3
+
+    runs = {stage: (lambda k=0, stage=stage: K3.round0_stage(lay, prm, stage)) for stage in K3.STAGES}
+    runs["full"] = lambda k=0: R.round0(lay, prm)
+    busy = torch.ones((8192, 8192), dtype=torch.float32, device=prm.device)
+    called, queued = {}, {}
+    for name, run in runs.items():
+        called[name], _ = time_events(run, reps, warm)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.mm(busy, busy)  # ~1.1e12 operations: the launches below queue up behind it
+        start.record()
+        for _ in range(reps):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        queued[name] = start.elapsed_time(end) / reps
+    return called, queued
 
 
 def scattered_rays(seed, n, dev):
@@ -330,7 +548,8 @@ def main(argv) -> int:
 
     # ---- 2. build ----------------------------------------------------------
     cuda_build.load_all()
-    log(f"phase 2 build: {cuda_build.build_seconds:.2f} s ({', '.join(cuda_build.SOURCES.values())})")
+    log(f"phase 2 build: {cuda_build.build_seconds:.2f} s, one nvcc per library in parallel "
+        f"({', '.join(cuda_build.SOURCES)})")
     for name, text in cuda_build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -353,23 +572,29 @@ def main(argv) -> int:
     tap_k, tap_p = R.round0(lay, prm0), R.round0_reference(lay, prm0)
     max_err = compare_round0(f"{WIDTH}x{HEIGHT} screen-tap", tap_k, tap_p, lay.names)
     o3, d3, nblk = bounce_rays(tp, ts, tap_p)
-    max_err = max(max_err, compare_round0(
+    ray_err = compare_round0(
         f"bounce rays ({nblk} live blocks)", R.round0(lay, prm0, o3, d3),
-        R.round0_reference(lay, prm0, o3, d3), lay.names))
+        R.round0_reference(lay, prm0, o3, d3), lay.names)
+    # the shadow scans' work (for the bounds): one residual-form launch each
+    tap_bound = k1_bound(lay, WIDTH * HEIGHT, lit_shares(R.round0(lay, prm0, want_vis=True), ts.n_lights))
+    ray_bound = k1_bound(lay, o3.shape[0], lit_shares(R.round0(lay, prm0, o3, d3, want_vis=True), ts.n_lights),
+                         ray_input=True)
     del tap_k, tap_p
 
     # ---- 4. the frame at 1080p -----------------------------------------------
     log(f"phase 4 frame {WIDTH}x{HEIGHT}, AA5, maxTraceDepth {ts.max_trace_depth}")
-    R.launches = R.resid_launches = 0
+    R.launches = R.resid_launches = R.ray_launches = R.lin_launches = 0
     F.bounce_rounds = 0
     img = render_frame(tp, ts)
     torch.cuda.synchronize()
     launches, resid, rounds = R.launches, R.resid_launches, F.bounce_rounds
-    log(f"  K1 launches {launches} (residual form {resid}), bounce rounds {rounds}")
+    ray_launches = R.ray_launches
+    log(f"  K1 launches {launches} (ray-input form {ray_launches}, residual form {resid}), bounce rounds {rounds}")
     if launches < 5 + rounds or rounds < 5:
         raise AssertionError(f"K1 launched {launches} times for 5 taps and {rounds} bounce rounds")
-    if resid:
-        raise AssertionError(f"the forward frame launched K1's residual form {resid} times")
+    if resid or R.lin_launches or ray_launches != rounds:
+        raise AssertionError(f"the forward frame launched K1's residual form {resid} times, its lin-input form "
+                             f"{R.lin_launches} times and its ray-input form {ray_launches} times")
     if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"frame {tuple(img.shape)} is not a finite {HEIGHT}x{WIDTH}x3 image")
     lit = (img.amax(-1) > 0).double().mean().item()
@@ -395,19 +620,17 @@ def main(argv) -> int:
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if "--profile" in argv:
         profile_run("frame", lambda: render_frame(jittered(tp, 99), ts))
+    n_rays = o3.shape[0]
     del tp, lay, prm0, o3, d3, plain
 
-    kernels = [{
-        "name": "round0 (K1, fused Whitted round: screen-tap and ray-input forms)",
-        "route": "cuda",
-        "source": "chess2rt_tpu_torch/csrc/round0.cu",
-        "replaces": "chess2rt_tpu/ops/pallas_trace.py:757",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
-    }]
+    kernels = [
+        kernel_entry("round0 screen-tap form (K1, fused Whitted round, one 1080p tap)", K1_SOURCE, K1_REPLACES,
+                     launches - ray_launches, max_err, k1_ms, k1_plain_ms, *tap_bound),
+        kernel_entry(f"round0 ray-input form (K1, one bounce round of {n_rays} rays)", K1_SOURCE, K1_REPLACES,
+                     ray_launches, ray_err, ray_ms, ray_plain_ms, *ray_bound),
+    ]
     kernels += gradient_phases(argv, card, dev)
+    kernels += slice_phases(argv, card, dev, kernel_ms, k1_ms)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -457,6 +680,7 @@ def gradient_phases(argv, card, dev):
     resid_err = max(resid_err, compare_round0(
         f"{gw}x{gh} step bounce rays ({nblk} live blocks)", R.round0(lay, prm0, o3, d3),
         R.round0_reference(lay, prm0, o3, d3), lay.names))
+    resid_bound = k1_bound(lay, gw * gh, lit_shares(tap_k, gs.n_lights))
     del tap_k, tap_p
 
     # ---- 7. K2 against its plain version ---------------------------------------
@@ -564,7 +788,15 @@ def gradient_phases(argv, card, dev):
     log(f"  K1 residual form per {gw}x{gh} tap: kernel {resid_ms:.3f} ms, plain {resid_plain_ms:.3f} ms")
     k2_ms, _ = time_events(lambda k: K2.texel_histogram(keys, vals, n_texels), 20, 3)
     k2_plain_ms, _ = time_events(lambda k: K2.texel_histogram_reference(keys, vals, n_texels), 20, 3)
-    log(f"  K2 per {keys.numel()}-row histogram: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
+    in_range = (keys >= 0) & (keys < n_texels)
+    lib_keys, lib_vals = keys[in_range].long(), vals[in_range]
+    k2_lib_ms, _ = time_events(
+        lambda k: torch.zeros((n_texels, vals.shape[1]), dtype=vals.dtype, device=dev).index_add_(0, lib_keys, lib_vals),
+        20, 3)
+    log(f"  K2 per {keys.numel()}-row histogram: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
+        f"one index_add_ call {k2_lib_ms:.3f} ms")
+    # K2 reads every key and cotangent row once and writes every texel row once; one add per value
+    k2_bound = bound(keys.numel() * 4 + vals.numel() * 4 + n_texels * vals.shape[1] * 4, vals.numel())
     log(f"  peak device memory of a step {peak:.2f} GiB")
     if "--profile" in argv:
         profile_run("gradient step", lambda: grad_step(lambda p: render_frame(p, gs), jittered(gp, 98), target))
@@ -572,27 +804,258 @@ def gradient_phases(argv, card, dev):
                     "grad_step_peak_gib": peak, "fit_losses": losses}))
 
     return [
-        {
-            "name": "round0 residual form (K1 with want_hit and want_vis)",
-            "route": "cuda",
-            "source": "chess2rt_tpu_torch/csrc/round0.cu",
-            "replaces": "chess2rt_tpu/ops/pallas_trace.py:757",
-            "launches": step_resid,
-            "max_abs_err": resid_err,
-            "ms": resid_ms,
-            "plain_ms": resid_plain_ms,
-        },
-        {
-            "name": "texel_hist (K2, texel-gradient histogram)",
-            "route": "cuda",
-            "source": "chess2rt_tpu_torch/csrc/texel_hist.cu",
-            "replaces": "chess2rt_tpu/ops/texel_hist.py:41",
-            "launches": step_k2,
-            "max_abs_err": k2_err,
-            "ms": k2_ms,
-            "plain_ms": k2_plain_ms,
-        },
+        kernel_entry(f"round0 residual form (K1 with want_hit and want_vis, one {gw}x{gh} tap)", K1_SOURCE,
+                     K1_REPLACES, step_resid, resid_err, resid_ms, resid_plain_ms, *resid_bound),
+        kernel_entry(f"texel_hist (K2, texel-gradient histogram of {keys.numel()} rows)",
+                     "chess2rt_tpu_torch/csrc/texel_hist.cu", "chess2rt_tpu/ops/texel_hist.py:41",
+                     step_k2, k2_err, k2_ms, k2_plain_ms, *k2_bound, library_ms=k2_lib_ms),
     ]
+
+
+def slice_phases(argv, card, dev, phase5_frame_ms, phase5_k1_ms):
+    """Phases 11-15: the pixel-slice paths and the stage probes.  Returns
+    the kernels-line entries of K1's lin-input form and K3's four stages."""
+    import torch
+    from chess2rt_tpu_torch import cuda_build
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import flagship as F
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.ops import round0_probe as K3
+    from chess2rt_tpu_torch.ops import texel_hist as K2
+    from chess2rt_tpu_torch.parallel import make_mesh, make_sharded_render_fn, make_sharded_value_and_grad
+    from chess2rt_tpu_torch.render.pipeline import aa_detect, render_frame
+    from chess2rt_tpu_torch.scenes import flagship_standin
+
+    mesh = make_mesh([dev] * MESH_ENTRIES)
+
+    # ---- 11. K1's lin-input form against its plain version ----------------------
+    log("phase 11 K1 lin-input form vs plain (the phase 3 limits), 4 slices, plain and residual rows")
+    w, h = SMALL
+    tp, ts = pack_scene(flagship_standin(T, w, h), device=dev)
+    n_slice = w * h // 4
+    small_err, differing = 0.0, 0
+    for residual in (False, True):
+        lay = R.layout(ts, w, h, want_hit=residual, want_vis=residual)
+        full = R.round0(lay, lay.pack(tp, AA))
+        parts = []
+        for i in range(4):
+            prm = lay.pack(tp, AA, i * n_slice)
+            before = R.lin_launches
+            out = R.round0(lay, prm, lin_input=True, n_lanes=n_slice)
+            if R.lin_launches != before + 1:
+                raise AssertionError("round0(lin_input=True) did not launch K1's lin-input form")
+            label = f"{w}x{h} slice {i}" + (" residual" if residual else "")
+            small_err = max(small_err, compare_round0(label, out, R.round0_reference(
+                lay, prm, lin_input=True, n_lanes=n_slice), lay.names))
+            parts.append(out)
+        differing += sum(int((torch.cat([p[k] for p in parts]) != full[k]).sum()) for k in full)
+    log(f"  slices concatenated vs the screen-tap launch: {differing} differing lane values (0 expected)")
+    if differing:
+        raise AssertionError(f"the lin-input slices differ from the screen-tap launch on {differing} lane values")
+
+    # ---- 12. the sharded frame ------------------------------------------------------
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT), device=dev)
+    n = WIDTH * HEIGHT
+    sharded = make_sharded_render_fn(ts, mesh)
+    n_pad = n + (-n) % (len(mesh) * R.BOUNCE_BLOCK)  # parallel/mesh.py _fused_shard_setup
+    C = n_pad // len(mesh)
+    log(f"phase 12 sharded frame {WIDTH}x{HEIGHT}, AA5, maxTraceDepth {ts.max_trace_depth}: mesh of {len(mesh)} "
+        f"entries of {dev}, {C} lanes ({C // R.BOUNCE_BLOCK} blocks) each, {n_pad - n} pad lanes")
+    single = render_frame(tp, ts)
+    R.launches = R.resid_launches = R.ray_launches = R.lin_launches = 0
+    F.bounce_rounds = 0
+    img = sharded(tp)
+    torch.cuda.synchronize()
+    shard_lin, shard_rays, rounds = R.lin_launches, R.ray_launches, F.bounce_rounds
+    log(f"  K1 launches {R.launches}: lin-input form {shard_lin}, ray-input form {shard_rays}; "
+        f"bounce rounds {rounds}")
+    if shard_lin != 5 * len(mesh) or R.launches != shard_lin + shard_rays or shard_rays != rounds:
+        raise AssertionError(f"the sharded frame launched the lin-input form {shard_lin} times for "
+                             f"{len(mesh)} shards of 5 taps, and {R.launches} kernels in all")
+    shard_err = (img - single).abs().max().item()
+    log(f"  sharded vs single frame: max abs {shard_err:.3e} (limit {SHARD_LIMIT}), "
+        f"equal: {bool(torch.equal(img, single))}, differing values {int((img != single).sum())}")
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not shard_err <= SHARD_LIMIT:
+        raise AssertionError(f"the sharded frame differs from the single frame by {shard_err:.3e}")
+    plain_frame = F.build_flagship_renderer(ts, WIDTH, HEIGHT, trace=R.round0_reference)(tp)
+    compare_frames("sharded frame vs plain frame", img, plain_frame)
+    single_ms, single_all = time_events(lambda k: render_frame(jittered(tp, k), ts), 5, 2)
+    shard_ms, shard_all = time_events(lambda k: sharded(jittered(tp, k)), 5, 2)
+    log(f"  timing (CUDA events, median of 5 after 2 warm-ups) on {card}")
+    log(f"  single frame  {single_ms:.3f} ms {['%.3f' % t for t in single_all]} (phase 5: {phase5_frame_ms:.3f} ms)")
+    log(f"  sharded frame {shard_ms:.3f} ms {['%.3f' % t for t in shard_all]}")
+    lay = R.layout(ts, WIDTH, HEIGHT)
+    # the main path's own shape: every shard's tap of C lanes at its base
+    lin_err = 0.0
+    for i in range(len(mesh)):
+        prm_i = lay.pack(tp, AA, i * C)
+        lin_err = max(lin_err, compare_round0(
+            f"shard {i} tap ({C} lanes at base {i * C})", R.round0(lay, prm_i, lin_input=True, n_lanes=C),
+            R.round0_reference(lay, prm_i, lin_input=True, n_lanes=C), lay.names))
+    log(f"  K1 lin-input form vs plain, largest |a - b|: {lin_err:.3e} at the shard taps, {small_err:.3e} at "
+        f"{SMALL[0]}x{SMALL[1]}")
+    prm_lin = lay.pack(tp, (0.0, 0.0), C)
+    lin_ms, _ = time_events(lambda k: R.round0(lay, prm_lin, lin_input=True, n_lanes=C), 20, 3)
+    lin_plain_ms, _ = time_events(lambda k: R.round0_reference(lay, prm_lin, lin_input=True, n_lanes=C), 5, 1)
+    lin_bound = k1_bound(lay, C, lit_shares(R.round0(lay, prm_lin, lin_input=True, n_lanes=C, want_vis=True),
+                                            ts.n_lights))
+    log(f"  K1 lin-input form per shard tap ({C} lanes): kernel {lin_ms:.3f} ms, plain {lin_plain_ms:.3f} ms")
+    del img
+
+    # ---- 13. the chunked and the adaptive frame ---------------------------------------
+    tc = dataclasses.replace(ts, chunk_pixels=CHUNK_PIXELS)
+    log(f"phase 13 chunked frame: chunk_pixels {CHUNK_PIXELS} ({-(-n // CHUNK_PIXELS)} slabs)")
+    R.launches = R.ray_launches = R.lin_launches = 0
+    chunked = render_frame(tp, tc)
+    torch.cuda.synchronize()
+    log(f"  K1 launches {R.launches}, all in the ray-input form: {R.ray_launches == R.launches}")
+    if R.launches < 5 * -(-n // CHUNK_PIXELS) or R.ray_launches != R.launches:
+        raise AssertionError("the chunked frame did not run every slab through K1's ray-input form")
+    # a slab's rays come from screen_rays, the un-chunked tap's from the
+    # kernel's own ray-gen: a few knife-edge pixels move, so the frames are
+    # held to the frame limits and the share within SHARD_LIMIT is printed
+    d = (chunked - single).abs().amax(-1)
+    chunk_err = compare_frames("chunked vs un-chunked frame", chunked, single)
+    log(f"  pixels within {SHARD_LIMIT} of the un-chunked frame: {(d <= SHARD_LIMIT).double().mean().item():.6f}")
+    del chunked, d
+
+    def peak_of(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    peak_single = peak_of(lambda: render_frame(tp, ts))
+    peak_chunk = peak_of(lambda: render_frame(tp, tc))
+    chunk_ms, chunk_all = time_events(lambda k: render_frame(jittered(tp, k), tc), 5, 2)
+    log(f"  chunked frame {chunk_ms:.3f} ms {['%.3f' % t for t in chunk_all]} (single frame {single_ms:.3f} ms)")
+    log(f"  peak device memory above the scene: un-chunked {peak_single:.3f} GiB, chunked {peak_chunk:.3f} GiB")
+
+    ta = dataclasses.replace(ts, aa_adaptive=True)
+    cap_aa = F._aa_capacity(-(-n // 32))
+    base_tap = F.build_flagship_renderer(dataclasses.replace(ts, aa_enabled=False), WIDTH, HEIGHT)(tp)
+    flagged = int(aa_detect(base_tap).sum())
+    branch = "lane-compacted" if flagged <= cap_aa else "full-width (overflow)"
+    log(f"  adaptive AA: {flagged} flagged pixels ({flagged / n:.4%}), capacity {cap_aa} lanes: {branch} taps")
+    R.launches = R.resid_launches = R.ray_launches = R.lin_launches = 0
+    F.bounce_rounds = 0
+    adaptive = render_frame(tp, ta)
+    torch.cuda.synchronize()
+    screen_taps, ray_taps = R.launches - R.ray_launches, R.ray_launches - F.bounce_rounds
+    log(f"  K1 launches {R.launches}: screen-tap form {screen_taps}, ray-input form {R.ray_launches} "
+        f"({F.bounce_rounds} bounce rounds, {ray_taps} taps)")
+    # compacted: the base tap on the screen, the 4 others as rays at the
+    # flagged lanes; overflow: all 5 on the screen
+    want = (1, 4) if flagged <= cap_aa else (5, 0)
+    if (screen_taps, ray_taps) != want or R.lin_launches or R.resid_launches:
+        raise AssertionError(f"the adaptive frame ran {screen_taps} screen taps and {ray_taps} ray-input taps, "
+                             f"not the {want} of the {branch} branch")
+    plain_adaptive = F.build_flagship_renderer(ta, WIDTH, HEIGHT, trace=R.round0_reference)(tp)
+    adaptive_err = compare_frames("adaptive frame vs plain adaptive frame", adaptive, plain_adaptive)
+    adaptive_ms, adaptive_all = time_events(lambda k: render_frame(jittered(tp, k), ta), 5, 2)
+    log(f"  adaptive frame {adaptive_ms:.3f} ms {['%.3f' % t for t in adaptive_all]} "
+        f"(quirk AA5 frame {single_ms:.3f} ms)")
+    if "--profile" in argv:
+        profile_run("sharded frame", lambda: sharded(jittered(tp, 97)))
+        profile_run("chunked frame", lambda: render_frame(jittered(tp, 96), tc))
+        profile_run("adaptive frame", lambda: render_frame(jittered(tp, 95), ta))
+    del adaptive, plain_adaptive, base_tap, plain_frame, single
+
+    # ---- 14. the sharded gradient step -------------------------------------------------
+    gw, gh = GRAD_SIZE
+    gp, gs = pack_scene(flagship_standin(T, gw, gh), device=dev)
+    gs = dataclasses.replace(gs, aa_enabled=False)
+    target = torch.zeros((gh, gw, 3), dtype=torch.float32, device=dev)
+    log(f"phase 14 sharded gradient step {gw}x{gh}, AA off, {len(mesh)} entries, every leaf")
+    step = make_sharded_value_and_grad(gs, mesh)
+    R.launches = R.resid_launches = R.lin_launches = K2.launches = 0
+    loss_s, grads_s = step(gp, target)
+    torch.cuda.synchronize()
+    step_lin, step_resid, step_k2 = R.lin_launches, R.resid_launches, K2.launches
+    log(f"  K1 launches {R.launches} (lin-input form {step_lin}, residual form {step_resid}), K2 launches {step_k2}")
+    if step_lin != len(mesh) or step_resid != R.launches or step_k2 != R.launches:
+        raise AssertionError("the sharded step did not run K1's residual lin-input form once per shard "
+                             "and K2 once per bitmap gather")
+    glay = R.layout(gs, gw, gh, want_hit=True, want_vis=True)
+    gC = (gw * gh + (-(gw * gh)) % (len(mesh) * R.BOUNCE_BLOCK)) // len(mesh)
+    step_lin_err = 0.0
+    for i in range(len(mesh)):
+        prm_i = glay.pack(gp, (0.0, 0.0), i * gC)
+        step_lin_err = max(step_lin_err, compare_round0(
+            f"shard {i} residual tap ({gC} lanes at base {i * gC})",
+            R.round0(glay, prm_i, lin_input=True, n_lanes=gC),
+            R.round0_reference(glay, prm_i, lin_input=True, n_lanes=gC), glay.names))
+    loss_1, grads_1, _ = grad_step(lambda p: render_frame(p, gs), gp, target)
+    log(f"  loss sharded {loss_s.item():.9g}, single device {loss_1.item():.9g}")
+    if not abs(loss_s.item() - loss_1.item()) <= LOSS_RTOL * abs(loss_1.item()):
+        raise AssertionError("the sharded and the single-device loss differ")
+    from chess2rt_tpu_torch.models.packed import LEAF_NAMES, leaves
+    step_err = compare_grads("sharded vs single-device step", dict(zip(LEAF_NAMES, leaves(grads_s))), grads_1)
+    step_ms, step_all = time_events(lambda k: step(jittered(gp, k), target), 5, 2)
+    step1_ms, step1_all = time_events(lambda k: grad_step(lambda p: render_frame(p, gs), jittered(gp, k), target),
+                                      5, 2)
+    log(f"  sharded step {step_ms:.3f} ms {['%.3f' % t for t in step_all]}")
+    log(f"  single step  {step1_ms:.3f} ms {['%.3f' % t for t in step1_all]}")
+    del grads_s, grads_1
+
+    # ---- 15. K3: the stage probes --------------------------------------------------------
+    log(f"phase 15 K3 stage probes vs plain at 320x240 and {WIDTH}x{HEIGHT} (the phase 3 limits), then the ladder")
+    w, h = SMALL
+    sp, ss = pack_scene(flagship_standin(T, w, h), device=dev)
+    slay = R.layout(ss, w, h)
+    sprm = slay.pack(sp, AA)
+    for stage in K3.STAGES:
+        before = K3.launches[stage]
+        out = K3.round0_stage(slay, sprm, stage)
+        if K3.launches[stage] != before + 1:
+            raise AssertionError(f"round0_stage did not launch the {stage} kernel")
+        compare_stage(f"{stage} {w}x{h}", out, K3.round0_stage_reference(slay, sprm, stage))
+    prm_aa = lay.pack(tp, AA)
+    stage_err = {stage: compare_stage(f"{stage} {WIDTH}x{HEIGHT}", K3.round0_stage(lay, prm_aa, stage),
+                                      K3.round0_stage_reference(lay, prm_aa, stage)) for stage in K3.STAGES}
+    for stage in K3.STAGES:
+        K3.launches[stage] = 0
+    called, queued = ladder(lay, prm_aa, reps=20, warm=3)
+    stage_launches = dict(K3.launches)
+    lit = lit_shares(R.round0(lay, lay.pack(tp, AA), want_vis=True), ts.n_lights)
+    entries = [kernel_entry(f"round0 lin-input form (K1, one shard tap of {C} lanes)", K1_SOURCE,
+                            "chess2rt_tpu/ops/pallas_trace.py:1090", shard_lin, lin_err,
+                            lin_ms, lin_plain_ms, *lin_bound)]
+    log(f"  ladder at {WIDTH}x{HEIGHT} on {card}: ms per call (median of 20 after 3 warm-ups, the wrapper's host "
+        f"work included) and ms per launch of 20 queued back to back behind a busy device (the kernel alone)")
+    for stage in K3.STAGES:
+        usage = cuda_build.ptxas_usage(f"round0_{stage}")
+        plain_ms, _ = time_events(lambda k: K3.round0_stage_reference(lay, prm_aa, stage), 3, 1)
+        stage_bound = k1_bound(lay, n, lit, stage)
+        b_ms, b_by = stage_bound[:2]
+        log(f"  {stage:7s} {called[stage]:.3f} ms per call, {queued[stage]:.4f} ms queued "
+            f"(plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); "
+            f"registers {usage[0] if usage else 'not logged'}, stack {usage[1] if usage else 'not logged'} bytes, "
+            f"launches {stage_launches[stage]}")
+        if stage_launches[stage] < 1:
+            raise AssertionError(f"the ladder did not launch the {stage} kernel")
+        entries.append(kernel_entry(f"round0 stage probe: {stage} (K3, {WIDTH}x{HEIGHT})", K1_SOURCE,
+                                    "demos/kernel_probe.py:45", stage_launches[stage], stage_err[stage],
+                                    called[stage], plain_ms, *stage_bound))
+    usage = cuda_build.ptxas_usage("round0")
+    log(f"  full K1 {called['full']:.3f} ms per call, {queued['full']:.4f} ms queued (phase 5: {phase5_k1_ms:.3f} ms); registers "
+        f"{usage[0] if usage else 'not logged'}, stack {usage[1] if usage else 'not logged'} bytes")
+    log(json.dumps({
+        "sharded_frame_ms": shard_ms, "single_frame_ms": single_ms, "sharded_frame_max_abs_err": shard_err,
+        "chunked_frame_ms": chunk_ms, "chunked_frame_max_abs_err": chunk_err,
+        "peak_gib_unchunked": peak_single, "peak_gib_chunked": peak_chunk,
+        "adaptive_frame_ms": adaptive_ms, "adaptive_flagged": flagged, "adaptive_capacity": cap_aa,
+        "adaptive_branch": branch, "adaptive_frame_max_abs_err": adaptive_err,
+        "sharded_step_ms": step_ms, "single_step_ms": step1_ms, "sharded_step_max_rel_err": step_err,
+        "lin_max_abs_err_small": small_err, "lin_residual_max_abs_err_step_shard": step_lin_err,
+        "ladder_ms": called, "ladder_queued_ms": queued,
+        "stage_registers": {k: (cuda_build.ptxas_usage(f"round0_{k}") or [None])[0] for k in K3.STAGES},
+    }))
+    return entries
+
 
 if __name__ == "__main__":
     t0 = time.perf_counter()

@@ -1,6 +1,8 @@
 """The hand-written kernels against their plain PyTorch versions, on the
-card: K1 (csrc/round0.cu) in its screen-tap, ray-input and residual forms,
-K2 (csrc/texel_hist.cu), and the round-0 gradient through each.
+card: K1 (csrc/round0.cu) in its screen-tap, ray-input, residual and
+lin-input forms, K2 (csrc/texel_hist.cu), K3's four stages (round0.cu built
+with -DC2RT_STAGE=k), the round-0 gradient through each form, and the
+sharded, chunked and adaptive frames at small sizes.
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -182,3 +184,125 @@ def test_round0_grads_match_plain(cuda, form):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-6 + 2e-3 * scale, msg=k)
         compared += scale > 0
     assert compared >= 3
+
+
+# --------------------------------------------------------------------------
+# The pixel-slice paths: K1's lin-input form, K3's stages, the sharded,
+# chunked and adaptive frames
+# --------------------------------------------------------------------------
+
+
+def _frame_close(img, ref):
+    d = (img.double() - ref.double()).abs().amax(-1)
+    assert bool(torch.isfinite(img).all())
+    assert (d > 2e-3).double().mean().item() < 0.01 and d.median().item() < 2e-4
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+def test_lin_input_matches_plain_and_screen_tap(cuda, residual):
+    tp, ts = pack_scene(flagship_standin(T, 160, 120), device=cuda)
+    lay = R.layout(ts, 160, 120, want_hit=residual, want_vis=residual)
+    full = R.round0(lay, lay.pack(tp, (0.3, 0.3)))
+    n = 160 * 120 // 4
+    before = R.lin_launches
+    parts = []
+    for i in range(4):
+        prm = lay.pack(tp, (0.3, 0.3), i * n)
+        out = R.round0(lay, prm, lin_input=True, n_lanes=n)
+        _assert_close(out, R.round0_reference(lay, prm, lin_input=True, n_lanes=n),
+                      [k for k in lay.names if not k.startswith("vis")])
+        parts.append(out)
+    assert R.lin_launches == before + 4
+    # the same kernel, the same lanes: bit for bit the screen-tap launch
+    for k in full:
+        assert torch.equal(torch.cat([p[k] for p in parts]), full[k]), k
+
+
+def test_lin_input_lane_base_above_2_pow_24(cuda):
+    """An 8K frame's last shards start above 2^24: the f32 lin slot holds
+    every multiple of 128, and the kernel's lanes are those of the ray-input
+    form on the same pixels' rays."""
+    from chess2rt_tpu_torch.ops.round0_grad import _gen_rays_lin
+
+    w, h = 7680, 4320
+    tp, ts = pack_scene(flagship_standin(T, w, h), device=cuda)
+    lay = R.layout(ts, w, h)
+    base = 2**24 + 128 * 5  # an odd multiple of 128
+    out = R.round0(lay, lay.pack(tp, (0.0, 0.0), base), lin_input=True, n_lanes=4096)
+    o3, d3 = _gen_rays_lin(tp, w, h, (0.0, 0.0), base, 4096)
+    ref = R.round0(lay, lay.pack(tp), o3.contiguous(), d3.contiguous())
+    _assert_close(out, ref, lay.names)
+    shifted = R.round0(lay, lay.pack(tp, (0.0, 0.0), base + 128), lin_input=True, n_lanes=4096)
+    assert torch.equal(shifted["win"][:-128], out["win"][128:])
+    assert torch.equal(shifted["r"][:-128], out["r"][128:])
+
+
+@pytest.mark.parametrize("stage", ["empty", "raygen", "scan", "shadow"])
+def test_stage_matches_plain(cuda, stage):
+    from chess2rt_tpu_torch.ops import round0_probe as K3
+
+    tp, ts = pack_scene(flagship_standin(T, 160, 120), device=cuda)
+    lay = R.layout(ts, 160, 120)
+    prm = lay.pack(tp, (0.3, 0.6))
+    before = K3.launches[stage]
+    out = K3.round0_stage(lay, prm, stage)
+    assert K3.launches[stage] == before + 1
+    ref = K3.round0_stage_reference(lay, prm, stage)
+    for a, b in zip(out, ref):
+        d = _d(a, b)
+        assert bool(torch.isfinite(a).all())
+        assert (d > 2e-3).double().mean().item() < 0.01 and d.median().item() < 2e-4
+
+
+def test_sharded_chunked_and_adaptive_frames(cuda):
+    import dataclasses
+
+    from chess2rt_tpu_torch.parallel import make_mesh, make_sharded_render_fn
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+
+    tp, ts = pack_scene(flagship_standin(T, 160, 120), device=cuda)
+    ref = render_frame(tp, ts)
+    sharded = make_sharded_render_fn(ts, make_mesh([cuda] * 3))(tp)
+    assert (sharded - ref).abs().max().item() <= 2e-5
+    _frame_close(render_frame(tp, dataclasses.replace(ts, chunk_pixels=4096)), ref)
+    ta = dataclasses.replace(ts, aa_adaptive=True, aa_capacity=8192)
+    plain = F.build_flagship_renderer(ta, 160, 120, trace=R.round0_reference)(tp)
+    _frame_close(render_frame(tp, ta), plain)
+    _frame_close(render_frame(tp, dataclasses.replace(ta, aa_capacity=1)), plain)
+    sharded_a = make_sharded_render_fn(ta, make_mesh([cuda] * 3))(tp)
+    _frame_close(sharded_a, plain)
+
+
+def test_sharded_step_matches_single_device_step(cuda):
+    import dataclasses
+
+    from chess2rt_tpu_torch.parallel import make_mesh, make_sharded_value_and_grad
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+
+    tp, ts = pack_scene(flagship_standin(T, 160, 120), device=cuda)
+    ts = dataclasses.replace(ts, aa_enabled=False)
+    target = torch.zeros((120, 160, 3), device=cuda)
+    loss, grads = make_sharded_value_and_grad(ts, make_mesh([cuda] * 4))(tp, target)
+    xs = [x.detach().clone().requires_grad_(x.is_floating_point()) for x in leaves(tp)]
+    want = ((render_frame(from_leaves(xs), ts) - target) ** 2).mean()
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    compared = 0
+    for k, g, x in zip(LEAF_NAMES, leaves(grads), xs):
+        if x.grad is None or not bool(x.grad.any()):
+            continue
+        scale = x.grad.abs().max().item()
+        assert (g - x.grad).abs().max().item() <= 1e-3 * scale + 2e-6, k
+        compared += 1
+    assert compared >= 20
+
+
+def test_ladder_times_every_stage_and_the_whole_kernel(cuda):
+    import chip_smoke  # the repository root: run pytest as ``python -m pytest`` from there
+    from chess2rt_tpu_torch.ops import round0_probe as K3
+
+    tp, ts = pack_scene(flagship_standin(T, 320, 240), device=cuda)
+    lay = R.layout(ts, 320, 240)
+    for times in chip_smoke.ladder(lay, lay.pack(tp, (0.3, 0.3)), reps=3, warm=1):
+        assert set(times) == {*K3.STAGES, "full"}
+        assert all(t > 0 for t in times.values())

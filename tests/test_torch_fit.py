@@ -68,7 +68,7 @@ def test_adam_matches_optax_with_scales_and_decay():
 
 @pytest.fixture(scope="module")
 def standin():
-    tp, ts = pack_scene(flagship_standin(TT, W, H))
+    tp, ts = pack_scene(flagship_standin(TT, W, H), device="cpu")
     ts = dataclasses.replace(ts, aa_enabled=False)
     with torch.no_grad():
         target = render_frame(tp, ts)

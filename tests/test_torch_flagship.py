@@ -78,7 +78,7 @@ def test_block_bounces_match_other_modes(mode):
     against the full-width overflow fallback, at a frame large enough to
     hold more than one capacity unit of blocks (96 blocks of 128 lanes)."""
     w, h = 128, 96
-    tp, ts = pack_scene(flagship_standin(TT, w, h))
+    tp, ts = pack_scene(flagship_standin(TT, w, h), device="cpu")
     ts = dataclasses.replace(ts, aa_enabled=False)
     block = render_frame(tp, ts)
     if mode == "full":

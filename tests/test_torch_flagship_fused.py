@@ -14,33 +14,18 @@ import jax
 import numpy as np
 import torch
 
-from chess2rt_tpu.ops import pallas_grad
-from chess2rt_tpu.ops.pallas_trace import build_flagship_renderer, build_round0_kernel
+from chess2rt_tpu.ops.pallas_trace import build_flagship_renderer
 from chess2rt_tpu_torch.render.pipeline import render_frame
 
-from torch_port_cases import H, W, assert_frame_close, packed_pair
+from torch_port_cases import H, W, assert_frame_close, forward_jax_kernels, packed_pair
 
 torch.set_num_threads(2)
-
-
-def _separately_jitted_round0(static, width, height, interpret=False, n_rays=None,
-                              want_hit=False, lin_input=False):
-    """build_trace_round0's forward (build_round0_kernel under a custom VJP
-    that a forward pass never enters), jitted on its own."""
-    kern = jax.jit(build_round0_kernel(static, width, height, interpret, n_rays=n_rays,
-                                       want_hit=want_hit, lin_input=lin_input))
-
-    def run(*args):
-        with jax.disable_jit(False):
-            return kern(*args)
-
-    return run
 
 
 def test_frame_matches_jax_fused_renderer(monkeypatch):
     jp, js, tp, ts = packed_pair("standin")
     assert not js.has_bump  # build_trace_round0 takes the bump hybrid otherwise
-    monkeypatch.setattr(pallas_grad, "build_trace_round0", _separately_jitted_round0)
+    forward_jax_kernels(monkeypatch)
     with jax.disable_jit():
         ref = np.asarray(build_flagship_renderer(js, W, H, interpret=True)(jp))
     img = render_frame(tp, ts).numpy()

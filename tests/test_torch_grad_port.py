@@ -26,7 +26,7 @@ def test_fd_check_light_color():
     """The directional derivative along light_color (an O(1) leaf f32
     central differences resolve) against autograd through the frame,
     eps 1e-3, rtol 1e-3 (tests/test_pallas_grad.py:141-158)."""
-    tp, ts = pack_scene(flagship_standin(TT, W, H))
+    tp, ts = pack_scene(flagship_standin(TT, W, H), device="cpu")
     ts = dataclasses.replace(ts, aa_enabled=False)
 
     def loss(p):
@@ -45,7 +45,7 @@ def test_fd_check_light_color():
 def wide():
     """128x96 stand-in, AA off: 96 blocks of 128 lanes, more than one
     capacity unit (tests/test_torch_flagship.py:75-91)."""
-    tp, ts = pack_scene(flagship_standin(TT, 128, 96))
+    tp, ts = pack_scene(flagship_standin(TT, 128, 96), device="cpu")
     ts = dataclasses.replace(ts, aa_enabled=False)
     target = torch.from_numpy(np.random.default_rng(2).uniform(size=(96, 128, 3)).astype(np.float32))
     return tp, ts, target, _grads(tp, ts, target)
@@ -80,7 +80,7 @@ def test_aa_taps_share_the_gradient():
     from chess2rt_tpu_torch.ops.flagship import build_flagship_renderer
     from chess2rt_tpu_torch.render.pipeline import AA_KERNEL
 
-    tp, ts = pack_scene(flagship_standin(TT, W, H))
+    tp, ts = pack_scene(flagship_standin(TT, W, H), device="cpu")
     render = build_flagship_renderer(ts, W, H)
     p, xs = grad_leaves(tp)
     render(p).sum().backward()

@@ -47,7 +47,7 @@ def test_pack_scene_matches_jax(case):
 @pytest.mark.parametrize("case", CASES)
 def test_from_numpy_carries_jax_leaves(case):
     jp, _, tp, ts = packed_pair(case)
-    carried = from_numpy(jax_leaves(jp), ts)
+    carried = from_numpy(jax_leaves(jp), ts, device="cpu")
     tl, cl = _torch_leaves(tp), _torch_leaves(carried)
     for k in tl:
         np.testing.assert_array_equal(cl[k], tl[k], err_msg=k)
@@ -63,7 +63,7 @@ def test_from_numpy_rejects_missing_leaves():
     leaves = jax_leaves(jp)
     del leaves["ambient"]
     with pytest.raises(ValueError, match="ambient"):
-        from_numpy(leaves, ts)
+        from_numpy(leaves, ts, device="cpu")
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -149,7 +149,7 @@ def test_scene_program_refuses_lists_beyond_max_hits():
         geom = TT.CsgUnion(name=f"u{k}", op="union", left=geom,
                            right=TT.Sphere(name=f"s{k}", center=(float(k), 0.0, 5.0), R=1.0))
     sc.nodes = [TT.Node(name="n", geometry=geom, shader=TT.Lambert(name="l"))]
-    _, st = pack_scene(sc)
+    _, st = pack_scene(sc, device="cpu")
     with pytest.raises(ValueError, match="MAX_HITS"):
         R.layout(st, 8, 8)
 
@@ -204,26 +204,31 @@ def test_unported_forms_raise_with_their_roadmap_item():
     _, _, tp, ts = packed_pair("standin")
     lay = R.layout(ts, W, H)
     prm = lay.pack(tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the lin-input form is ported: it needs its lane count
+    with pytest.raises(ValueError, match="n_lanes"):
         R.round0(lay, prm, lin_input=True)
+    assert R.round0(lay, prm, lin_input=True, n_lanes=128)["win"].shape == (128,)
     # the residual forms are ported: they add their rows
     out = R.round0(lay, prm, want_hit=True, want_vis=True)
     assert {"t", "nx", "dr", "vis0", "vis1"} <= set(out)
     from chess2rt_tpu_torch.ops.round0_grad import diff_round0
 
-    for kw in ({"pin_mode": "node"}, {"lin_input": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            diff_round0(lay, prm, tp, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        diff_round0(lay, prm, tp, pin_mode="node")
+    with pytest.raises(ValueError, match="n_lanes"):
+        diff_round0(lay, prm, tp, lin_input=True)
 
 
 def test_render_frame_raises_for_unported_modes():
     from chess2rt_tpu_torch.render.pipeline import render_frame
 
     _, _, tp, ts = packed_pair("standin")
-    for change in ({"dof": True}, {"stereo": True}, {"gi_enabled": True},
-                   {"aa_adaptive": True}, {"chunk_pixels": 64}):
+    for change in ({"dof": True}, {"stereo": True}, {"gi_enabled": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_frame(tp, dataclasses.replace(ts, **change))
+    # adaptive AA and chunk_pixels are ported: they render
+    for change in ({"aa_adaptive": True}, {"chunk_pixels": 256, "aa_enabled": False}):
+        assert render_frame(tp, dataclasses.replace(ts, **change)).shape == (H, W, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(dataclasses.replace(tp, node_matrix=tp.node_matrix.double()), ts)
 
@@ -254,3 +259,29 @@ def test_vec_rotations_torch_match_numpy():
         want = rot(0.7)
         got = rot(torch.tensor(0.7, dtype=torch.float64), xp=torch)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-15)
+
+
+def test_entry_points_default_to_the_card_not_the_cpu(monkeypatch):
+    """pack_scene and from_numpy place the scene on the current CUDA device
+    unless the caller names one, and raise when there is no card: they do
+    not carry on on the CPU."""
+    import inspect
+
+    from chess2rt_tpu_torch.models import packed as TP
+
+    from chess2rt_tpu_torch.models import types as TT
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from torch_port_cases import scene
+
+    for fn in (pack_scene, from_numpy):
+        assert inspect.signature(fn).parameters["device"].default is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert TP._resolve_device(None, "pack_scene") == torch.device("cuda", 0)
+    assert TP._resolve_device("cpu", "pack_scene") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jp, _, _, ts = packed_pair("standin")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack_scene(scene(TT, "standin"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_numpy(jax_leaves(jp), ts)

@@ -92,7 +92,7 @@ def test_train_textures_off_gives_the_atlas_no_gradient():
     """The JAX package cuts the atlas from the gradient when train_textures
     is off (fit turns it off when the atlas is not trained); with it on,
     the atlas gets a texel gradient."""
-    tp, ts = pack_scene(flagship_standin(TT, 32, 24))
+    tp, ts = pack_scene(flagship_standin(TT, 32, 24), device="cpu")
     ts = dataclasses.replace(ts, aa_enabled=False)
     for train, want_grad in ((True, True), (False, False)):
         p, xs = grad_leaves(tp)

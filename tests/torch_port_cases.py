@@ -39,7 +39,7 @@ def scene(T, case):
 def packed_pair(case):
     """(jax_packed, jax_static, torch_packed, torch_static) of one scene."""
     jp, js = jax_pack_scene(scene(JT, case), dtype=jnp.float32)
-    tp, ts = torch_pack_scene(scene(TT, case))
+    tp, ts = torch_pack_scene(scene(TT, case), device="cpu")
     return jp, js, tp, ts
 
 
@@ -216,17 +216,19 @@ def compare_grads(got: dict, want: dict, names, rtol, atol=2e-6, skip_zero=False
     assert compared >= min_compared, compared
 
 
-def jax_round0_kernel(static, width, height, n_rays, want_hit, want_vis):
+def jax_round0_kernel(static, width, height, n_rays, want_hit, want_vis, lin_input=False):
     """The JAX package's K1 in interpret mode, jitted, one compile per
-    scene structure and form (aa_enabled does not reach the kernel)."""
-    return _jax_round0_kernel(dataclasses.replace(static, aa_enabled=True), width, height, n_rays, want_hit,
-                              want_vis)
+    scene structure and form (the AA, chunk and capacity settings do not
+    reach the kernel)."""
+    static = dataclasses.replace(static, aa_enabled=True, aa_adaptive=False, aa_capacity=None, chunk_pixels=None,
+                                 bounce_block_capacity=None)
+    return _jax_round0_kernel(static, width, height, n_rays, want_hit, want_vis, lin_input)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_round0_kernel(static, width, height, n_rays, want_hit, want_vis):
+def _jax_round0_kernel(static, width, height, n_rays, want_hit, want_vis, lin_input):
     return jax.jit(build_round0_kernel(static, width, height, interpret=True, n_rays=n_rays, want_hit=want_hit,
-                                       want_vis=want_vis))
+                                       want_vis=want_vis, lin_input=lin_input))
 
 
 def eager_jax_kernels(monkeypatch):
@@ -247,14 +249,53 @@ def eager_jax_kernels(monkeypatch):
 
     def build(static, width, height, interpret=False, n_rays=None, want_hit=False, want_vis=False,
               lin_input=False):
-        assert interpret and not lin_input
-        return jitted(jax_round0_kernel(static, width, height, n_rays, want_hit, want_vis))
+        assert interpret
+        return jitted(jax_round0_kernel(static, width, height, n_rays, want_hit, want_vis, lin_input))
 
     monkeypatch.setattr(pallas_grad, "build_round0_kernel", build)
     monkeypatch.setattr(pallas_grad, "reshade",
                         jitted(jax.jit(pallas_grad.reshade, static_argnames=("static", "want_hit", "bump"))))
     monkeypatch.setattr(pallas_grad, "compute_leaf_pins",
                         jitted(jax.jit(pallas_grad.compute_leaf_pins, static_argnames=("static",))))
+
+
+def forward_jax_kernels(monkeypatch):
+    """For forward frames: the JAX renderers' round-0 calls
+    (``build_trace_round0``, a custom VJP that a forward pass never enters)
+    become the plain kernel, jitted on its own and shared between call
+    sites.  Callers run the renderer under ``jax.disable_jit()``, so its
+    glue, ``lax.map`` slabs and ``lax.cond`` branches run eagerly."""
+    from chess2rt_tpu.ops import pallas_grad
+
+    def build(static, width, height, interpret=False, n_rays=None, want_hit=False, lin_input=False):
+        assert interpret
+        kern = jax_round0_kernel(static, width, height, n_rays, want_hit, False, lin_input)
+
+        def run(*args):
+            with jax.disable_jit(False):
+                return kern(*args)
+
+        return run
+
+    monkeypatch.setattr(pallas_grad, "build_trace_round0", build)
+
+
+def jax_rows_slices(js, jp, n_lanes, n_slices, masks=None, bases=None, width=W, height=H):
+    """A frame as slices of the JAX package's ``build_rows_renderer`` (the
+    per-shard body of its mesh layer), one call per slice: the [n_slices *
+    n_lanes, 3] rows as a JAX array, differentiable in ``jp``.  Run it under
+    ``jax.disable_jit()`` after ``forward_jax_kernels`` (forward) or
+    ``eager_jax_kernels`` (gradients).  ``masks`` / ``bases`` are the
+    adaptive-AA inputs of each slice (numpy arrays or None)."""
+    from chess2rt_tpu.ops.pallas_trace import build_rows_renderer
+
+    rows = build_rows_renderer(js, width, height, True, n_lanes)
+    out = []
+    for i in range(n_slices):
+        mask = None if masks is None else jnp.asarray(masks[i])
+        base = None if bases is None else jnp.asarray(bases[i])
+        out.append(rows(jp, i * n_lanes, mask=mask, base=base))
+    return jnp.concatenate(out)
 
 
 def check_round0_vjp(form, monkeypatch):
@@ -270,7 +311,7 @@ def check_round0_vjp(form, monkeypatch):
 
     eager_jax_kernels(monkeypatch)
     jp, js, _, ts = packed_pair("standin")
-    tp = from_numpy(jax_leaves(jp), ts)
+    tp = from_numpy(jax_leaves(jp), ts, device="cpu")
     n = W * H
     lay = R.layout(ts, W, H)
     p, xs = grad_leaves(tp)
@@ -358,7 +399,7 @@ def check_frame_grads(aa_enabled, monkeypatch):
     js = dataclasses.replace(js, aa_enabled=aa_enabled)
     ts = dataclasses.replace(ts, aa_enabled=aa_enabled)
     assert not js.has_bump and js.train_textures and js.bounce_mode == "block"
-    tp = from_numpy(jax_leaves(jp), ts)
+    tp = from_numpy(jax_leaves(jp), ts, device="cpu")
     target = np.random.default_rng(5).uniform(size=(H, W, 3)).astype(np.float32)
     with jax.disable_jit():
         f = build_flagship_renderer(js, W, H, interpret=True)
