@@ -1,20 +1,20 @@
 // K1 for Hopper: the fused Whitted round-0 ray kernel, one thread per ray.
 //
 // Replaces the TPU kernel chess2rt_tpu/ops/pallas_trace.py
-// build_round0_kernel (body `kernel`; its screen-tap and ray-input
-// pallas_calls).  It computes what that kernel computes, lane for lane:
-// pinhole ray-gen (screen-tap form; the lin-input form is the same ray-gen
-// for the n pixels from the lane base in the parameter vector's lin slot,
-// its pallas_call with lin_input=True) or caller rays (ray-input form), the
-// closest hit over every node (plane / sphere / cube leaves, offset and
-// full-matrix transforms with the dist rescaling, CSG union / inter / diff
-// as fixed-capacity all-hits lists sorted by the same compare-exchange
-// network and walked by parity), faceforward, the winning node's material
-// with in-kernel checker and procedure2, spherical UVs through the same
-// polynomial atan2 / asin, a dist-only shadow scan per light, Lambert and
-// Phong direct light plus ambient, and the reflection / refraction
-// continuation with TIR.  Bitmap texels stay deferred: the kernel emits
-// (win, u, v) and the light sum, and ops/shade.py gathers the texels.
+// build_round0_kernel (body `kernel`; its screen-tap, lin-input and
+// ray-input pallas_calls).  It computes what that kernel computes, lane for
+// lane: pinhole ray-gen (screen-tap form; the lin-input form is the same
+// ray-gen for the n pixels from the lane base in the parameter vector's lin
+// slot) or caller rays (ray-input form), the closest hit over every node
+// (plane / sphere / cube leaves, offset and full-matrix transforms with the
+// dist rescaling, CSG union / inter / diff as fixed-capacity all-hits lists
+// sorted by the same compare-exchange network and walked by parity),
+// faceforward, the winning node's material with in-kernel checker and
+// procedure2, spherical UVs through the same polynomial atan2 / asin, a
+// dist-only shadow scan per light, Lambert and Phong direct light plus
+// ambient, and the reflection / refraction continuation with TIR.  Bitmap
+// texels stay deferred: the kernel emits (win, u, v) and the light sum, and
+// ops/shade.py gathers the texels.
 //
 // The residual forms (the JAX kernel's want_hit / want_vis outputs, which
 // the gradient's backward pins its discrete decisions to) are the same
@@ -23,28 +23,65 @@
 // light.  The flags are warp-uniform; a call without them writes no
 // residual row.
 //
-// Design.  The TPU kernel was generated per scene structure (Python
-// unrolled the node loops into the Mosaic program).  Here ONE compiled
-// kernel reads the structure from the int32 scene program that
-// ops/round0.py scene_program() writes: per node its transform kind, the
-// geometry expression in postfix (leaf kind + parameter offset, CSG op +
-// the right operand's instruction range + its compare-exchange pairs), its
-// shader and texture kinds.  Every lane walks the same program, so the
-// branches are warp-uniform and nothing is built per scene.  Parameters are
-// the flat f32 vector of ops/round0.py make_packer(), read through __ldg
-// (every lane reads the same word: a broadcast).
+// One compiled kernel serves every scene.  The TPU kernel was generated per
+// scene structure (Python unrolled the node loops into the Mosaic program);
+// here the structure is data: the int32 scene program that ops/round0.py
+// scene_program() writes (per node its transform kind, the geometry
+// expression in postfix, each CSG merge's compare-exchange pairs, shader
+// and texture kinds) beside the flat f32 parameter vector of make_packer().
+// Every lane walks the same program, so its branches are warp-uniform.
 //
-// What bounds it on this card: not DRAM bytes (a lane reads 24 bytes of
-// ray and writes at most 60 bytes) but per-thread registers and the local
-// memory that the CSG hit lists spill to: a list of MAX_HITS records is
-// indexed by the program's compare-exchange pairs at run time, so it lives
-// in local memory (L1-backed), and the long per-ray program keeps many
-// values live.  The design keeps the spill small: records are six floats
-// (position is recomputed from t), the "which operand" flags are one bit
-// mask in a register, the inside tests of the CSG diff flip evaluate on a
-// one-word bit stack, and the shadow scan breaks at the first occluder.
-// Tuning (register caps, splitting the scan from the shading, a warp-level
-// work queue for the bounce rounds) is later work.
+// What bounds it on this card: neither DRAM bytes (a lane reads at most 24
+// bytes of ray and writes at most 100) nor f32 arithmetic, but instruction
+// throughput and latency: a few thousand dependent instructions per lane
+// (IEEE division and square roots, the program decode, the CSG merges), at
+// the occupancy its registers allow.  What the design does about it:
+//
+// * Scene tables on chip.  A block copies the program and the parameter
+//   vector (a few KB, the same for every lane) into shared memory once, as
+//   one array at a fixed address: a decode or a parameter read is one
+//   broadcast shared-memory read at a word offset, with no pointer held in
+//   registers, instead of dependent global loads.  The tables are dynamic
+//   shared memory sized by the wrapper; a scene whose tables do not fit
+//   beside the hit lists is refused.
+// * Distances are scanned, one record is built.  The closest-hit scan
+//   carries a distance and a small tag per node (which leaf, which root or
+//   cube face, and the CSG merge that dropped the hit, if any); the hit
+//   record (normal, UVs with their atan2 / asin, the CsgDiff normal flips
+//   with their inside probes) is built ONCE per lane, for the hit that won
+//   the scan, from the same expressions as the scan's.  The flips are
+//   replayed from the tag: the program gives every leaf the set of CsgDiff
+//   merges above it, and a hit is flipped by those below the one that
+//   dropped it.  A lane that misses everything keeps the last node's
+//   record, as a record-carrying scan would.
+// * CSG lists out of local memory.  A list slot is a distance and a 16-bit
+//   tag.  A node that is one merge of two sphere or cube leaves (four hits;
+//   both CSG nodes of the flagship scene) keeps its slots in registers and
+//   runs the four-slot network unrolled.  Longer lists live in shared
+//   memory laid out [slot][thread] (conflict-free, and indexable at run
+//   time by the network's pairs): 12 KB per block for 16 slots of 128
+//   threads.  The shadow scans' dist-only lists take the same two paths.
+// * Shadow scans only where the light sum is used.  Without F_VIS a lane
+//   that missed the scene or won a mirror or glass node writes zeros to the
+//   light rows whatever the scans say, so it skips them; such lanes are
+//   screen-coherent, so whole warps skip.  With F_VIS every lane scans,
+//   because the vis rows are defined on every lane.  The Phong highlight
+//   (a powf per light) is computed on Phong winners only.
+// * Few values live across the scans: the shading reads the material and
+//   computes the light terms after each scan, and the diffuse color after
+//   the last, which with the fixed-address tables brings the kernel to 92
+//   registers and five resident blocks of 128 threads per SM, without
+//   spills.
+// * One block per 128-lane tile.  A persistent grid (resident blocks x SMs,
+//   each looping over tiles, so that the table copy is paid once) was
+//   measured slower: tiles differ widely in cost (sky against CSG), and the
+//   hardware's block scheduler balances them better than a fixed stride.
+// * Tensor cores have no part: the body has no matrix product.
+//
+// One compile-time switch besides the stage: -DC2RT_TABLES_SHARED=0 reads
+// the tables through global memory and needs no barrier, which is how a
+// host compiler can run this device code thread by thread
+// (tests/test_torch_kernel_host.py).
 //
 // The stage probes (K3).  demos/kernel_probe.py build_stage traced four cut
 // copies of the TPU kernel (empty, raygen, scan, shadow) to find where a
@@ -52,7 +89,8 @@
 // compiles this same device code with an early return after stage k, each
 // stage writing the probe's two f32 rows, so the compiler drops what the
 // stage does not reach and its registers, stack and time are the stage's
-// own.  Without the define (stage 0) this file is K1.
+// own.  The shadow stage scans on every lane, as its plain version does.
+// Without the define (stage 0) this file is K1.
 //
 // Arithmetic follows the JAX kernel's op order; no --use_fast_math (it
 // changes division, sqrt and sin and moves knife-edge winners).  min/max
@@ -63,6 +101,9 @@
 #ifndef C2RT_STAGE
 #define C2RT_STAGE 0
 #endif
+#ifndef C2RT_TABLES_SHARED
+#define C2RT_TABLES_SHARED 1
+#endif
 
 namespace {
 
@@ -71,6 +112,8 @@ enum { STAGE_FULL = 0, STAGE_EMPTY = 1, STAGE_RAYGEN = 2, STAGE_SCAN = 3, STAGE_
 constexpr int STAGE = C2RT_STAGE;
 static_assert(STAGE >= STAGE_FULL && STAGE <= STAGE_SHADOW, "C2RT_STAGE must be 0..4");
 
+constexpr int BLOCK = 128;    // threads of a block: one 128-lane tile
+constexpr int MIN_BLOCKS = 5;  // resident blocks per SM that the registers are fitted to
 constexpr int MAX_HITS = 16;  // ops/round0.py MAX_HITS
 constexpr float INF = 1e30f;
 constexpr float EPS_SHADOW = 1e-3f;
@@ -80,19 +123,27 @@ constexpr float HALF_PI_F = 1.57079632679489661923f;
 constexpr float QUARTER_PI_F = 0.78539816339744830962f;
 
 // scene program layout (ops/round0.py: H_*, NODE_STRIDE, INSTR_STRIDE)
-constexpr int PROGRAM_VERSION = 3;
+constexpr int PROGRAM_VERSION = 4;
 enum {
   H_VERSION, H_NODES, H_LIGHTS, H_CAM, H_AMBIENT, H_AA, H_LIN, H_FLAGS,
   H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB
 };
 constexpr int NODE_STRIDE = 10;
 constexpr int INSTR_STRIDE = 8;
+// (F_PHONG is part of the layout but not read here: the highlight is
+// computed per lane, on Phong winners)
 enum { F_PHONG = 1, F_REFR = 2, F_EMIT_L = 4, F_CONT = 8, F_HIT = 16, F_VIS = 32, F_UV = 64 };
 enum { X_IDENT = 0, X_OFFSET = 1, X_MATRIX = 2 };
 enum { OP_PLANE = 0, OP_SPHERE = 1, OP_CUBE = 2, OP_CSG = 3 };
 enum { CSG_UNION = 0, CSG_INTER = 1, CSG_DIFF = 2 };
 // node record fields
 enum { N_XKIND, N_XOFF, N_MAT, N_SHADER, N_TEX, N_TEXOFF, N_UV, N_START, N_COUNT, N_HITS };
+// instruction fields: a leaf is (op, parameter offset, the CsgDiff
+// instructions above it as a bit set of indices relative to the node's
+// first instruction); a CSG merge is (op, csg op, the right operand's
+// instruction range, its pairs' range, the operands' hit counts)
+enum { I_OP, I_ARG, I_DIFFS };
+enum { C_OP, C_CSG, C_RSTART, C_REND, C_PAIR0, C_NPAIRS, C_NL, C_NR };
 // shader and texture kinds (models/packed.py)
 enum { LAMBERT = 0, PHONG = 1, REFLECTION = 2, REFRACTION = 3 };
 enum { TEX_NONE = 0, TEX_CHECKER = 1, TEX_PROC2 = 2, TEX_BITMAP = 3 };
@@ -109,20 +160,69 @@ struct Rec {
 __device__ __forceinline__ float jmin(float a, float b) { return (a < b || a != a) ? a : b; }
 __device__ __forceinline__ float jmax(float a, float b) { return (a > b || a != a) ? a : b; }
 __device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(jmax(x, 1e-30f)); }
+__device__ __forceinline__ float sel3(int a, float x, float y, float z) {
+  return a == 0 ? x : (a == 1 ? y : z);
+}
 
+// The scene's two tables.  In shared memory they are one array at a fixed
+// address, the program first and the parameters after it, so a read needs
+// no pointer register: an instruction, a node record and a light are word
+// offsets into it.  (C2RT_TABLES_SHARED=0: the same offsets into the
+// program in global memory, through the read-only path.)
+#if C2RT_TABLES_SHARED
+extern __shared__ int tables[];
+#endif
 struct Scene {
-  const float* __restrict__ prm;
-  const int* __restrict__ prog;
+#if C2RT_TABLES_SHARED
+  int prm0;  // the program's length: where the parameters start
+  __device__ __forceinline__ void bind(const float*, const int*, int n_prog) {
+    prm0 = n_prog;
+    bind_tables();
+  }
+  __device__ __forceinline__ int word(int k) const { return tables[k]; }
+  __device__ __forceinline__ float p(int k) const { return __int_as_float(tables[prm0 + k]); }
+#else
+  const float* prm;
+  const int* prog;
+  __device__ __forceinline__ void bind(const float* prm_, const int* prog_, int) {
+    prm = prm_;
+    prog = prog_;
+    bind_tables();
+  }
+  __device__ __forceinline__ int word(int k) const { return __ldg(prog + k); }
   __device__ __forceinline__ float p(int k) const { return __ldg(prm + k); }
-  __device__ __forceinline__ const int* node(int i) const {
-    return prog + __ldg(prog + H_NODE_TAB) + NODE_STRIDE * i;
+#endif
+  int nodes, instrs;  // the node and the instruction table, resolved once
+  __device__ __forceinline__ void bind_tables() {
+    nodes = word(H_NODE_TAB);
+    instrs = word(H_INSTR_TAB);
   }
-  __device__ __forceinline__ const int* instr(int k) const {
-    return prog + __ldg(prog + H_INSTR_TAB) + INSTR_STRIDE * k;
-  }
+  __device__ __forceinline__ int head(int h) const { return word(h); }
+  __device__ __forceinline__ int light(int li) const { return word(word(H_LIGHT_TAB) + li); }
+  __device__ __forceinline__ int node(int i) const { return nodes + NODE_STRIDE * i; }
+  __device__ __forceinline__ int instr(int k) const { return instrs + INSTR_STRIDE * k; }
   __device__ __forceinline__ int pair(int k, int side) const {
-    return __ldg(prog + __ldg(prog + H_PAIR_TAB) + 2 * k + side);
+    return word(word(H_PAIR_TAB) + 2 * k + side);
   }
+};
+
+// One thread's hit list: per slot a distance and a tag.
+//   tag bits 0-4  the leaf's instruction, relative to the node's first
+//       bits 5-7  which hit of the leaf: a sphere's root (0 near, 1 far), a
+//                 cube's face
+//       bits 8-12 the instruction (relative) that dropped the hit: the leaf
+//                 itself when it missed, a CSG merge whose parity walk
+//                 rejected it, or TAG_KEPT
+constexpr int TAG_KEPT = 31;
+__device__ __forceinline__ int make_tag(int leaf, int which, bool valid) {
+  return leaf | (which << 5) | ((valid ? TAG_KEPT : leaf) << 8);
+}
+// shared memory, laid out [slot][thread]: conflict-free, indexable at run time
+__shared__ float list_t[MAX_HITS * BLOCK];
+__shared__ unsigned short list_tag[MAX_HITS * BLOCK];
+struct Hits {
+  __device__ __forceinline__ float& t(int m) { return list_t[m * BLOCK + threadIdx.x]; }
+  __device__ __forceinline__ unsigned short& tag(int m) { return list_tag[m * BLOCK + threadIdx.x]; }
 };
 
 // ---- polynomial atan2 / asin (pallas_trace.atan2_poly / asin_poly) -------
@@ -153,7 +253,7 @@ __device__ __forceinline__ float asin_poly(float x) {
 
 // ---- leaves ---------------------------------------------------------------
 
-__device__ Rec plane_closest(const Scene& s, int b, const Ray& r, bool uv) {
+__device__ __forceinline__ Rec plane_closest(const Scene& s, int b, const Ray& r, bool uv) {
   const float y0 = s.p(b), limit = s.p(b + 1);
   const bool miss = (r.oy > y0 && r.dy > -1e-9f) || (r.oy < y0 && r.dy < 1e-9f);
   const bool nonzero = r.dy != 0.0f;
@@ -188,7 +288,8 @@ __device__ __forceinline__ bool sphere_roots(const Scene& s, int b, const Ray& r
   return has;
 }
 
-__device__ Rec sphere_record(const Scene& s, int b, const Ray& r, float t, bool ok, bool uv) {
+__device__ __forceinline__ Rec sphere_record(const Scene& s, int b, const Ray& r, float t, bool ok,
+                                             bool uv) {
   const float cx = s.p(b), cy = s.p(b + 1), cz = s.p(b + 2), rad = s.p(b + 3);
   const float ts = ok ? t : 0.0f;
   const float rx = r.ox + r.dx * ts - cx;
@@ -209,67 +310,68 @@ __device__ Rec sphere_record(const Scene& s, int b, const Ray& r, float t, bool 
   return h;
 }
 
-__device__ Rec sphere_closest(const Scene& s, int b, const Ray& r, bool uv) {
-  float x1, x2;
-  const bool has = sphere_roots(s, b, r, x1, x2);
-  const float sol = x2 < 0.0f ? x1 : x2;  // nearer root unless behind
-  return sphere_record(s, b, r, sol, has && sol >= 0.0f, uv);
-}
-
-// face f of the cube: (axis, sign, u axis, v axis), ops/geometry._CUBE_FACES
+// face f of the cube: (axis, sign, u axis, v axis), ops/geometry._CUBE_FACES;
+// f may be a run-time value (the selects fold when it is a constant)
 __device__ __forceinline__ Rec cube_face(const Scene& s, int b, const Ray& r, int f, bool uv) {
   const int axis = f < 2 ? 1 : (f < 4 ? 0 : 2);
   const int ua = (f == 2 || f == 3) ? 1 : 0;
   const int va = f < 4 ? 2 : 1;
   const float sgn = (f & 1) ? 1.0f : -1.0f;
-  const float c3[3] = {s.p(b), s.p(b + 1), s.p(b + 2)};
+  const float cx = s.p(b), cy = s.p(b + 1), cz = s.p(b + 2);
   const float half = s.p(b + 3) * 0.5f;
-  const float o3[3] = {r.ox, r.oy, r.oz};
-  const float d3[3] = {r.dx, r.dy, r.dz};
-  const float dk = d3[axis];
+  const float dk = sel3(axis, r.dx, r.dy, r.dz);
   const bool valid = fabsf(dk) >= 1e-9f;
   const float inv = valid ? -1.0f / dk : 0.0f;
-  const float t = (o3[axis] - (c3[axis] + sgn * half)) * inv;
-  float px[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) px[k] = o3[k] + d3[k] * t;
-  const int oa = (axis + 1) % 3, ob = (axis + 2) % 3;
-  const bool inside = px[oa] >= c3[oa] - half && px[oa] <= c3[oa] + half &&
-                      px[ob] >= c3[ob] - half && px[ob] <= c3[ob] + half;
+  const float t = (sel3(axis, r.ox, r.oy, r.oz) - (sel3(axis, cx, cy, cz) + sgn * half)) * inv;
+  const float px = r.ox + r.dx * t, py = r.oy + r.dy * t, pz = r.oz + r.dz * t;
+  const int oa = axis == 2 ? 0 : axis + 1, ob = axis == 0 ? 2 : axis - 1;
+  const float pa = sel3(oa, px, py, pz), ca = sel3(oa, cx, cy, cz);
+  const float pb = sel3(ob, px, py, pz), cb = sel3(ob, cx, cy, cz);
+  const bool inside = pa >= ca - half && pa <= ca + half && pb >= cb - half && pb <= cb + half;
   const bool hit_ok = valid && t >= 0.0f && inside;
   Rec h;
   h.t = hit_ok ? t : INF;
   h.nx = axis == 0 ? sgn : 0.0f;
   h.ny = axis == 1 ? sgn : 0.0f;
   h.nz = axis == 2 ? sgn : 0.0f;
-  h.u = uv ? px[ua] - c3[ua] : 0.0f;
-  h.v = uv ? px[va] - c3[va] : 0.0f;
+  h.u = uv ? sel3(ua, px, py, pz) - sel3(ua, cx, cy, cz) : 0.0f;
+  h.v = uv ? sel3(va, px, py, pz) - sel3(va, cx, cy, cz) : 0.0f;
   return h;
 }
 
 // the (<= 2) valid face crossings, ascending, by the JAX kernel's running
-// best/second pass; `best` alone is cube_closest
-__device__ void cube_two_hits(const Scene& s, int b, const Ray& r, bool uv, Rec& best, Rec& second) {
-  best = cube_face(s, b, r, 0, uv);
-  second = cube_face(s, b, r, 1, uv);
-  if (second.t < best.t) {
-    const Rec tmp = best;
-    best = second;
-    second = tmp;
+// best/second pass, as distances and face numbers; the first alone is the
+// cube's closest hit
+__device__ __forceinline__ void cube_two_faces(const Scene& s, int b, const Ray& r, float& t1,
+                                               int& f1, float& t2, int& f2) {
+  t1 = cube_face(s, b, r, 0, false).t;
+  f1 = 0;
+  t2 = cube_face(s, b, r, 1, false).t;
+  f2 = 1;
+  if (t2 < t1) {
+    const float tt = t1;
+    t1 = t2;
+    t2 = tt;
+    f1 = 1;
+    f2 = 0;
   }
 #pragma unroll
   for (int f = 2; f < 6; ++f) {
-    const Rec c = cube_face(s, b, r, f, uv);
-    const bool bb = c.t < best.t;
-    const bool bs = c.t < second.t;
-    const Rec new_second = bb ? best : (bs ? c : second);
-    if (bb) best = c;
-    second = new_second;
+    const float c = cube_face(s, b, r, f, false).t;
+    const bool bb = c < t1;
+    const bool bs = c < t2;
+    t2 = bb ? t1 : (bs ? c : t2);
+    f2 = bb ? f1 : (bs ? f : f2);
+    if (bb) {
+      t1 = c;
+      f1 = f;
+    }
   }
 }
 
 // slab-method (t_enter, t_exit) as sorted dists: the dist-only cube test
-__device__ void cube_slab_dists(const Scene& s, int b, const Ray& r, float& lo, float& hi) {
+__device__ __forceinline__ void cube_slab_dists(const Scene& s, int b, const Ray& r, float& lo,
+                                                float& hi) {
   const float c3[3] = {s.p(b), s.p(b + 1), s.p(b + 2)};
   const float half = s.p(b + 3) * 0.5f;
   const float o3[3] = {r.ox, r.oy, r.oz};
@@ -308,20 +410,20 @@ __device__ bool is_inside(const Scene& s, int a, int b, float px, float py, floa
   unsigned stk = 0u;
   int sp = 0;
   for (int k = a; k < b; ++k) {
-    const int* ins = s.instr(k);
-    const int op = __ldg(ins);
+    const int ins = s.instr(k);
+    const int op = s.word(ins + I_OP);
     bool in;
     if (op == OP_CSG) {
       const bool r = (stk >> (sp - 1)) & 1u;
       const bool l = (stk >> (sp - 2)) & 1u;
       sp -= 2;
-      in = bool_op(__ldg(ins + 1), l, r);
+      in = bool_op(s.word(ins + C_CSG), l, r);
     } else if (op == OP_SPHERE) {
-      const int g = __ldg(ins + 1);
+      const int g = s.word(ins + I_ARG);
       const float rx = s.p(g) - px, ry = s.p(g + 1) - py, rz = s.p(g + 2) - pz;
       in = rx * rx + ry * ry + rz * rz < s.p(g + 3) * s.p(g + 3);
     } else if (op == OP_CUBE) {
-      const int g = __ldg(ins + 1);
+      const int g = s.word(ins + I_ARG);
       const float h = s.p(g + 3) * 0.5f;
       in = fabsf(px - s.p(g)) <= h && fabsf(py - s.p(g + 1)) <= h && fabsf(pz - s.p(g + 2)) <= h;
     } else {
@@ -333,111 +435,257 @@ __device__ bool is_inside(const Scene& s, int a, int b, float px, float py, floa
   return (stk >> (sp - 1)) & 1u;
 }
 
-// odd number of valid hits in st[a, a+n): the CSG operand started inside
-__device__ __forceinline__ bool odd_valid(const float* t, int a, int n) {
-  int c = 0;
-  for (int m = 0; m < n; ++m) c += t[a + m] < INF;
-  return (c & 1) != 0;
-}
-
 // ---- all-hits lists + CSG parity walk (pallas_trace all_hits) -------------
 
-// Evaluates node expression instructions [start, start+count) into st[]
-// (the whole expression's hit list, in the JAX kernel's order).
-__device__ void all_hits(const Scene& s, int start, int count, const Ray& r, bool uv,
-                         Rec* st) {
+// The two crossings of a sphere or cube leaf, ascending, as distances (1e30 =
+// none).  TAGS: also their tags, and a cube's crossings by its faces (the
+// closest-hit scan); without, a cube's crossings by the slab test (the
+// shadow scans).  `rel` is the leaf's instruction relative to its node's.
+template <bool TAGS>
+__device__ __forceinline__ void leaf_pair(const Scene& s, int ins, int rel, const Ray& r,
+                                          float& ta, float& tb, int& ga, int& gb) {
+  const int g = s.word(ins + I_ARG);
+  ga = gb = 0;
+  if (s.word(ins + I_OP) == OP_SPHERE) {
+    float x1, x2;
+    const bool has = sphere_roots(s, g, r, x1, x2);
+    const bool ok2 = has && x2 >= 0.0f, ok1 = has && x1 >= 0.0f;
+    ta = ok2 ? x2 : INF;
+    tb = ok1 ? x1 : INF;
+    if (TAGS) {
+      ga = make_tag(rel, 0, ok2);
+      gb = make_tag(rel, 1, ok1);
+    }
+  } else if (TAGS) {
+    int f1, f2;
+    cube_two_faces(s, g, r, ta, f1, tb, f2);
+    ga = make_tag(rel, f1, ta < INF);
+    gb = make_tag(rel, f2, tb < INF);
+  } else {
+    cube_slab_dists(s, g, r, ta, tb);
+  }
+}
+
+// A node that is one CSG merge of two sphere or cube leaves (instructions
+// start, start + 1, start + 2; four hits): the same merge as all_hits makes,
+// with the four slots in registers and the network of four unrolled:
+// ops/round0.py _oddeven_pairs(4) is (0,1) (2,3) (0,2) (1,3) (1,2).
+// Returns the closest hit's distance (TAGS: the first minimum and its tag;
+// without: the NaN-propagating minimum).
+template <bool TAGS>
+__device__ __forceinline__ float csg_two_leaves(const Scene& s, int start, const Ray& r, int& tag) {
+  float t[4];
+  int g[4];
+  leaf_pair<TAGS>(s, s.instr(start), 0, r, t[0], t[1], g[0], g[1]);
+  leaf_pair<TAGS>(s, s.instr(start + 1), 1, r, t[2], t[3], g[2], g[3]);
+  const int csg = s.word(s.instr(start + 2) + C_CSG);
+  // initial parity: odd hit count => started inside (geometry.d:307-309)
+  bool in_l = ((t[0] < INF) != (t[1] < INF)), in_r = ((t[2] < INF) != (t[3] < INF));
+  bool right[4] = {false, false, true, true};
+#define C2RT_CE(i, j)             \
+  if (t[i] > t[j]) {              \
+    const float tt = t[i];        \
+    t[i] = t[j];                  \
+    t[j] = tt;                    \
+    const int gg = g[i];          \
+    g[i] = g[j];                  \
+    g[j] = gg;                    \
+    const bool rr = right[i];     \
+    right[i] = right[j];          \
+    right[j] = rr;                \
+  }
+  C2RT_CE(0, 1)
+  C2RT_CE(2, 3)
+  C2RT_CE(0, 2)
+  C2RT_CE(1, 3)
+  C2RT_CE(1, 2)
+#undef C2RT_CE
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const bool valid = t[m] < INF;
+    in_l = in_l ^ (!right[m] && valid);
+    in_r = in_r ^ (right[m] && valid);
+    if (valid && !bool_op(csg, in_l, in_r)) {  // dropped by this merge, instruction 2
+      t[m] = INF;
+      g[m] = (g[m] & 0xff) | (2 << 8);
+    }
+  }
+  float best = t[0];
+  tag = g[0];
+#pragma unroll
+  for (int m = 1; m < 4; ++m) {
+    if (TAGS) {
+      if (t[m] < best) {
+        best = t[m];
+        tag = g[m];
+      }
+    } else {
+      best = jmin(best, t[m]);
+    }
+  }
+  return best;
+}
+
+// Evaluates node expression instructions [start, start+count) into the
+// list: the whole expression's hits in the JAX kernel's order, as distances
+// (1e30 = none); TAGS as in leaf_pair.
+template <bool TAGS>
+__device__ void all_hits(const Scene& s, int start, int count, const Ray& r, Hits& H) {
   int sp = 0;
   unsigned side = 0u;  // bit m: slot m came from a CSG's right operand
   for (int k = start; k < start + count; ++k) {
-    const int* ins = s.instr(k);
-    const int op = __ldg(ins);
+    const int ins = s.instr(k);
+    const int op = s.word(ins + I_OP);
+    const int rel = k - start;  // this instruction, relative to the node's first
     if (op == OP_PLANE) {
-      st[sp++] = plane_closest(s, __ldg(ins + 1), r, uv);
-    } else if (op == OP_SPHERE) {
-      const int g = __ldg(ins + 1);
-      float x1, x2;
-      const bool has = sphere_roots(s, g, r, x1, x2);
-      st[sp++] = sphere_record(s, g, r, x2, has && x2 >= 0.0f, uv);
-      st[sp++] = sphere_record(s, g, r, x1, has && x1 >= 0.0f, uv);
-    } else if (op == OP_CUBE) {
-      cube_two_hits(s, __ldg(ins + 1), r, uv, st[sp], st[sp + 1]);
+      const float t = plane_closest(s, s.word(ins + I_ARG), r, false).t;
+      H.t(sp) = t;
+      if (TAGS) H.tag(sp) = (unsigned short)make_tag(rel, 0, t < INF);
+      ++sp;
+    } else if (op != OP_CSG) {
+      float ta, tb;
+      int ga, gb;
+      leaf_pair<TAGS>(s, ins, rel, r, ta, tb, ga, gb);
+      H.t(sp) = ta;
+      H.t(sp + 1) = tb;
+      if (TAGS) {
+        H.tag(sp) = (unsigned short)ga;
+        H.tag(sp + 1) = (unsigned short)gb;
+      }
       sp += 2;
     } else {
-      const int csg = __ldg(ins + 1), r_start = __ldg(ins + 2), r_end = __ldg(ins + 3);
-      const int pair0 = __ldg(ins + 4), n_pairs = __ldg(ins + 5);
-      const int n_l = __ldg(ins + 6), n_r = __ldg(ins + 7);
+      const int csg = s.word(ins + C_CSG);
+      const int pair0 = s.word(ins + C_PAIR0), n_pairs = s.word(ins + C_NPAIRS);
+      const int n_l = s.word(ins + C_NL), n_r = s.word(ins + C_NR);
       const int base = sp - n_l - n_r;
       // initial parity: odd hit count => started inside (geometry.d:307-309)
       int c_l = 0, c_r = 0;
-      for (int m = 0; m < n_l; ++m) c_l += st[base + m].t < INF;
-      for (int m = 0; m < n_r; ++m) c_r += st[base + n_l + m].t < INF;
+      for (int m = 0; m < n_l; ++m) c_l += H.t(base + m) < INF;
+      for (int m = 0; m < n_r; ++m) c_r += H.t(base + n_l + m) < INF;
       bool in_l = c_l & 1, in_r = c_r & 1;
       const unsigned span = ((1u << (n_l + n_r)) - 1u) << base;
       side = (side & ~span) | ((((1u << n_r) - 1u) << n_l) << base);
       for (int q = pair0; q < pair0 + n_pairs; ++q) {
         const int i = base + s.pair(q, 0), j = base + s.pair(q, 1);
-        if (st[i].t > st[j].t) {
-          const Rec tmp = st[i];
-          st[i] = st[j];
-          st[j] = tmp;
+        const float ti = H.t(i), tj = H.t(j);
+        if (ti > tj) {
+          H.t(i) = tj;
+          H.t(j) = ti;
+          if (TAGS) {
+            const unsigned short gi = H.tag(i);
+            H.tag(i) = H.tag(j);
+            H.tag(j) = gi;
+          }
           const unsigned bi = (side >> i) & 1u, bj = (side >> j) & 1u;
           side = (side & ~((1u << i) | (1u << j))) | (bj << i) | (bi << j);
         }
       }
       for (int m = base; m < sp; ++m) {
-        Rec& h = st[m];
-        const bool valid = h.t < INF;
+        const bool valid = H.t(m) < INF;
         const bool from_right = (side >> m) & 1u;
         in_l = in_l ^ (!from_right && valid);
         in_r = in_r ^ (from_right && valid);
-        const bool state = bool_op(csg, in_l, in_r) && valid;
-        if (csg == CSG_DIFF && state) {
-          // CsgDiff normal flip (geometry.d:377-397), probe step 1e-3
-          const float hx = r.ox + r.dx * h.t, hy = r.oy + r.dy * h.t, hz = r.oz + r.dz * h.t;
-          const bool before = is_inside(s, r_start, r_end, hx - r.dx * 1e-3f, hy - r.dy * 1e-3f,
-                                        hz - r.dz * 1e-3f);
-          const bool after = is_inside(s, r_start, r_end, hx + r.dx * 1e-3f, hy + r.dy * 1e-3f,
-                                       hz + r.dz * 1e-3f);
-          if (before != after) {
-            h.nx = -h.nx;
-            h.ny = -h.ny;
-            h.nz = -h.nz;
-          }
+        if (valid && !bool_op(csg, in_l, in_r)) {  // dropped here
+          H.t(m) = INF;
+          if (TAGS) H.tag(m) = (unsigned short)((H.tag(m) & 0xff) | (rel << 8));
         }
-        if (!state) h.t = INF;
       }
     }
   }
 }
 
-// closest hit of one node's expression, untransformed
-__device__ Rec expr_closest(const Scene& s, const int* nd, const Ray& r, bool uv) {
-  const int start = __ldg(nd + N_START), count = __ldg(nd + N_COUNT);
+// Closest hit of one node's expression, untransformed, as a distance and the
+// tag that hit_record rebuilds the record from.  Ties: the first minimum in
+// list order.
+__device__ float expr_closest(const Scene& s, int nd, const Ray& r, Hits& H, int& tag) {
+  const int start = s.word(nd + N_START), count = s.word(nd + N_COUNT);
   if (count == 1) {
-    const int* ins = s.instr(start);
-    const int op = __ldg(ins), g = __ldg(ins + 1);
-    if (op == OP_PLANE) return plane_closest(s, g, r, uv);
-    if (op == OP_SPHERE) return sphere_closest(s, g, r, uv);
-    Rec best, second;
-    cube_two_hits(s, g, r, uv, best, second);
-    return best;
+    const int ins = s.instr(start);
+    const int op = s.word(ins + I_OP), g = s.word(ins + I_ARG);
+    if (op == OP_PLANE) {
+      const float t = plane_closest(s, g, r, false).t;
+      tag = make_tag(0, 0, t < INF);
+      return t;
+    }
+    if (op == OP_SPHERE) {
+      float x1, x2;
+      const bool has = sphere_roots(s, g, r, x1, x2);
+      const bool far = x2 < 0.0f;  // nearer root unless behind
+      const float sol = far ? x1 : x2;
+      const bool ok = has && sol >= 0.0f;
+      tag = make_tag(0, far ? 1 : 0, ok);
+      return ok ? sol : INF;
+    }
+    float t1, t2;
+    int f1, f2;
+    cube_two_faces(s, g, r, t1, f1, t2, f2);
+    tag = make_tag(0, f1, t1 < INF);
+    return t1;
   }
-  Rec st[MAX_HITS];
-  all_hits(s, start, count, r, uv, st);
-  const int nh = __ldg(nd + N_HITS);
-  Rec best = st[0];
-  for (int m = 1; m < nh; ++m)
-    if (st[m].t < best.t) best = st[m];
+  const int nh = s.word(nd + N_HITS);
+  if (count == 3 && nh == 4) return csg_two_leaves<true>(s, start, r, tag);
+  all_hits<true>(s, start, count, r, H);
+  float best = H.t(0);
+  int slot = 0;
+  for (int m = 1; m < nh; ++m) {
+    const float t = H.t(m);
+    if (t < best) {
+      best = t;
+      slot = m;
+    }
+  }
+  tag = H.tag(slot);
   return best;
 }
 
-// ---- dist-only variants for the shadow scans ------------------------------
+// The record of the hit that `tag` names in one node's expression: its leaf
+// evaluated again (the same expressions as the scan's, so the same bits),
+// the normal flipped by every CsgDiff above the leaf that kept the hit
+// (geometry.d:377-397, probe step 1e-3), and `t`, the distance the scan
+// ended with (1e30 when the hit missed or was dropped).
+__device__ Rec hit_record(const Scene& s, int nd, const Ray& r, int tag, float t, bool uv) {
+  const int start = s.word(nd + N_START);
+  const int ins = s.instr(start + (tag & 31));
+  const int op = s.word(ins + I_OP), g = s.word(ins + I_ARG), which = (tag >> 5) & 7;
+  Rec h;
+  if (op == OP_PLANE) {
+    h = plane_closest(s, g, r, uv);
+  } else if (op == OP_SPHERE) {
+    float x1, x2;
+    const bool has = sphere_roots(s, g, r, x1, x2);
+    const float x = which ? x1 : x2;
+    h = sphere_record(s, g, r, x, has && x >= 0.0f, uv);
+  } else {
+    h = cube_face(s, g, r, which, uv);
+  }
+  const int dropped = (tag >> 8) & 31;
+  unsigned diffs = (unsigned)s.word(ins + I_DIFFS) & ((1u << dropped) - 1u);
+  while (diffs) {
+    const int csg = s.instr(start + __ffs(diffs) - 1);
+    diffs &= diffs - 1u;
+    const int r_start = s.word(csg + C_RSTART), r_end = s.word(csg + C_REND);
+    const float hx = r.ox + r.dx * h.t, hy = r.oy + r.dy * h.t, hz = r.oz + r.dz * h.t;
+    const bool before = is_inside(s, r_start, r_end, hx - r.dx * 1e-3f, hy - r.dy * 1e-3f,
+                                  hz - r.dz * 1e-3f);
+    const bool after = is_inside(s, r_start, r_end, hx + r.dx * 1e-3f, hy + r.dy * 1e-3f,
+                                 hz + r.dz * 1e-3f);
+    if (before != after) {
+      h.nx = -h.nx;
+      h.ny = -h.ny;
+      h.nz = -h.nz;
+    }
+  }
+  h.t = t;
+  return h;
+}
 
-__device__ float expr_min_dist(const Scene& s, const int* nd, const Ray& r) {
-  const int start = __ldg(nd + N_START), count = __ldg(nd + N_COUNT);
+// ---- dist-only variant for the shadow scans --------------------------------
+
+__device__ float expr_min_dist(const Scene& s, int nd, const Ray& r, Hits& H) {
+  const int start = s.word(nd + N_START), count = s.word(nd + N_COUNT);
   if (count == 1) {
-    const int* ins = s.instr(start);
-    const int op = __ldg(ins), g = __ldg(ins + 1);
+    const int ins = s.instr(start);
+    const int op = s.word(ins + I_OP), g = s.word(ins + I_ARG);
     if (op == OP_PLANE) return plane_closest(s, g, r, false).t;
     if (op == OP_SPHERE) {
       float x1, x2;
@@ -449,52 +697,14 @@ __device__ float expr_min_dist(const Scene& s, const int* nd, const Ray& r) {
     cube_slab_dists(s, g, r, lo, hi);
     return lo;
   }
-  float st[MAX_HITS];
-  int sp = 0;
-  unsigned side = 0u;
-  for (int k = start; k < start + count; ++k) {
-    const int* ins = s.instr(k);
-    const int op = __ldg(ins);
-    if (op == OP_PLANE) {
-      st[sp++] = plane_closest(s, __ldg(ins + 1), r, false).t;
-    } else if (op == OP_SPHERE) {
-      float x1, x2;
-      const bool has = sphere_roots(s, __ldg(ins + 1), r, x1, x2);
-      st[sp++] = (has && x2 >= 0.0f) ? x2 : INF;
-      st[sp++] = (has && x1 >= 0.0f) ? x1 : INF;
-    } else if (op == OP_CUBE) {
-      cube_slab_dists(s, __ldg(ins + 1), r, st[sp], st[sp + 1]);
-      sp += 2;
-    } else {
-      const int csg = __ldg(ins + 1);
-      const int pair0 = __ldg(ins + 4), n_pairs = __ldg(ins + 5);
-      const int n_l = __ldg(ins + 6), n_r = __ldg(ins + 7);
-      const int base = sp - n_l - n_r;
-      bool in_l = odd_valid(st, base, n_l), in_r = odd_valid(st, base + n_l, n_r);
-      const unsigned span = ((1u << (n_l + n_r)) - 1u) << base;
-      side = (side & ~span) | ((((1u << n_r) - 1u) << n_l) << base);
-      for (int q = pair0; q < pair0 + n_pairs; ++q) {
-        const int i = base + s.pair(q, 0), j = base + s.pair(q, 1);
-        if (st[i] > st[j]) {
-          const float tmp = st[i];
-          st[i] = st[j];
-          st[j] = tmp;
-          const unsigned bi = (side >> i) & 1u, bj = (side >> j) & 1u;
-          side = (side & ~((1u << i) | (1u << j))) | (bj << i) | (bi << j);
-        }
-      }
-      for (int m = base; m < sp; ++m) {
-        const bool valid = st[m] < INF;
-        const bool from_right = (side >> m) & 1u;
-        in_l = in_l ^ (!from_right && valid);
-        in_r = in_r ^ (from_right && valid);
-        if (!(bool_op(csg, in_l, in_r) && valid)) st[m] = INF;
-      }
-    }
+  const int nh = s.word(nd + N_HITS);
+  if (count == 3 && nh == 4) {
+    int unused;
+    return csg_two_leaves<false>(s, start, r, unused);
   }
-  const int nh = __ldg(nd + N_HITS);
-  float best = st[0];
-  for (int m = 1; m < nh; ++m) best = jmin(best, st[m]);
+  all_hits<false>(s, start, count, r, H);
+  float best = H.t(0);
+  for (int m = 1; m < nh; ++m) best = jmin(best, H.t(m));
   return best;
 }
 
@@ -508,15 +718,13 @@ __device__ __forceinline__ void mulr(const float* M, float a, float b, float c, 
   z = a * M[2] + b * M[5] + c * M[8];
 }
 
-__device__ Rec node_closest(const Scene& s, int i, const Ray& r) {
-  const int* nd = s.node(i);
-  const int xk = __ldg(nd + N_XKIND), xo = __ldg(nd + N_XOFF);
-  const bool uv = __ldg(nd + N_UV) != 0;
-  if (xk == X_IDENT) return expr_closest(s, nd, r, uv);
-  if (xk == X_OFFSET) {
-    const Ray lr = {r.ox - s.p(xo), r.oy - s.p(xo + 1), r.oz - s.p(xo + 2), r.dx, r.dy, r.dz};
-    return expr_closest(s, nd, lr, uv);
-  }
+// the ray in the node's own frame; for a full matrix also 1 / |M^-1 d|,
+// which rescales a distance back to the world
+__device__ __forceinline__ Ray local_ray(const Scene& s, int nd, const Ray& r, float& inv_dl) {
+  const int xk = s.word(nd + N_XKIND), xo = s.word(nd + N_XOFF);
+  inv_dl = 1.0f;
+  if (xk == X_IDENT) return r;
+  if (xk == X_OFFSET) return Ray{r.ox - s.p(xo), r.oy - s.p(xo + 1), r.oz - s.p(xo + 2), r.dx, r.dy, r.dz};
   float mi[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) mi[k] = s.p(xo + 9 + k);
@@ -526,70 +734,78 @@ __device__ Rec node_closest(const Scene& s, int i, const Ray& r) {
   float cx, cy, cz;
   mulr(mi, r.dx, r.dy, r.dz, cx, cy, cz);
   const float dlen = sqrtf(jmax(cx * cx + cy * cy + cz * cz, 1e-30f));
-  const float inv_dl = 1.0f / dlen;
+  inv_dl = 1.0f / dlen;
   lr.dx = cx * inv_dl;
   lr.dy = cy * inv_dl;
   lr.dz = cz * inv_dl;
-  const Rec h = expr_closest(s, nd, lr, uv);
-  // world normal: row vector times mi^T
-  const float wx = h.nx * mi[0] + h.ny * mi[1] + h.nz * mi[2];
-  const float wy = h.nx * mi[3] + h.ny * mi[4] + h.nz * mi[5];
-  const float wz = h.nx * mi[6] + h.ny * mi[7] + h.nz * mi[8];
-  const float ninv = rsq(wx * wx + wy * wy + wz * wz);
-  Rec out;
-  out.t = h.t >= INF ? INF : h.t * inv_dl;
-  out.nx = wx * ninv;
-  out.ny = wy * ninv;
-  out.nz = wz * ninv;
-  out.u = h.u;
-  out.v = h.v;
-  return out;
+  return lr;
 }
 
-__device__ float node_min_dist(const Scene& s, int i, const Ray& r) {
-  const int* nd = s.node(i);
-  const int xk = __ldg(nd + N_XKIND), xo = __ldg(nd + N_XOFF);
-  if (xk == X_IDENT) return expr_min_dist(s, nd, r);
-  if (xk == X_OFFSET) {
-    const Ray lr = {r.ox - s.p(xo), r.oy - s.p(xo + 1), r.oz - s.p(xo + 2), r.dx, r.dy, r.dz};
-    return expr_min_dist(s, nd, lr);
-  }
-  float mi[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) mi[k] = s.p(xo + 9 + k);
-  const float fx = s.p(xo + 18), fy = s.p(xo + 19), fz = s.p(xo + 20);
-  Ray lr;
-  mulr(mi, r.ox - fx, r.oy - fy, r.oz - fz, lr.ox, lr.oy, lr.oz);
-  float cx, cy, cz;
-  mulr(mi, r.dx, r.dy, r.dz, cx, cy, cz);
-  const float dlen = sqrtf(jmax(cx * cx + cy * cy + cz * cz, 1e-30f));
-  const float inv_dl = 1.0f / dlen;
-  lr.dx = cx * inv_dl;
-  lr.dy = cy * inv_dl;
-  lr.dz = cz * inv_dl;
-  const float d = expr_min_dist(s, nd, lr);
+// a local distance in the world: only a full matrix rescales
+__device__ __forceinline__ float world_dist(const Scene& s, int nd, float d, float inv_dl) {
+  if (s.word(nd + N_XKIND) != X_MATRIX) return d;
   return d >= INF ? INF : d * inv_dl;
 }
 
-// ---- the kernel -------------------------------------------------------------
+// node i's closest hit along r: its distance, and the tag of the hit
+__device__ float node_closest(const Scene& s, int i, const Ray& r, Hits& H, int& tag) {
+  const int nd = s.node(i);
+  float inv_dl;
+  const Ray lr = local_ray(s, nd, r, inv_dl);
+  return world_dist(s, nd, expr_closest(s, nd, lr, H, tag), inv_dl);
+}
 
-__global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ prm,
-                                                     const int* __restrict__ prog,
-                                                     const float* __restrict__ orig,
-                                                     const float* __restrict__ dir,
-                                                     float* __restrict__ out,
-                                                     int* __restrict__ win_out, int n, int width,
-                                                     int height) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const Scene s{prm, prog};
-  const int n_nodes = __ldg(prog + H_NODES);
-  const int n_lights = __ldg(prog + H_LIGHTS);
-  const int flags = __ldg(prog + H_FLAGS);
+// the record of node i's hit `tag` at world distance t, normal in the world
+__device__ Rec node_record(const Scene& s, int i, const Ray& r, int tag, float t) {
+  const int nd = s.node(i);
+  const bool uv = s.word(nd + N_UV) != 0;
+  float inv_dl;
+  const Ray lr = local_ray(s, nd, r, inv_dl);
+  Rec h = hit_record(s, nd, lr, tag, t, uv);
+  if (s.word(nd + N_XKIND) == X_MATRIX) {
+    // world normal: row vector times mi^T (the inverse is read again
+    // rather than kept in registers across the record)
+    const int mi = s.word(nd + N_XOFF) + 9;
+    const float wx = h.nx * s.p(mi + 0) + h.ny * s.p(mi + 1) + h.nz * s.p(mi + 2);
+    const float wy = h.nx * s.p(mi + 3) + h.ny * s.p(mi + 4) + h.nz * s.p(mi + 5);
+    const float wz = h.nx * s.p(mi + 6) + h.ny * s.p(mi + 7) + h.nz * s.p(mi + 8);
+    const float ninv = rsq(wx * wx + wy * wy + wz * wz);
+    h.nx = wx * ninv;
+    h.ny = wy * ninv;
+    h.nz = wz * ninv;
+  }
+  return h;
+}
+
+__device__ float node_min_dist(const Scene& s, int i, const Ray& r, Hits& H) {
+  const int nd = s.node(i);
+  float inv_dl;
+  const Ray lr = local_ray(s, nd, r, inv_dl);
+  return world_dist(s, nd, expr_min_dist(s, nd, lr, H), inv_dl);
+}
+
+// does any node lie between the ray's origin and `target` along it
+// (scene.d:62-78); stops at the first that does
+__device__ __forceinline__ bool occluded(const Scene& s, int n_nodes, const Ray& sray, float target,
+                                         Hits& H) {
+  bool occ = false;
+  for (int i = 0; i < n_nodes && !occ; ++i) occ = node_min_dist(s, i, sray, H) <= target;
+  return occ;
+}
+
+// ---- one lane ---------------------------------------------------------------
+
+__device__ __forceinline__ void trace_lane(const Scene& s, Hits& H, int lane,
+                                           const float* __restrict__ orig,
+                                           const float* __restrict__ dir, float* __restrict__ out,
+                                           int* __restrict__ win_out, int n, int width, int height) {
+  const int n_nodes = s.head(H_NODES);
+  const int n_lights = s.head(H_LIGHTS);
+  const int flags = s.head(H_FLAGS);
 
   if (STAGE == STAGE_EMPTY) {
     // the grid and store floor: the lane index times the aa offset
-    const float v = (float)lane * s.p(__ldg(prog + H_AA));
+    const float v = (float)lane * s.p(s.head(H_AA));
     out[lane] = v;
     out[(size_t)n + lane] = v + 1.0f;
     return;
@@ -597,18 +813,18 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
 
   Ray r;
   if (orig != nullptr) {
-    r.ox = orig[3 * lane];
-    r.oy = orig[3 * lane + 1];
-    r.oz = orig[3 * lane + 2];
-    r.dx = dir[3 * lane];
-    r.dy = dir[3 * lane + 1];
-    r.dz = dir[3 * lane + 2];
+    r.ox = orig[3 * (size_t)lane];
+    r.oy = orig[3 * (size_t)lane + 1];
+    r.oz = orig[3 * (size_t)lane + 2];
+    r.dx = dir[3 * (size_t)lane];
+    r.dy = dir[3 * (size_t)lane + 1];
+    r.dz = dir[3 * (size_t)lane + 2];
   } else {
     // pinhole ray-gen on the pos-free corner deltas (camera.d:119-147);
     // the deltas are unscaled and divided by width/height here, as in
     // ops/camera.screen_rays
-    const int lin = (int)s.p(__ldg(prog + H_LIN)) + lane;
-    const int aa = __ldg(prog + H_AA), c = __ldg(prog + H_CAM);
+    const int lin = (int)s.p(s.head(H_LIN)) + lane;
+    const int aa = s.head(H_AA), c = s.head(H_CAM);
     const float xpix = ((float)(lin % width) + s.p(aa)) / (float)width;
     const float ypix = ((float)(lin / width) + s.p(aa + 1)) / (float)height;
     float dx = s.p(c + 0) + s.p(c + 3) * xpix + s.p(c + 6) * ypix;
@@ -628,19 +844,23 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
     return;
   }
 
-  // closest hit over every node; ties go to the later node (renderer.d:336-338)
-  Rec hit = {INF, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  int win = -1;
+  // closest hit over every node, as distances; ties go to the later node
+  // (renderer.d:336-338), and a lane that misses them all keeps the last
+  // node's record, as the record-carrying scan did
+  float best_t = INF;
+  int best_tag = 0, best_node = 0, win = -1;
   for (int i = 0; i < n_nodes; ++i) {
-    const Rec cand = node_closest(s, i, r);
-    if (i == 0) {
-      hit = cand;
-      win = cand.t < INF ? 0 : -1;
-    } else if (cand.t <= hit.t) {
-      if (cand.t < INF) win = i;
-      hit = cand;
+    int tag;
+    const float t = node_closest(s, i, r, H, tag);
+    if (i == 0 || t <= best_t) {
+      if (t < INF) win = i;
+      best_t = t;
+      best_tag = tag;
+      best_node = i;
     }
   }
+  // the one record this lane needs
+  const Rec hit = node_record(s, best_node, r, best_tag, best_t);
   if (STAGE == STAGE_SCAN) {
     out[lane] = hit.t;
     out[(size_t)n + lane] = (float)win + ((flags & F_UV) ? hit.u : hit.nx);
@@ -654,36 +874,87 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
   const float ndotd = r.dx * hit.nx + r.dy * hit.ny + r.dz * hit.nz;
   const float fsg = ndotd < 0.0f ? 1.0f : -1.0f;
   const float nx = hit.nx * fsg, ny = hit.ny * fsg, nz = hit.nz * fsg;
+  // shadow rays start a step off the surface
+  const float sx = hpx + nx * EPS_SHADOW, sy = hpy + ny * EPS_SHADOW, sz = hpz + nz * EPS_SHADOW;
 
   if (STAGE == STAGE_SHADOW) {
     // the shadow scans alone: lights the hit point sees (missed lanes
-    // shade from t = 0, as in the whole kernel), and the winning t
-    const float px = hpx + nx * EPS_SHADOW, py = hpy + ny * EPS_SHADOW, pz = hpz + nz * EPS_SHADOW;
-    const int tab = __ldg(prog + H_LIGHT_TAB);
+    // shade from t = 0, as the plain version does), and the winning t
     float acc = 0.0f;
     for (int li = 0; li < n_lights; ++li) {
-      const int lbase = __ldg(prog + tab + li);
-      const float tx2 = s.p(lbase) - px, ty2 = s.p(lbase + 1) - py, tz2 = s.p(lbase + 2) - pz;
+      const int lbase = s.light(li);
+      const float tx2 = s.p(lbase) - sx, ty2 = s.p(lbase + 1) - sy, tz2 = s.p(lbase + 2) - sz;
       const float target = sqrtf(jmax(tx2 * tx2 + ty2 * ty2 + tz2 * tz2, 1e-30f));
       const float inv_t = 1.0f / target;
-      const Ray sray = {px, py, pz, tx2 * inv_t, ty2 * inv_t, tz2 * inv_t};
-      bool occ = false;
-      for (int i = 0; i < n_nodes && !occ; ++i) occ = node_min_dist(s, i, sray) <= target;
-      acc += occ ? 0.0f : 1.0f;
+      const Ray sray = {sx, sy, sz, tx2 * inv_t, ty2 * inv_t, tz2 * inv_t};
+      acc += occluded(s, n_nodes, sray, target, H) ? 0.0f : 1.0f;
     }
     out[lane] = acc;
     out[(size_t)n + lane] = hit.t;
     return;
   }
 
-  // the winning node's diffuse color and material
-  float dr = 0.0f, dg = 0.0f, db = 0.0f, exp_t = 1.0f, str_t = 0.0f;
-  bool is_phong = false, is_direct = false;
-  int shader = -1;
+  // the winning node's shader; its material is read where it is used, and
+  // its diffuse color after the scans, so that little is live across them
+  const int wnd = s.node(hitmask ? win : 0);
+  const int shader = hitmask ? s.word(wnd + N_SHADER) : -1;
+  const int bm = s.word(wnd + N_MAT);
+  const bool is_phong = shader == PHONG;
+  const bool shaded = shader == LAMBERT || is_phong;  // a hit whose direct light is used
+
+  // output rows: r, g, b, [lr lg lb u v], [rox..rdz], [t nx ny nz dr dg db],
+  // [vis0..]: the order of ops/round0.py layout()
+  const int cont_row = 3 + ((flags & F_EMIT_L) ? 5 : 0);
+  const int hit_row = cont_row + ((flags & F_CONT) ? 6 : 0);
+  const int vis_row = hit_row + ((flags & F_HIT) ? 7 : 0);
+
+  // direct light with in-kernel shadow scans.  The light sums of a lane
+  // that is not `shaded` are written as zeros below, so without the vis
+  // rows such a lane scans nothing.
+  const int amb = s.head(H_AMBIENT);
+  float lr = s.p(amb), lg = s.p(amb + 1), lb = s.p(amb + 2);
+  float sr = 0.0f, sg = 0.0f, sb = 0.0f;
+  const bool lit = shaded || (flags & F_VIS);
+  for (int li = 0; lit && li < n_lights; ++li) {
+    const int lbase = s.light(li);
+    const float lx = s.p(lbase), ly = s.p(lbase + 1), lz = s.p(lbase + 2);
+    // shadow scan (scene.d:62-78): any node with dist <= |to - from|
+    const float tx2 = lx - sx, ty2 = ly - sy, tz2 = lz - sz;
+    const float target = sqrtf(jmax(tx2 * tx2 + ty2 * ty2 + tz2 * tz2, 1e-30f));
+    const float inv_t = 1.0f / target;
+    const Ray sray = {sx, sy, sz, tx2 * inv_t, ty2 * inv_t, tz2 * inv_t};
+    const bool vis = !occluded(s, n_nodes, sray, target, H);
+    if (flags & F_VIS) out[(size_t)(vis_row + li) * n + lane] = vis ? 1.0f : 0.0f;
+    const float tlx = lx - hpx, tly = ly - hpy, tlz = lz - hpz;
+    const float dist2 = tlx * tlx + tly * tly + tlz * tlz;
+    const float inv_l = rsq(dist2);
+    const float ldx = tlx * inv_l, ldy = tly * inv_l, ldz = tlz * inv_l;
+    const float cos_t = ldx * nx + ldy * ny + ldz * nz;
+    const float w = (vis && cos_t > 0.0f) ? cos_t / dist2 : 0.0f;
+    lr += s.p(lbase + 3) * w;
+    lg += s.p(lbase + 4) * w;
+    lb += s.p(lbase + 5) * w;
+    if (is_phong) {  // only a Phong winner adds the highlight below
+      // R = reflect(-lightDir, N); cosGamma = R . -d (shader.d:226-249)
+      const float mdotn = (-ldx) * nx + (-ldy) * ny + (-ldz) * nz;
+      const float rx = -ldx - 2.0f * mdotn * nx;
+      const float ry = -ldy - 2.0f * mdotn * ny;
+      const float rz = -ldz - 2.0f * mdotn * nz;
+      const float inv_r = rsq(rx * rx + ry * ry + rz * rz);
+      const float cos_g = (rx * (-r.dx) + ry * (-r.dy) + rz * (-r.dz)) * inv_r;
+      const float spec_w = (vis && cos_g > 0.0f)
+                               ? powf(jmax(cos_g, 0.0f), s.p(bm + 3)) * s.p(bm + 4) / dist2
+                               : 0.0f;
+      sr += s.p(lbase + 3) * spec_w;
+      sg += s.p(lbase + 4) * spec_w;
+      sb += s.p(lbase + 5) * spec_w;
+    }
+  }
+
+  // the winning node's diffuse color
+  float dr = 0.0f, dg = 0.0f, db = 0.0f;
   if (hitmask) {
-    const int* nd = s.node(win);
-    const int bm = __ldg(nd + N_MAT), tex = __ldg(nd + N_TEX), bt = __ldg(nd + N_TEXOFF);
-    shader = __ldg(nd + N_SHADER);
+    const int tex = s.word(wnd + N_TEX), bt = s.word(wnd + N_TEXOFF);
     if (tex == TEX_CHECKER) {
       const float size = s.p(bt + 6);
       const int cxi = (int)floorf(hit.u / size);
@@ -705,59 +976,6 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
       dg = s.p(bm + 1);
       db = s.p(bm + 2);
     }  // TEX_BITMAP: deferred to ops/shade.bitmap_color
-    exp_t = s.p(bm + 3);
-    str_t = s.p(bm + 4);
-    is_phong = shader == PHONG;
-    is_direct = shader == LAMBERT || shader == PHONG;
-  }
-
-  // output rows: r, g, b, [lr lg lb u v], [rox..rdz], [t nx ny nz dr dg db],
-  // [vis0..]: the order of ops/round0.py layout()
-  const int cont_row = 3 + ((flags & F_EMIT_L) ? 5 : 0);
-  const int hit_row = cont_row + ((flags & F_CONT) ? 6 : 0);
-  const int vis_row = hit_row + ((flags & F_HIT) ? 7 : 0);
-
-  // direct light with in-kernel shadow scans
-  const int amb = __ldg(prog + H_AMBIENT);
-  float lr = s.p(amb), lg = s.p(amb + 1), lb = s.p(amb + 2);
-  float sr = 0.0f, sg = 0.0f, sb = 0.0f;
-  const float sx = hpx + nx * EPS_SHADOW, sy = hpy + ny * EPS_SHADOW, sz = hpz + nz * EPS_SHADOW;
-  const int light_tab = __ldg(prog + H_LIGHT_TAB);
-  for (int li = 0; li < n_lights; ++li) {
-    const int lbase = __ldg(prog + light_tab + li);
-    const float lx = s.p(lbase), ly = s.p(lbase + 1), lz = s.p(lbase + 2);
-    const float tlx = lx - hpx, tly = ly - hpy, tlz = lz - hpz;
-    const float dist2 = tlx * tlx + tly * tly + tlz * tlz;
-    const float inv_l = rsq(dist2);
-    const float ldx = tlx * inv_l, ldy = tly * inv_l, ldz = tlz * inv_l;
-    // shadow scan (scene.d:62-78): any node with dist <= |to - from|
-    const float tx2 = lx - sx, ty2 = ly - sy, tz2 = lz - sz;
-    const float target = sqrtf(jmax(tx2 * tx2 + ty2 * ty2 + tz2 * tz2, 1e-30f));
-    const float inv_t = 1.0f / target;
-    const Ray sray = {sx, sy, sz, tx2 * inv_t, ty2 * inv_t, tz2 * inv_t};
-    bool occ = false;
-    for (int i = 0; i < n_nodes && !occ; ++i) occ = node_min_dist(s, i, sray) <= target;
-    const bool vis = !occ;
-    if (flags & F_VIS) out[(size_t)(vis_row + li) * n + lane] = vis ? 1.0f : 0.0f;
-    const float cos_t = ldx * nx + ldy * ny + ldz * nz;
-    const float w = (vis && cos_t > 0.0f) ? cos_t / dist2 : 0.0f;
-    lr += s.p(lbase + 3) * w;
-    lg += s.p(lbase + 4) * w;
-    lb += s.p(lbase + 5) * w;
-    if (flags & F_PHONG) {
-      // R = reflect(-lightDir, N); cosGamma = R . -d (shader.d:226-249)
-      const float mdotn = (-ldx) * nx + (-ldy) * ny + (-ldz) * nz;
-      const float rx = -ldx - 2.0f * mdotn * nx;
-      const float ry = -ldy - 2.0f * mdotn * ny;
-      const float rz = -ldz - 2.0f * mdotn * nz;
-      const float inv_r = rsq(rx * rx + ry * ry + rz * rz);
-      const float cos_g = (rx * (-r.dx) + ry * (-r.dy) + rz * (-r.dz)) * inv_r;
-      const float spec_w =
-          (vis && cos_g > 0.0f) ? powf(jmax(cos_g, 0.0f), exp_t) * str_t / dist2 : 0.0f;
-      sr += s.p(lbase + 3) * spec_w;
-      sg += s.p(lbase + 4) * spec_w;
-      sb += s.p(lbase + 5) * spec_w;
-    }
   }
 
   float outr = dr * lr, outg = dg * lg, outb = db * lb;
@@ -766,7 +984,6 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
     outg += sg;
     outb += sb;
   }
-  const bool shaded = hitmask && is_direct;
   out[0 * (size_t)n + lane] = shaded ? outr : 0.0f;
   out[1 * (size_t)n + lane] = shaded ? outg : 0.0f;
   out[2 * (size_t)n + lane] = shaded ? outb : 0.0f;
@@ -799,7 +1016,7 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
     if ((flags & F_REFR) && shader == REFRACTION) {
       // single-sided refraction with TIR fallback, on the RAW
       // (pre-faceforward) normal like _whitted_round
-      const float ior = s.p(__ldg(s.node(win) + N_MAT) + 5);
+      const float ior = s.p(bm + 5);
       const float cos_in = -(r.dx * hit.nx + r.dy * hit.ny + r.dz * hit.nz);
       const bool entering = cos_in > 0.0f;
       const float eta = entering ? 1.0f / ior : ior;
@@ -835,25 +1052,81 @@ __global__ void __launch_bounds__(128) round0_kernel(const float* __restrict__ p
   }
 }
 
+// ---- the kernel -------------------------------------------------------------
+
+// A block copies the two tables into shared memory, then traces the 128
+// lanes of tile blockIdx.x.
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
+round0_kernel(const float* __restrict__ prm, const int* __restrict__ prog, int n_prm, int n_prog,
+              const float* __restrict__ orig, const float* __restrict__ dir,
+              float* __restrict__ out, int* __restrict__ win_out, int n, int width, int height) {
+#if C2RT_TABLES_SHARED
+  for (int k = threadIdx.x; k < n_prog; k += BLOCK) tables[k] = __ldg(prog + k);
+  for (int k = threadIdx.x; k < n_prm; k += BLOCK) tables[n_prog + k] = __float_as_int(__ldg(prm + k));
+  __syncthreads();
+#endif
+  Scene s;
+  s.bind(prm, prog, n_prog);
+  Hits H;
+  const unsigned lane = blockIdx.x * BLOCK + threadIdx.x;
+  if (lane < (unsigned)n) trace_lane(s, H, (int)lane, orig, dir, out, win_out, n, width, height);
+}
+
+// ---- host side -------------------------------------------------------------
+
+// dynamic shared memory of a launch: the two tables
+int table_bytes(int n_prm, int n_prog) {
+  return C2RT_TABLES_SHARED ? 4 * (n_prm + n_prog) : 0;
+}
+
+// Whether `dyn_bytes` of tables fit in a block's shared memory beside the
+// hit lists on the current device; raises the kernel's dynamic limit to
+// what the device allows.
+bool tables_fit(int dyn_bytes) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, round0_kernel) != cudaSuccess)
+    return false;
+  if ((size_t)dyn_bytes + attr.sharedSizeBytes > (size_t)optin) return false;
+  return cudaFuncSetAttribute(round0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - (int)attr.sharedSizeBytes) == cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches K1 on `stream` for n lanes.  `orig`/`dir` ([n, 3] f32) select
+// Launches K1 on `stream` for n lanes.  `prm` ([n_prm] f32) and `prog`
+// ([n_prog] int32) are the scene's tables.  `orig`/`dir` ([n, 3] f32) select
 // the ray-input form; both null select in-kernel ray-gen for the n pixels
 // from the lane base in prm's lin slot (the screen-tap form: base 0, n =
 // width * height; the lin-input form: any slice).  `out` is [K, n] f32
 // with K the layout's float outputs (the program's flags say which,
 // residual rows included), `win` [n] int32.  A stage build (C2RT_STAGE
 // 1..4) writes two rows into `out` and leaves `win` alone.  Returns
-// cudaGetLastError() after the launch (0 = launched).
-int c2rt_round0(const float* prm, const int* prog, const float* orig, const float* dir,
-                float* out, int* win, int n, int width, int height, void* stream) {
+// cudaErrorInvalidValue when the tables do not fit in a block's shared
+// memory, else cudaGetLastError() after the launch (0 = launched).
+int c2rt_round0(const float* prm, const int* prog, int n_prm, int n_prog, const float* orig,
+                const float* dir, float* out, int* win, int n, int width, int height,
+                void* stream) {
   if (n <= 0) return 0;
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  round0_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(prm, prog, orig, dir, out,
-                                                                       win, n, width, height);
+  // the fit depends on the device and the tables' size only
+  static int cached_dev = -1, cached_dyn = -1;
+  static bool cached_fit = false;
+  const int dyn = table_bytes(n_prm, n_prog);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != cached_dev || dyn != cached_dyn) {
+    cached_fit = tables_fit(dyn);
+    cached_dev = dev;
+    cached_dyn = dyn;
+  }
+  if (!cached_fit) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (int)(((unsigned)n + BLOCK - 1u) / BLOCK);
+  round0_kernel<<<n_tiles, BLOCK, dyn, static_cast<cudaStream_t>(stream)>>>(
+      prm, prog, n_prm, n_prog, orig, dir, out, win, n, width, height);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -42,7 +42,7 @@ BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # exported C functions of each library: (name, argtypes, restype)
 _ROUND0_EXPORTS = (
-    ("c2rt_round0", [_vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
+    ("c2rt_round0", [_vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
     ("c2rt_program_version", [], _ci),
     ("c2rt_stage", [], _ci),
     ("c2rt_error_string", [_ci], ctypes.c_char_p),
@@ -51,7 +51,7 @@ _EXPORTS = {
     "round0": _ROUND0_EXPORTS,
     **{f"round0_{stage}": _ROUND0_EXPORTS for stage in STAGES},
     "texel_hist": (
-        ("c2rt_texel_hist", [_vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
+        ("c2rt_texel_hist", [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp], _ci),
         ("c2rt_error_string", [_ci], ctypes.c_char_p),
     ),
 }
@@ -60,7 +60,7 @@ _lock = threading.Lock()
 _libs = {}
 # wall seconds of this process's parallel build (0.0 when every library was
 # already on disk), and nvcc's -Xptxas -v report (registers, stack, spills)
-# per library
+# per library built by this process (every build also leaves it on disk)
 build_seconds = 0.0
 build_log = {}
 
@@ -110,6 +110,8 @@ def _build_missing() -> None:
         if proc.returncode != 0:
             failed.append(f"{k} ({SOURCES[k][0]}, {proc.returncode}):\n{err[-4000:]}")
             continue
+        with open(_lib_path(k) + ".ptxas", "w") as f:
+            f.write(err)
         os.replace(tmp, _lib_path(k))
         build_log[k] = err
     build_seconds = time.perf_counter() - t0
@@ -144,11 +146,14 @@ def error_string(name: str, err: int) -> str:
 
 def ptxas_usage(name: str):
     """(registers, stack bytes, spill store bytes, spill load bytes) of
-    library ``name``'s largest kernel from this process's build log, or None
-    when the library was already on disk and nothing was logged."""
+    library ``name``, the largest over its kernels, from nvcc's report at
+    its build (kept beside the library); None when there is no report."""
     import re
 
     text = build_log.get(name)
+    if not text and os.path.exists(_lib_path(name) + ".ptxas"):
+        with open(_lib_path(name) + ".ptxas") as f:
+            text = f.read()
     if not text:
         return None
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]

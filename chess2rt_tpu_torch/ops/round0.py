@@ -323,10 +323,14 @@ def make_packer(static: SceneStatic, width: int, height: int):
 # --------------------------------------------------------------------------
 
 # header slots; keep in sync with the H_* constants in csrc/round0.cu
-PROGRAM_VERSION = 3
+PROGRAM_VERSION = 4
 (H_VERSION, H_NODES, H_LIGHTS, H_CAM, H_AMBIENT, H_AA, H_LIN, H_FLAGS,
  H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB) = range(12)
 HEADER = 16
+# The kernel keeps the program and the parameter vector in a block's shared
+# memory, beside its hit lists (12 KB) and below the card's 227 KB per
+# block: the two tables together may hold this many bytes
+MAX_TABLE_BYTES = 200 * 1024
 NODE_STRIDE = 10
 INSTR_STRIDE = 8
 # flags; F_HIT / F_VIS add the residual rows (want_hit / want_vis); F_UV says
@@ -338,13 +342,30 @@ OP_PLANE, OP_SPHERE, OP_CUBE, OP_CSG = 0, 1, 2, 3
 CSG_OPS = {"union": 0, "inter": 1, "diff": 2}
 
 
-def scene_program(static: SceneStatic, off: dict, expr_tables, want_hit=False, want_vis=False) -> np.ndarray:
+def check_table_bytes(n_prog: int, n_prm: int) -> int:
+    """Bytes of the two scene tables; refuses a scene whose tables do not
+    fit in a block's shared memory."""
+    n_bytes = 4 * (n_prog + n_prm)
+    if n_bytes > MAX_TABLE_BYTES:
+        raise ValueError(
+            f"round0: the scene program ({n_prog} words) and parameters ({n_prm} words) take {n_bytes} bytes, "
+            f"more than the {MAX_TABLE_BYTES} the kernel keeps in shared memory"
+        )
+    return n_bytes
+
+
+def scene_program(static: SceneStatic, off: dict, expr_tables, n_prm: int, want_hit=False,
+                  want_vis=False) -> np.ndarray:
     """Encode the scene's structure as an int32 table (layout in
     csrc/round0.cu): a header, one NODE_STRIDE record per node, the
     geometry expressions as postfix instructions, and the compare-exchange
-    pairs of every CSG merge.  Parameters stay in the packer's f32 vector;
-    this table only says where they are and what to do with them.  The
-    flags also select the output rows, the residual ones included."""
+    pairs of every CSG merge.  Parameters stay in the packer's f32 vector
+    (``n_prm`` words); this table only says where they are and what to do
+    with them.  The flags also select the output rows, the residual ones
+    included.  A leaf instruction carries, as a bit set of instruction
+    indices relative to its node's first, the CsgDiff merges above it: the
+    kernel replays their normal flips for the one hit it builds a record
+    of."""
     for i, ns in enumerate(static.nodes):
         if max_hits(ns.geom) > MAX_HITS:
             raise ValueError(
@@ -353,7 +374,7 @@ def scene_program(static: SceneStatic, off: dict, expr_tables, want_hit=False, w
     instrs = []
     pairs = []
 
-    def emit(expr):
+    def emit(expr, start):
         """Postfix emission; returns the number of hits the expression yields."""
         kind = expr[0]
         if kind != "csg":
@@ -361,19 +382,24 @@ def scene_program(static: SceneStatic, off: dict, expr_tables, want_hit=False, w
                            expr[1], 0, 0, 0, 0, 0, 0])
             return 1 if kind == "plane" else 2
         _, op, left, right = expr
-        n_l = emit(left)
+        l_start = len(instrs)
+        n_l = emit(left, start)
         r_start = len(instrs)
-        n_r = emit(right)
+        n_r = emit(right, start)
         r_end = len(instrs)
         net = _oddeven_pairs(n_l + n_r)
         instrs.append([OP_CSG, CSG_OPS[op], r_start, r_end, len(pairs), len(net), n_l, n_r])
         pairs.extend(net)
+        if op == "diff":
+            for ins in instrs[l_start:r_end]:
+                if ins[0] != OP_CSG:
+                    ins[2] |= 1 << (r_end - start)
         return n_l + n_r
 
     nodes = []
     for i, ns in enumerate(static.nodes):
         start = len(instrs)
-        nh = emit(expr_tables[i])
+        nh = emit(expr_tables[i], start)
         if ns.identity_transform:
             xk, xo = X_IDENT, 0
         elif ns.offset_only:
@@ -419,6 +445,7 @@ def scene_program(static: SceneStatic, off: dict, expr_tables, want_hit=False, w
     head[H_INSTR_TAB] = instr_tab
     head[H_PAIR_TAB] = pair_tab
     flat = head + lights + sum(nodes, []) + sum(instrs, []) + [x for pr in pairs for x in pr]
+    check_table_bytes(len(flat), n_prm)
     return np.asarray(flat, dtype=np.int32)
 
 
@@ -484,7 +511,7 @@ def layout(static: SceneStatic, width: int, height: int, want_hit: bool = False,
     return Round0Layout(
         static=static, width=width, height=height, pack=pack, off=off,
         expr_tables=tuple(expr_tables), n_prm=n_prm,
-        program=scene_program(static, off, expr_tables, want_hit, want_vis),
+        program=scene_program(static, off, expr_tables, n_prm, want_hit, want_vis),
         names=tuple(names), emit_L=emit_L, has_cont=has_cont,
         want_hit=want_hit, want_vis=want_vis,
     )
@@ -1166,6 +1193,8 @@ def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False):
         err = lib.c2rt_round0(
             prm.data_ptr(),
             prog.data_ptr(),
+            lay.n_prm,
+            prog.numel(),
             None if orig is None else orig.data_ptr(),
             None if dir is None else dir.data_ptr(),
             out.data_ptr(),
@@ -1176,7 +1205,7 @@ def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False):
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"round0: kernel launch failed: {cuda_build.error_string('round0', err)}")
+        raise RuntimeError(f"round0: kernel launch failed: {cuda_build.error_string("round0", err)}")
     launches += 1
     resid_launches += lay.residual
     ray_launches += orig is not None

@@ -11,7 +11,12 @@ with keys outside [0, n_texels) dropped (the JAX kernel's ``mode="drop"``
 parity).
 
 * ``texel_histogram`` launches csrc/texel_hist.cu for CUDA tensors (or
-  raises) and runs the plain version for CPU tensors.
+  raises) and runs the plain version for CPU tensors.  The kernel is a
+  row-parallel segmented sum: a block sums the runs of a span of
+  consecutive rows, and the runs that cross a span's edge go through a
+  scratch table of two partial rows per span and a second launch of the
+  same kernel (``plan`` sizes the spans and the scratch).  The sums are
+  taken in a fixed order: two calls give the same bits.
 * ``texel_histogram_reference`` is the plain version: an ``index_add_`` of
   the in-range rows into a zero table.
 """
@@ -22,7 +27,15 @@ import torch
 
 MAX_CHANNELS = 16  # the JAX kernel's CH; csrc/texel_hist.cu MAX_C
 
-# kernel launches made by ``texel_histogram`` (the CUDA path only)
+# threads of a block (one row each per chunk), and how many blocks the rows
+# are cut into at most: a block's span is the smallest multiple of
+# BLOCK_THREADS that needs no more than TARGET_SPANS blocks (a short input
+# still fills the card, and the second launch, one block of 1024 threads
+# over the 2 * n_spans partial rows, walks them in one chunk)
+BLOCK_THREADS = 256
+TARGET_SPANS = 512
+
+# calls of ``texel_histogram`` that launched the kernel (the CUDA path only)
 launches = 0
 
 
@@ -62,18 +75,46 @@ def texel_histogram(sorted_keys: torch.Tensor, sorted_vals: torch.Tensor, n_texe
     return _texel_hist_cuda(sorted_keys.contiguous(), sorted_vals.contiguous(), n_texels)
 
 
+def load_width(c: int, *pointers: int) -> int:
+    """Floats per load of a [*, c] row: 4 (16-byte loads) when c is a
+    multiple of 4 and every pointer is 16-byte aligned, 2 when c is even and
+    every pointer 8-byte aligned, else 1."""
+    for vec in (4, 2):
+        if c % vec == 0 and all(ptr % (4 * vec) == 0 for ptr in pointers):
+            return vec
+    return 1
+
+
+def plan(n: int):
+    """(span, n_spans) for N rows: the rows one block owns (a multiple of
+    BLOCK_THREADS) and the number of blocks.  The scratch for the runs that
+    cross a span's edge holds 2 * n_spans keys and rows."""
+    chunks = max(1, -(-n // (TARGET_SPANS * BLOCK_THREADS)))  # one row per thread per chunk
+    span = chunks * BLOCK_THREADS
+    return span, max(1, -(-n // span))
+
+
 def _texel_hist_cuda(keys, vals, n_texels):
     global launches
     from .. import cuda_build
 
     n, c = vals.shape
-    if n >= 2**31 or n_texels * c >= 2**31:
+    if n >= 2**31 - 1024 or n_texels * c >= 2**31:
         raise ValueError("texel_histogram: sizes exceed the kernel's int32 indices")
-    lib = cuda_build.load("texel_hist")
     out = torch.zeros((n_texels, c), dtype=torch.float32, device=keys.device)
+    if n == 0 or n_texels <= 0:
+        return out
+    lib = cuda_build.load("texel_hist")
+    span, n_spans = plan(n)
+    # one scratch buffer: the 2 * n_spans partial rows, then their int32 keys
+    scratch = torch.empty((2 * n_spans * (c + 1),), dtype=torch.float32, device=keys.device)
+    svals = scratch.data_ptr()
+    skeys = svals + 4 * 2 * n_spans * c
+    vec = load_width(c, vals.data_ptr(), out.data_ptr(), svals)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = lib.c2rt_texel_hist(keys.data_ptr(), vals.data_ptr(), out.data_ptr(), n, c, n_texels, stream)
+        err = lib.c2rt_texel_hist(keys.data_ptr(), vals.data_ptr(), out.data_ptr(), n, c, n_texels, span,
+                                  BLOCK_THREADS, vec, skeys, svals, stream)
     if err != 0:
         raise RuntimeError(f"texel_histogram: kernel launch failed: {cuda_build.error_string('texel_hist', err)}")
     launches += 1

@@ -6,7 +6,8 @@ sphere, Phong spheres, translated nodes) plus the depth-5 mirror sphere
 that the benchmark adds — because no scene file ships with the repository.
 It builds from either package's ``models.types`` module, so the JAX
 package and this one render the identical scene.  ``random_scene`` makes
-the seeded fuzz scenes that hold the round-0 kernel to its references.
+the seeded fuzz scenes that hold the round-0 kernel to its references, and
+``csg_stress_scene`` the two scenes that load its CSG hit lists the most.
 """
 
 from __future__ import annotations
@@ -180,4 +181,74 @@ def random_scene(T, seed: int, n_nodes: int = 3, width: int = 32, height: int = 
         sc.nodes.append(node)
         sc.geometries.append(geom)
         sc.shaders.append(sh)
+    return sc
+
+
+def csg_stress_scene(T, kind: str, width: int = 32, height: int = 24):
+    """Scenes that load the round-0 kernel's CSG hit lists the most.
+
+    ``"deep16"``: a union of eight overlapping spheres, 16 hits per ray (the
+    kernel's ``MAX_HITS``), checker-textured so its records carry UVs; a
+    scaled and translated intersection of a four-sphere union with a cube
+    (10 hits); a floor plane.  ``"nested_diff"``: CsgDiff nodes inside
+    CsgDiff nodes on both sides, so a hit's normal is flipped by more than
+    one level and hits are dropped at inner and outer levels; one of them
+    translated, one a mirror.  One light, AA off, a 70 degree camera."""
+    sc = T.Scene(name=f"csg_stress_{kind}")
+    sc.settings.frameWidth, sc.settings.frameHeight = width, height
+    sc.camera.set_frame_size(width, height)
+    sc.settings.AAEnabled = False
+    sc.camera.pos = (0.0, 2.2, -5.0)
+    sc.camera.pitch = -12.0
+    sc.camera.fov = 70.0
+    sc.lights = [T.PointLight(name="L", pos=(-3.0, 9.0, -4.0), color=(1, 1, 1), power=90.0)]
+
+    def union(name, parts):
+        geom = parts[0]
+        for k, part in enumerate(parts[1:]):
+            geom = T.CsgUnion(name=f"{name}u{k}", op="union", left=geom, right=part)
+        return geom
+
+    def node(name, geom, shader, transform=None):
+        n = T.Node(name=name, geometry=geom, shader=shader)
+        if transform is not None:
+            transform(n.transform)
+        sc.nodes.append(n)
+        sc.geometries.append(geom)
+        sc.shaders.append(shader)
+
+    checker = T.Checker(name="chk", color1=(0.9, 0.9, 0.8), color2=(0.2, 0.3, 0.6), size=0.7)
+    node("floor", T.Plane(name="floor", y=-1.0), T.Lambert(name="floor", color=(0.7, 0.7, 0.7)))
+    if kind == "deep16":
+        chain = union("chain", [T.Sphere(name=f"c{k}", center=(-3.5 + k, 0.3 * (k % 3), 1.0 + 0.4 * (k % 2)), R=0.8)
+                                for k in range(8)])
+        node("chain", chain, T.Lambert(name="chain", color=(1.0, 1.0, 1.0), texture=checker))
+        blob = T.CsgInter(
+            name="blob", op="inter",
+            left=union("blob", [T.Sphere(name=f"b{k}", center=(-0.9 + 0.6 * k, 0.0, 0.0), R=0.7) for k in range(4)]),
+            right=T.Cube(name="blob_cube", center=(0.0, 0.0, 0.0), side=1.1),
+        )
+        node("blob", blob, T.Phong(name="blob", color=(0.8, 0.4, 0.3), exponent=30.0, strength=0.6),
+             lambda tr: (tr.scale(1.4, 1.0, 0.8), tr.translate((0.5, 2.2, -1.0))))
+    elif kind == "nested_diff":
+        both = T.CsgDiff(
+            name="both", op="diff",
+            left=T.CsgDiff(name="bl", op="diff", left=T.Cube(name="bl_c", center=(-1.5, 0.5, 0.0), side=3.0),
+                           right=T.Sphere(name="bl_s", center=(-1.5, 0.9, -1.2), R=1.3)),
+            right=T.CsgDiff(name="br", op="diff", left=T.Sphere(name="br_s", center=(-0.4, 1.6, 0.2), R=1.4),
+                            right=T.Cube(name="br_c", center=(-0.4, 1.6, -0.6), side=1.2)),
+        )
+        node("both", both, T.Phong(name="both", color=(0.85, 0.5, 0.3), exponent=25.0, strength=0.7))
+        shell = T.CsgDiff(
+            name="shell", op="diff", left=T.Sphere(name="sh_s", center=(0.0, 0.0, 0.0), R=1.5),
+            right=T.CsgDiff(name="sh_in", op="diff", left=T.Cube(name="sh_c", center=(0.0, 0.2, -0.8), side=1.8),
+                            right=T.Sphere(name="sh_h", center=(0.0, 0.2, -0.8), R=0.7)),
+        )
+        node("shell", shell, T.Lambert(name="shell", color=(1.0, 1.0, 1.0), texture=checker),
+             lambda tr: tr.translate((2.6, 0.8, 0.5)))
+        pit = T.CsgDiff(name="pit", op="diff", left=T.Sphere(name="pit_s", center=(0.8, 3.2, 2.0), R=1.2),
+                        right=T.Sphere(name="pit_h", center=(0.8, 3.4, 1.1), R=0.8))
+        node("pit", pit, T.Reflection(name="pit", color=(0.9, 0.9, 0.9)))
+    else:
+        raise ValueError(f"csg_stress_scene: kind must be 'deep16' or 'nested_diff', got {kind!r}")
     return sc

@@ -30,27 +30,31 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit, CUDA and nvcc versions;
 2. build: K1, K2 and K3's four stages from the checkout's sources, one nvcc
-   each, in parallel;
+   each, in parallel; registers, stack and spill bytes of every library;
 3. K1 against its plain PyTorch version on the card: screen-tap and
-   ray-input at 320x240, then at the main path's shapes (a 1080p tap and
-   its block-compacted bounce rays);
+   ray-input at 320x240, on the stand-in and on the two CSG stress scenes
+   (a 16-hit list and nested CsgDiffs: the shared-memory hit lists, which
+   the stand-in's four-hit nodes never reach), then at the main path's
+   shapes (a 1080p tap and its block-compacted bounce rays);
 4. the frame at 1080p: K1's launch count from this run, a finite frame
    with most pixels lit, and the same frame through the plain version;
 5. timing with CUDA events: ms per frame and ms per 1080p K1 tap, kernel
    and plain side by side;
 6. K1's residual form (want_hit and want_vis) against its plain version:
-   320x240 screen-tap and ray-input, then the 640x480 step's tap and its
-   block-compacted bounce rays;
+   320x240 screen-tap and ray-input on the stand-in and the CSG stress
+   scenes, then the 640x480 step's tap and its block-compacted bounce rays;
 7. K2 against its plain version on the step's own sorted texel
-   cotangents (the tap's 307,200 rows of 12 channels into the stand-in's
-   81,920 quad rows);
+   cotangents: the tap's 307,200 rows of 12 channels into the stand-in's
+   81,920 quad rows, and the bounce round's rows; two calls on the tap's
+   rows give the same bits;
 8. the 640x480 gradient step through the kernels, and through the plain
    versions: the same loss, every leaf's gradient at the rtol 5e-3 rule,
    K1's residual form once per round-0 call and K2 once per bitmap gather;
 9. ``fit``: 5 Adam steps toward a target rendered from a perturbed scene,
    the loss falls;
 10. timing: ms per gradient step (kernel and plain paths), K1's residual
-    form and K2 beside their plain versions, peak device memory of a step;
+    form and K2 beside their plain versions, the texel VJP's sort and row
+    gather beside K2, peak device memory of a step;
 11. K1's lin-input form against its plain version at 320x240 in 4 slices,
     plain and residual rows, and the slices against the screen-tap launch
     (differing lanes counted, 0 expected);
@@ -67,7 +71,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     against its plain version at every shard's tap; its time;
 15. K3: every stage against its plain version at 320x240 and at 1080p, then
     the ladder at 1080p: ms per launch of empty, raygen, scan, shadow and the whole
-    K1, registers and stack per stage.
+    K1 (beside the times of the design before this one), registers and
+    stack per stage.
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -127,6 +132,11 @@ K2_LIMIT = 1e-4  # |a - b| <= K2_LIMIT * max(1, max|b|)
 SHARD_LIMIT = 2e-5
 MESH_ENTRIES = 4
 CHUNK_PIXELS = 262144
+# K3's ladder with the design before this one (one thread per ray, tables
+# read through global memory, hit records sorted in local memory), queued
+# back to back on an NVIDIA H100 80GB HBM3 at 700 W: what phase 15 prints
+# beside the new times
+PREVIOUS_LADDER_MS = {"empty": 0.0122, "raygen": 0.0128, "scan": 0.3227, "shadow": 0.7182, "full": 0.9616}
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
 # f32 operations/s outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -386,6 +396,24 @@ def compare_stage(label, out, ref):
     return worst
 
 
+def queued_ms(run, reps, busy):
+    """ms per launch of ``reps`` calls of ``run`` enqueued behind a long
+    matrix product (``busy`` squared), which keeps the device busy while
+    the host enqueues them, so that they run back to back: the time from
+    the first launch's start to the last one's end over ``reps`` is the
+    kernel's own time."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.mm(busy, busy)  # ~1.1e12 operations at 8192 x 8192
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def ladder(lay, prm, reps=20, warm=3):
     """ms per launch of every K3 stage and of the whole K1 ("full") on
     ``lay``'s frame, by CUDA events: ({stage: called_ms}, {stage: queued_ms}).
@@ -394,10 +422,7 @@ def ladder(lay, prm, reps=20, warm=3):
       before and after each.  A call costs the host some tens of
       microseconds (checks, allocation, the launch), which the device waits
       out, so the short stages read the wrapper's floor, not the kernel;
-    * queued: ``reps`` launches enqueued behind a long matrix product that
-      keeps the device busy meanwhile, so they run back to back: the time
-      from the first launch's start to the last one's end over ``reps`` is
-      the kernel's own time."""
+    * queued: ``queued_ms``, the kernel's own time."""
     import torch
     from chess2rt_tpu_torch.ops import round0 as R
     from chess2rt_tpu_torch.ops import round0_probe as K3
@@ -408,27 +433,48 @@ def ladder(lay, prm, reps=20, warm=3):
     called, queued = {}, {}
     for name, run in runs.items():
         called[name], _ = time_events(run, reps, warm)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.mm(busy, busy)  # ~1.1e12 operations: the launches below queue up behind it
-        start.record()
-        for _ in range(reps):
-            run()
-        end.record()
-        torch.cuda.synchronize()
-        queued[name] = start.elapsed_time(end) / reps
+        queued[name] = queued_ms(run, reps, busy)
     return called, queued
 
 
-def scattered_rays(seed, n, dev):
-    """n seeded rays through the stand-in's volume: origins scattered
-    around it, directions uniform on the sphere."""
+def scattered_rays(seed, n, dev, center=(0.0, 120.0, 220.0), spread=150.0):
+    """n seeded rays through a scene's volume (the stand-in's unless told
+    otherwise): origins scattered around ``center``, directions uniform on
+    the sphere."""
     import torch
 
     rng = np.random.default_rng(seed)
-    orig = (np.array([0.0, 120.0, 220.0]) + rng.uniform(-150.0, 150.0, (n, 3))).astype(np.float32)
+    orig = (np.array(center) + rng.uniform(-spread, spread, (n, 3))).astype(np.float32)
     d = rng.normal(size=(n, 3))
     d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
     return torch.from_numpy(orig).to(dev), torch.from_numpy(d).to(dev)
+
+
+def compare_stress_scenes(dev, seed, residual):
+    """K1 against its plain version on the two CSG stress scenes
+    (scenes.csg_stress_scene) at SMALL, screen-tap and ray-input: the nodes
+    whose hit lists are longer than four take the kernel's shared-memory
+    lists and its pair-table network, and the nested CsgDiffs its replayed
+    normal flips, none of which the stand-in reaches.  Every node must win
+    some lane of the tap."""
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.scenes import csg_stress_scene
+
+    w, h = SMALL
+    for kind in ("deep16", "nested_diff"):
+        tp, ts = pack_scene(csg_stress_scene(T, kind, w, h), device=dev)
+        lay = R.layout(ts, w, h, want_hit=residual, want_vis=residual)
+        prm = lay.pack(tp, AA)
+        tap = R.round0(lay, prm)
+        compare_round0(f"{kind} {w}x{h} screen-tap", tap, R.round0_reference(lay, prm), lay.names)
+        winners = set(tap["win"].unique().tolist())
+        if winners != set(range(-1, len(ts.nodes))):
+            raise AssertionError(f"{kind}: the tap's winners {sorted(winners)} are not every node and a miss")
+        orig_t, dir_t = scattered_rays(seed, w * h, dev, center=(0.0, 1.0, 0.0), spread=6.0)
+        compare_round0(f"{kind} {w}x{h} ray-input", R.round0(lay, prm, orig_t, dir_t),
+                       R.round0_reference(lay, prm, orig_t, dir_t), lay.names)
 
 
 def bounce_rays(tp, ts, tap):
@@ -466,6 +512,27 @@ def grad_leaves_of(packed):
     from chess2rt_tpu_torch.models.packed import from_leaves, leaves
 
     return from_leaves([x.detach().clone().requires_grad_() for x in leaves(packed)])
+
+
+def step_texel_rows(render, packed, target):
+    """[(sorted keys, cotangent rows, n_texels)] that one gradient step
+    gives K2, one entry per bitmap gather (the tap's and every bounce
+    round's), in the order of the backward."""
+    from chess2rt_tpu_torch.ops import shade as S
+    from chess2rt_tpu_torch.ops import texel_hist as K2
+
+    seen = []
+
+    def keep(keys, vals, n_texels):
+        seen.append((keys, vals, n_texels))
+        return K2.texel_histogram(keys, vals, n_texels)
+
+    S.texel_histogram = keep
+    try:
+        grad_step(render, packed, target)
+    finally:
+        S.texel_histogram = K2.texel_histogram
+    return seen
 
 
 @contextlib.contextmanager
@@ -550,10 +617,12 @@ def main(argv) -> int:
     cuda_build.load_all()
     log(f"phase 2 build: {cuda_build.build_seconds:.2f} s, one nvcc per library in parallel "
         f"({', '.join(cuda_build.SOURCES)})")
-    for name, text in cuda_build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    for name in cuda_build.SOURCES:
+        usage = cuda_build.ptxas_usage(name)
+        if usage is None:
+            raise AssertionError(f"no ptxas report for {name}")
+        log(f"  ptxas {name}: {usage[0]} registers, {usage[1]} bytes stack, {usage[2]} bytes spill stores, "
+            f"{usage[3]} bytes spill loads (the largest over its kernels)")
 
     # ---- 3. K1 against its plain version -------------------------------------
     log("phase 3 K1 vs plain (limits: win < 1%, lanes with d > 2e-3 < 1%, median d < 2e-4)")
@@ -565,6 +634,7 @@ def main(argv) -> int:
     compare_round0(f"{w}x{h} screen-tap", R.round0(lay, prm), R.round0_reference(lay, prm), lay.names)
     compare_round0(f"{w}x{h} ray-input", R.round0(lay, prm, orig_t, dir_t),
                    R.round0_reference(lay, prm, orig_t, dir_t), lay.names)
+    compare_stress_scenes(dev, 17, residual=False)
 
     tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT), device=dev)
     lay = R.layout(ts, WIDTH, HEIGHT)
@@ -648,7 +718,6 @@ def gradient_phases(argv, card, dev):
     from chess2rt_tpu_torch.models.packed import pack_scene, replace_leaves
     from chess2rt_tpu_torch.ops import flagship as F
     from chess2rt_tpu_torch.ops import round0 as R
-    from chess2rt_tpu_torch.ops import shade as S
     from chess2rt_tpu_torch.ops import texel_hist as K2
     from chess2rt_tpu_torch.render.pipeline import render_frame
     from chess2rt_tpu_torch.scenes import flagship_standin
@@ -664,6 +733,7 @@ def gradient_phases(argv, card, dev):
     resid_err = compare_round0(f"{w}x{h} screen-tap", R.round0(lay, prm), R.round0_reference(lay, prm), lay.names)
     resid_err = max(resid_err, compare_round0(f"{w}x{h} ray-input", R.round0(lay, prm, orig_t, dir_t),
                                               R.round0_reference(lay, prm, orig_t, dir_t), lay.names))
+    compare_stress_scenes(dev, 18, residual=True)
 
     gw, gh = GRAD_SIZE
     gp, gs = pack_scene(flagship_standin(T, gw, gh), device=dev)
@@ -685,19 +755,10 @@ def gradient_phases(argv, card, dev):
 
     # ---- 7. K2 against its plain version ---------------------------------------
     target = torch.zeros((gh, gw, 3), dtype=torch.float32, device=dev)  # bench.py:186
-    seen = []
-
-    def keep(keys, vals, n_texels):
-        seen.append((keys, vals, n_texels))
-        return K2.texel_histogram(keys, vals, n_texels)
-
-    S.texel_histogram = keep
-    try:
-        grad_step(lambda p: render_frame(p, gs), gp, target)
-    finally:
-        S.texel_histogram = K2.texel_histogram
+    seen = step_texel_rows(lambda p: render_frame(p, gs), gp, target)
     n_quads = sum(bh * bw for bh, bw in gs.bitmap_sizes)
     keys, vals, n_texels = next(x for x in seen if x[0].numel() == gw * gh)
+    bounce_rows = [x for x in seen if x[0].numel() != gw * gh]
     log(f"phase 7 K2 vs plain on the step tap's sorted texel cotangents: {keys.numel()} rows, "
         f"{vals.shape[1]} channels, {n_texels} texel rows (limit {K2_LIMIT} * max(1, max|plain|))")
     if n_texels != n_quads or vals.shape[1] != 12 or not bool((keys[1:] >= keys[:-1]).all()):
@@ -713,7 +774,20 @@ def gradient_phases(argv, card, dev):
         f"texel rows with a sum {int(hist_p.any(1).sum())}")
     if not bool(torch.isfinite(hist_k).all()) or k2_err > K2_LIMIT * max(1.0, k2_scale):
         raise AssertionError(f"K2 differs from its plain version by {k2_err:.3e}")
-    del seen, hist_k, hist_p
+    again = K2.texel_histogram(keys, vals, n_texels)
+    log(f"  two calls on the same rows: bit-equal {bool(torch.equal(again, hist_k))}")
+    if not torch.equal(again, hist_k):
+        raise AssertionError("two calls of K2 on the same rows differ: its sums are not taken in a fixed order")
+    if not bounce_rows:
+        raise AssertionError("the step's bounce round gathered no texel")
+    for bkeys, bvals, bn in bounce_rows:
+        b_k, b_p = K2.texel_histogram(bkeys, bvals, bn), K2.texel_histogram_reference(bkeys, bvals, bn)
+        b_err, b_scale = (b_k - b_p).abs().max().item(), b_p.abs().max().item()
+        log(f"  the bounce round's {bkeys.numel()} rows: max |K2 - plain| {b_err:.3e}, max|plain| {b_scale:.3e}")
+        if not bool(torch.isfinite(b_k).all()) or b_err > K2_LIMIT * max(1.0, b_scale):
+            raise AssertionError(f"K2 differs from its plain version by {b_err:.3e} on the bounce round's rows")
+        k2_err = max(k2_err, b_err)
+    del seen, hist_k, hist_p, again, bounce_rows
 
     # ---- 8. the gradient step ----------------------------------------------------
     log(f"phase 8 gradient step {gw}x{gh}, AA off, maxTraceDepth {gs.max_trace_depth}, every leaf")
@@ -795,13 +869,25 @@ def gradient_phases(argv, card, dev):
         20, 3)
     log(f"  K2 per {keys.numel()}-row histogram: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
         f"one index_add_ call {k2_lib_ms:.3f} ms")
+    # what precedes K2 in the texel VJP (ops/shade.py _QuadGather.backward): a
+    # stable sort of the keys and a gather of the cotangent rows, timed on
+    # the same rows shuffled by a seeded permutation
+    shuffle = torch.from_numpy(np.random.default_rng(10).permutation(keys.numel())).to(dev)
+    kf, gf = keys[shuffle].contiguous(), vals[shuffle].contiguous()
+
+    def sort_rows(k):
+        sk, perm = torch.sort(kf, stable=True)
+        return sk, gf[perm].contiguous()
+
+    sort_ms, _ = time_events(sort_rows, 20, 3)
+    log(f"  the texel VJP's torch.sort and row gather before K2, on the same {keys.numel()} rows: {sort_ms:.3f} ms")
     # K2 reads every key and cotangent row once and writes every texel row once; one add per value
     k2_bound = bound(keys.numel() * 4 + vals.numel() * 4 + n_texels * vals.shape[1] * 4, vals.numel())
     log(f"  peak device memory of a step {peak:.2f} GiB")
     if "--profile" in argv:
         profile_run("gradient step", lambda: grad_step(lambda p: render_frame(p, gs), jittered(gp, 98), target))
     log(json.dumps({"grad_step_ms": step_ms, "grad_step_plain_ms": step_plain_ms, "grad_max_rel_err": grad_err,
-                    "grad_step_peak_gib": peak, "fit_losses": losses}))
+                    "grad_step_peak_gib": peak, "fit_losses": losses, "texel_sort_ms": sort_ms}))
 
     return [
         kernel_entry(f"round0 residual form (K1 with want_hit and want_vis, one {gw}x{gh} tap)", K1_SOURCE,
@@ -1032,7 +1118,7 @@ def slice_phases(argv, card, dev, phase5_frame_ms, phase5_k1_ms):
         stage_bound = k1_bound(lay, n, lit, stage)
         b_ms, b_by = stage_bound[:2]
         log(f"  {stage:7s} {called[stage]:.3f} ms per call, {queued[stage]:.4f} ms queued "
-            f"(plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); "
+            f"(the design before: {PREVIOUS_LADDER_MS[stage]:.4f}; plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); "
             f"registers {usage[0] if usage else 'not logged'}, stack {usage[1] if usage else 'not logged'} bytes, "
             f"launches {stage_launches[stage]}")
         if stage_launches[stage] < 1:
@@ -1041,7 +1127,8 @@ def slice_phases(argv, card, dev, phase5_frame_ms, phase5_k1_ms):
                                     "demos/kernel_probe.py:45", stage_launches[stage], stage_err[stage],
                                     called[stage], plain_ms, *stage_bound))
     usage = cuda_build.ptxas_usage("round0")
-    log(f"  full K1 {called['full']:.3f} ms per call, {queued['full']:.4f} ms queued (phase 5: {phase5_k1_ms:.3f} ms); registers "
+    log(f"  full K1 {called['full']:.3f} ms per call, {queued['full']:.4f} ms queued (the design before: "
+        f"{PREVIOUS_LADDER_MS['full']:.4f}; phase 5: {phase5_k1_ms:.3f} ms); registers "
         f"{usage[0] if usage else 'not logged'}, stack {usage[1] if usage else 'not logged'} bytes")
     log(json.dumps({
         "sharded_frame_ms": shard_ms, "single_frame_ms": single_ms, "sharded_frame_max_abs_err": shard_err,

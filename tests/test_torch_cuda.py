@@ -1,8 +1,10 @@
 """The hand-written kernels against their plain PyTorch versions, on the
 card: K1 (csrc/round0.cu) in its screen-tap, ray-input, residual and
-lin-input forms, K2 (csrc/texel_hist.cu), K3's four stages (round0.cu built
-with -DC2RT_STAGE=k), the round-0 gradient through each form, and the
-sharded, chunked and adaptive frames at small sizes.
+lin-input forms on the stand-in, the seeded fuzz scenes and the two CSG
+stress scenes (a 16-hit list, nested CsgDiffs), K2 (csrc/texel_hist.cu) on
+the shapes a row-parallel segmented sum can get wrong, K3's four stages
+(round0.cu built with -DC2RT_STAGE=k), the round-0 gradient through each
+form, and the sharded, chunked and adaptive frames at small sizes.
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -26,7 +28,7 @@ from chess2rt_tpu_torch.ops import flagship as F
 from chess2rt_tpu_torch.ops import round0 as R
 from chess2rt_tpu_torch.ops import texel_hist as K2
 from chess2rt_tpu_torch.ops.round0_grad import diff_round0
-from chess2rt_tpu_torch.scenes import flagship_standin, random_scene
+from chess2rt_tpu_torch.scenes import csg_stress_scene, flagship_standin, random_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -58,6 +60,9 @@ SCENES = {
     # the refraction and total-internal-reflection branch
     "glass": lambda: flagship_standin(T, 160, 120, glass=True),
     **{f"random{s}": (lambda s=s: random_scene(T, s, width=96, height=72)) for s in range(1000, 1012)},
+    # a 16-hit list (the kernel's MAX_HITS) and CsgDiff nodes nested on both sides
+    "deep16": lambda: csg_stress_scene(T, "deep16", 96, 72),
+    "nested_diff": lambda: csg_stress_scene(T, "nested_diff", 96, 72),
 }
 
 
@@ -69,13 +74,7 @@ def test_screen_tap_and_ray_input_match_plain(cuda, name):
     before = R.launches
     _assert_close(R.round0(lay, prm), R.round0_reference(lay, prm), lay.names)
     n = ts.width * ts.height
-    rng = np.random.default_rng(len(name))
-    scale = 150.0 if name in ("standin", "glass") else 6.0
-    center = (0.0, 120.0, 220.0) if scale > 100 else (0.0, 0.0, 0.0)
-    orig = torch.as_tensor(np.asarray(center) + rng.uniform(-scale, scale, (n, 3)), dtype=torch.float32)
-    d = rng.normal(size=(n, 3))
-    dir = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True), dtype=torch.float32)
-    orig, dir = orig.to(cuda), dir.to(cuda)
+    orig, dir = _rays(name, n, cuda)
     _assert_close(R.round0(lay, prm, orig, dir), R.round0_reference(lay, prm, orig, dir), lay.names)
     assert R.launches == before + 2
 
@@ -134,7 +133,79 @@ def test_residual_rows_match_plain(cuda, name):
         agree = out["win"] == ref["win"]
         for k in vis:
             assert (out[k][agree] != ref[k][agree]).double().mean().item() < 0.01, k
+        # the vis rows are defined on every lane: also where the light sum is
+        # thrown away (missed lanes, mirror and glass winners)
+        direct = torch.tensor([ns.shader_kind in (0, 1) for ns in ts.nodes], device=cuda)  # LAMBERT, PHONG
+        unlit = agree & ((ref["win"] < 0) | ~direct[ref["win"].clamp_min(0).long()])
+        if int(unlit.sum()) > 100:
+            for k in vis:
+                assert (out[k][unlit] != ref[k][unlit]).double().mean().item() < 0.01, k
     assert R.resid_launches == before + 2
+
+
+def _sorted_keys(kind, n, n_texels, rng):
+    span = K2.plan(n)[0]
+    if kind == "one key":
+        return np.full(n, 5)
+    if kind == "distinct":
+        return np.arange(n)
+    if kind.startswith("edge"):  # runs that end exactly on, one before and one after a span's edge
+        cut = span + {"edge on": 0, "edge before": -1, "edge after": 1}[kind]
+        return np.repeat([3, 4, 9, 10], [cut, span, n - span - cut - 7, 7])
+    if kind == "out of range":  # dropped keys at the head and at the tail
+        return np.concatenate([rng.integers(-9, 0, n // 4), rng.integers(0, n_texels, n // 2),
+                               rng.integers(n_texels, n_texels + 9, n - n // 4 - n // 2)])
+    if kind == "long run":  # one run over many spans among short ones
+        return np.concatenate([rng.integers(0, 50, n // 4), np.full(n // 2, 50), rng.integers(51, n_texels, n - n // 4 - n // 2)])
+    return rng.integers(0, n_texels, n) // rng.integers(1, 40)
+
+
+_CHUNK, _SPANS = K2.BLOCK_THREADS, K2.TARGET_SPANS
+K2_SHAPES = [
+    # 200,000 rows: spans of two chunks
+    *[(kind, 200_000, 12) for kind in
+      ("one key", "distinct", "edge on", "edge before", "edge after", "out of range", "long run", "random")],
+    # around one chunk, around the size where a span grows to two chunks, a non-multiple
+    *[("random", n, 12) for n in (1, 2, _CHUNK - 1, _CHUNK, _CHUNK + 1, 3 * _CHUNK, _CHUNK * _SPANS - 1,
+                                  _CHUNK * _SPANS, _CHUNK * _SPANS + 1, 100_003)],
+    *[("one key", n, 6) for n in (_CHUNK, _CHUNK + 1, 2 * _CHUNK, 5 * _CHUNK + 9)],
+    *[("long run", 40_000, c) for c in (1, 5, 6, 16)],
+    ("long run", 3 * _CHUNK * _SPANS + 1000, 1),  # spans of four chunks
+]
+
+
+@pytest.mark.parametrize("kind,n,c", K2_SHAPES, ids=[f"{k}-{n}x{c}" for k, n, c in K2_SHAPES])
+def test_texel_hist_shapes_match_plain(cuda, kind, n, c):
+    """K2 where a row-parallel segmented sum can go wrong: runs at the edges
+    of a block's span and of its chunks, one run over every span, no run
+    longer than a row, sizes around a chunk and a span, dropped keys at both
+    ends, every load width.  |a - b| <= 1e-4 * max(1, max|b|), and two calls
+    give the same bits."""
+    rng = np.random.default_rng(n + c)
+    n_texels = max(60, n // 3)
+    keys = torch.as_tensor(np.sort(_sorted_keys(kind, n, n_texels, rng)), dtype=torch.int32, device=cuda)
+    assert keys.numel() == n
+    vals = torch.as_tensor(rng.normal(size=(n, c)), dtype=torch.float32, device=cuda)
+    out = K2.texel_histogram(keys, vals, n_texels)
+    ref = K2.texel_histogram_reference(keys, vals, n_texels)
+    assert out.shape == (n_texels, c) and bool(torch.isfinite(out).all())
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert torch.equal(out.any(1), ref.any(1))  # rows no key names stay zero
+    assert torch.equal(K2.texel_histogram(keys, vals, n_texels), out)
+
+
+def test_texel_hist_empty_and_unaligned_rows(cuda):
+    empty = K2.texel_histogram(torch.zeros(0, dtype=torch.int32, device=cuda), torch.zeros((0, 12), device=cuda), 7)
+    assert empty.shape == (7, 12) and not bool(empty.any())
+    # rows that start 4 bytes off a 16-byte boundary take the scalar loads
+    rng = np.random.default_rng(0)
+    n = 3000
+    keys = torch.as_tensor(np.sort(rng.integers(0, 40, n)), dtype=torch.int32, device=cuda)
+    flat = torch.as_tensor(rng.normal(size=n * 12 + 1), dtype=torch.float32, device=cuda)
+    vals = flat[1:].view(n, 12)
+    assert vals.is_contiguous() and vals.data_ptr() % 16 != 0
+    ref = K2.texel_histogram_reference(keys, vals, 40)
+    assert (K2.texel_histogram(keys, vals, 40) - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("c", [12, 6])
@@ -216,6 +287,45 @@ def test_lin_input_matches_plain_and_screen_tap(cuda, residual):
     # the same kernel, the same lanes: bit for bit the screen-tap launch
     for k in full:
         assert torch.equal(torch.cat([p[k] for p in parts]), full[k]), k
+
+
+@pytest.mark.parametrize("name", ["deep16", "nested_diff", "random1003", "glass"])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+def test_lin_input_matches_plain_on_csg_scenes(cuda, name, residual):
+    tp, ts = pack_scene(SCENES[name](), device=cuda)
+    lay = R.layout(ts, ts.width, ts.height, want_hit=residual, want_vis=residual)
+    n = ts.width * ts.height // 2
+    full = R.round0(lay, lay.pack(tp, (0.3, 0.3)))
+    parts = []
+    for i in range(2):
+        prm = lay.pack(tp, (0.3, 0.3), i * n)
+        parts.append(R.round0(lay, prm, lin_input=True, n_lanes=n))
+        _assert_close(parts[-1], R.round0_reference(lay, prm, lin_input=True, n_lanes=n),
+                      [k for k in lay.names if not k.startswith("vis")])
+    for k in full:
+        assert torch.equal(torch.cat([p[k] for p in parts]), full[k]), k
+
+
+def test_tables_beyond_shared_memory_are_refused(cuda, monkeypatch):
+    """The kernel keeps the scene's tables in a block's shared memory: the
+    wrapper's limit refuses a larger scene before any launch, and the launch
+    itself refuses what the card cannot hold."""
+    from chess2rt_tpu_torch import cuda_build
+
+    tp, ts = pack_scene(flagship_standin(T, 64, 48), device=cuda)
+    lay = R.layout(ts, 64, 48)
+    assert R.round0(lay, lay.pack(tp))["win"].numel() == 64 * 48
+    lib = cuda_build.load("round0")
+    prm = torch.zeros(60_000, dtype=torch.float32, device=cuda)
+    prog = torch.zeros(10_000, dtype=torch.int32, device=cuda)
+    out = torch.zeros((3, 128), dtype=torch.float32, device=cuda)
+    win = torch.zeros(128, dtype=torch.int32, device=cuda)
+    err = lib.c2rt_round0(prm.data_ptr(), prog.data_ptr(), prm.numel(), prog.numel(), None, None, out.data_ptr(),
+                          win.data_ptr(), 128, 64, 48, None)
+    torch.cuda.synchronize()
+    assert err == 1  # cudaErrorInvalidValue: 280,000 bytes of tables, refused before the launch
+    with pytest.raises(ValueError, match="shared memory"):
+        R.check_table_bytes(60_000, 10_000)
 
 
 def test_lin_input_lane_base_above_2_pow_24(cuda):
