@@ -8,16 +8,27 @@ written by hand for Hopper (``csrc/``), built with ``nvcc`` at first use
 PyTorch version when its inputs lie on the CPU.
 
 Layout:
-    utils/       vec3 math, color/sRGB (host copies of the JAX package's)
+    utils/       vec3 math, color/sRGB, structured log (host copies of the
+                 JAX package's)
     models/      typed scene object model + packed scene tensors
-    ops/         camera, the round-0 kernel wrapper + its plain version,
-                 its differentiable form, deferred bitmap texturing and the
+    scene/       SDLang and JSON scene loader (copy)
+    imageio/     BMP codec and image containers (copy); native.py, its C++
+                 encoder built with g++ into build/
+    oracle/      the float64 numpy oracle renderer (copy)
+    ops/         camera, geometry (all-hits CSG, the scene scan, shadow
+                 rays), texturing and direct shading, the round-0 kernel
+                 wrapper + its plain version, its differentiable form, the
                  texel-gradient histogram, the flagship renderer
-    render/      render_frame dispatch, AA taps, compaction helper
+    render/      render_frame dispatch: the fused path (K1) or the eager
+                 Whitted twin of the JAX package's XLA wavefront
+    parallel/    pixel slices over a mesh of devices, in one process
     grad/        inverse rendering (fit) and its checkpoints
     csrc/        hand-written CUDA kernels (sm_90a)
     cuda_build.py  nvcc build + ctypes binding of csrc/
-    scenes.py    the code-built flagship stand-in scene
+    scenes.py    scenes built in code (the flagship stand-in, fuzz and CSG
+                 stress scenes, a CSG-free scene) and the stand-in as SDL
+    app.py       the command line: python -m chess2rt_tpu_torch --file
+                 scene.sdl -o out.bmp (on the card; --device cpu elsewhere)
 """
 
 __version__ = "0.1.0"

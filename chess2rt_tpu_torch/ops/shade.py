@@ -1,22 +1,54 @@
-"""Deferred bitmap texturing and node-table lookups (texture.d, bitmap.d).
+"""Texturing, direct shading and node-table lookups (texture.d, bitmap.d,
+shader.d).
 
-Counterpart of the forward subset of chess2rt_tpu/ops/shade.py that the
-flagship combine needs.  Material and texture parameters live in
-node-indexed tables and are picked by the per-ray winning-node id; bitmap
-texels are fetched as one 12-float quad row per ray from an unpadded flat
-quad table.  The JAX package gathered that row in XLA, outside any Pallas
-kernel, so here it is plain tensor indexing (``quad_gather_flat``).  Its
-backward is the texel-gradient custom VJP of the JAX package's
-``histogram`` mode: the cotangent rows sorted by texel key, then summed per
-key by the texel-histogram kernel K2 (ops/texel_hist.py).
+Counterpart of chess2rt_tpu/ops/shade.py.  Material and texture parameters
+live in node-indexed tables and are picked by the per-ray winning-node id,
+so a whole wavefront shades in one pass:
+
+* ``texture_color`` (flat, checker, procedure2, bitmap) and
+  ``shade_direct`` (Lambert + Phong, one distance-only shadow scan per
+  light for the whole batch) are what the eager Whitted twin
+  (render/pipeline.py) shades with;
+* bitmap texels are fetched as one 12-float quad row per ray from an
+  unpadded flat quad table.  The JAX package gathered that row in XLA,
+  outside any Pallas kernel, so here it is plain tensor indexing
+  (``quad_gather_flat``).  Its backward is the texel-gradient custom VJP of
+  the JAX package's ``histogram`` mode: the cotangent rows sorted by texel
+  key, then summed per key by the texel-histogram kernel K2
+  (ops/texel_hist.py).  The fused path defers exactly this gather from K1
+  (``bitmap_color``).
+
+``apply_bump`` (the bump extension) is ROADMAP.md queue 1 item 9; the JAX
+package's ``checkpoint_name`` tag on the shadow bits has no counterpart.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.packed import ScenePacked, SceneStatic
+from ..models.packed import PHONG, TEX_BITMAP, TEX_CHECKER, TEX_PROC2, ScenePacked, SceneStatic
+from . import geometry as G
 from .texel_hist import texel_histogram
+
+
+def _norm(v):
+    return v / torch.sqrt((v * v).sum(-1, keepdim=True))
+
+
+def dot(a, b):
+    return (a * b).sum(-1)
+
+
+def faceforward(ray, norm):
+    """imported_types.d:69-73: +norm towards the viewer, else -norm."""
+    return torch.where(dot(ray, norm)[..., None] < 0, norm, -norm)
+
+
+def shadow_eps(dtype) -> float:
+    """Self-intersection offset for shadow and secondary rays: the
+    reference's 1e-6 in float64 (shader.d:88); under float32 that offset is
+    below one ulp at the scenes' coordinate scale (~1e2), so 1e-3."""
+    return 1e-6 if dtype == torch.float64 else 1e-3
 
 
 def static_select(winc, values, dtype=torch.int32):
@@ -28,7 +60,8 @@ def static_select(winc, values, dtype=torch.int32):
     out = torch.full(winc.shape, values[0], dtype=dtype, device=winc.device)
     for i, v in enumerate(values[1:], 1):
         if v != values[0]:
-            out = torch.where(winc == i, torch.tensor(v, dtype=dtype, device=winc.device), out)
+            # a Python scalar keeps ``out``'s dtype and needs no host-to-device copy
+            out = torch.where(winc == i, v, out)
     return out
 
 
@@ -50,6 +83,9 @@ def node_gather(onehot, table):
     """Per-ray row of a [Nn, ...] node table via one-hot contraction (exact
     for finite tables; float32 matmuls run in full precision, see
     chess2rt_tpu_torch/__init__.py)."""
+    if table.shape[0] == 0:
+        # an empty scene's tables: every lane missed, so any value is masked
+        return torch.zeros(onehot.shape[:-1] + table.shape[1:], dtype=table.dtype, device=table.device)
     flat = table.reshape(table.shape[0], -1)
     out = onehot.to(table.dtype) @ flat
     return out.reshape(onehot.shape[:-1] + table.shape[1:])
@@ -172,3 +208,98 @@ def _quad_atlas_flat(atlas, sizes):
     if not rows:
         return torch.zeros((0, 4 * C), dtype=atlas.dtype, device=atlas.device)
     return rows[0] if len(rows) == 1 else torch.cat(rows)
+
+
+# --------------------------------------------------------------------------
+# Textures (texture.d:20-162, bitmap.d:48-63)
+# --------------------------------------------------------------------------
+
+
+def texture_color(packed: ScenePacked, static: SceneStatic, winc, u, v, onehot=None):
+    """Per-ray diffuse color: the flat material color or the node's
+    texture.  ``winc`` is the winning node id clipped to >= 0."""
+    if onehot is None:
+        onehot = node_onehot(static, winc)
+    tk = tex_kind_of(static, winc)
+    out = node_gather(onehot, packed.mat_color)
+    present = static.tex_kinds_present
+
+    if TEX_CHECKER in present:
+        size = node_gather(onehot, packed.checker_size)
+        # floor, then cast (u reaches 1e4 on a horizon plane)
+        x = torch.floor(u / size).to(torch.int32)
+        y = torch.floor(v / size).to(torch.int32)
+        # D's signed %2 marks exactly the squares of (x + y) & 1 (texture.d:48-53)
+        white = ((x + y) & 1).to(torch.bool)
+        checker = torch.where(
+            white[..., None],
+            node_gather(onehot, packed.checker_c2),
+            node_gather(onehot, packed.checker_c1),
+        )
+        out = torch.where((tk == TEX_CHECKER)[..., None], checker, out)
+
+    if TEX_PROC2 in present:
+        # sum_i colorU[i] * sin(u * freqU[i]) + colorV[i] * sin(v * freqV[i])
+        # (texture.d:77-85), batched over the 3 bands
+        su = torch.sin(u[..., None] * node_gather(onehot, packed.proc2_freq_u))  # [N, 3]
+        sv = torch.sin(v[..., None] * node_gather(onehot, packed.proc2_freq_v))
+        proc = (node_gather(onehot, packed.proc2_color_u) * su[..., None]).sum(-2) + (
+            node_gather(onehot, packed.proc2_color_v) * sv[..., None]
+        ).sum(-2)
+        out = torch.where((tk == TEX_PROC2)[..., None], proc, out)
+
+    if TEX_BITMAP in present:
+        bil = bitmap_color(packed, static, winc, u, v, onehot)
+        out = torch.where((tk == TEX_BITMAP)[..., None], bil, out)
+
+    return out
+
+
+# --------------------------------------------------------------------------
+# Direct shading: Lambert + Phong (shader.d:67-105, :197-250)
+# --------------------------------------------------------------------------
+
+
+def shade_direct(packed: ScenePacked, static: SceneStatic, ray_dir, hit, winc):
+    """Direct light for the whole wavefront in one pass.
+
+    Lambert: diffuse * (ambient + sum over lights of visible *
+    lightColor / d^2 * cos); Phong adds the untinted cos^n specular
+    (shader.d:246-249), masked to Phong nodes.  (The JAX function's
+    ``geom_normal``, the shadow-origin normal under a bump map, comes with
+    bump, ROADMAP.md item 9.)"""
+    onehot = node_onehot(static, winc)
+    N = faceforward(ray_dir, hit["normal"])
+    diffuse = texture_color(packed, static, winc, hit["u"], hit["v"], onehot)
+
+    has_phong = PHONG in static.shader_kinds_present
+    lam = torch.zeros_like(hit["p"])
+    spec = torch.zeros_like(hit["p"]) if has_phong else None
+    shade_from = hit["p"] + N * shadow_eps(ray_dir.dtype)
+    if has_phong:
+        exponent = node_gather(onehot, packed.mat_exponent)
+        strength = node_gather(onehot, packed.mat_strength)
+
+    for li in range(static.n_lights):
+        lp = packed.light_pos[li]
+        lc = packed.light_color[li] * packed.light_power[li]
+        vis = G.test_visibility(packed, static, shade_from, torch.broadcast_to(lp, shade_from.shape))
+        # lightColor.intensity() != 0 gate (shader.d:88), kept on the device
+        vis = vis & (lc.mean() != 0)
+        to_light = lp - hit["p"]
+        light_dir = _norm(to_light)
+        cos_theta = dot(light_dir, N)
+        base = lc / dot(to_light, to_light)[..., None]
+        lam = lam + torch.where((vis & (cos_theta > 0))[..., None], base * cos_theta[..., None], 0.0)
+        if has_phong:
+            # R = reflect(-lightDir, N), normalized (imported_types.d:62-67)
+            R = _norm(-light_dir - 2.0 * dot(-light_dir, N)[..., None] * N)
+            cos_gamma = dot(R, -ray_dir)
+            s = base * torch.pow(torch.clamp_min(cos_gamma, 0.0), exponent)[..., None]
+            s = s * strength[..., None]
+            spec = spec + torch.where((vis & (cos_gamma > 0))[..., None], s, 0.0)
+
+    out = diffuse * (packed.ambient + lam)
+    if has_phong:
+        out = out + torch.where((shader_kind_of(static, winc) == PHONG)[..., None], spec, 0.0)
+    return out

@@ -24,8 +24,10 @@ The shards of one process run one after the other from the host's point of
 view (each slice's host decisions synchronise its device).  Scenes and
 dtypes the JAX package sends to its XLA per-shard sampler (MC modes, GI,
 float64, geometry the round-0 kernel does not cover) raise
-NotImplementedError naming their ROADMAP item.  ``make_mesh_2d``, several
-processes and ``torch.distributed`` are ROADMAP.md queue 1 item 11.
+NotImplementedError naming their ROADMAP item; on one device
+``render_frame`` renders float64 and uncovered scenes through the eager
+Whitted twin.  ``make_mesh_2d``, several processes and
+``torch.distributed`` are ROADMAP.md queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -82,8 +84,8 @@ def _fused_shard_setup(static: SceneStatic, mesh: Mesh, trace=round0):
         raise NotImplementedError("sharded DoF and stereo are not ported yet (ROADMAP.md queue 1 item 7)")
     if not supports(static):
         raise NotImplementedError(
-            "sharding a scene the round-0 kernel does not cover needs the eager Whitted twin "
-            "(ROADMAP.md queue 1 item 3)"
+            "sharding a scene the round-0 kernel does not cover (the JAX package's per-shard XLA "
+            "sampler) is not ported yet (ROADMAP.md queue 1 item 11)"
         )
     n_shards = len(mesh)
     n = static.width * static.height
@@ -94,7 +96,10 @@ def _fused_shard_setup(static: SceneStatic, mesh: Mesh, trace=round0):
 
 def _check_dtype(packed: ScenePacked):
     if packed.dtype != torch.float32:
-        raise NotImplementedError("sharded float64 frames need the eager Whitted twin (ROADMAP.md queue 1 item 3)")
+        raise NotImplementedError(
+            "sharded float64 frames (the JAX package's per-shard XLA sampler) are not ported yet "
+            "(ROADMAP.md queue 1 item 11); render_frame renders float64 frames on one device"
+        )
 
 
 def _replicate(packed: ScenePacked, mesh: Mesh):

@@ -6,8 +6,11 @@ sphere, Phong spheres, translated nodes) plus the depth-5 mirror sphere
 that the benchmark adds — because no scene file ships with the repository.
 It builds from either package's ``models.types`` module, so the JAX
 package and this one render the identical scene.  ``random_scene`` makes
-the seeded fuzz scenes that hold the round-0 kernel to its references, and
-``csg_stress_scene`` the two scenes that load its CSG hit lists the most.
+the seeded fuzz scenes that hold the round-0 kernel to its references,
+``csg_stress_scene`` the two scenes that load its CSG hit lists the most,
+and ``csg_free_scene`` the scenes a float64 frame is held u8-exact to the
+oracle on.  ``write_standin_sdl`` writes the stand-in as a scene file with
+its bitmaps, for the command line.
 """
 
 from __future__ import annotations
@@ -252,3 +255,142 @@ def csg_stress_scene(T, kind: str, width: int = 32, height: int = 24):
     else:
         raise ValueError(f"csg_stress_scene: kind must be 'deep16' or 'nested_diff', got {kind!r}")
     return sc
+
+
+def csg_free_scene(T, seed: int, width: int = 32, height: int = 24):
+    """A seeded scene without CSG or bitmaps, in the manner of the
+    reference's lecture4.sdl (a checkered floor, Lambert and Phong
+    primitives, a procedure2 texture), plus a scaled and translated cube
+    and a mirror sphere: the scene class on which a float64 frame is held
+    u8-exact to the oracle.  AA on, maxTraceDepth 4, one light, the
+    stand-in's camera."""
+    rng = np.random.default_rng(seed)
+    sc = T.Scene(name=f"csg_free_{seed}")
+    sc.settings.frameWidth, sc.settings.frameHeight = width, height
+    sc.settings.AAEnabled = True
+    sc.settings.ambientLightColor = (0.1, 0.1, 0.12)
+    sc.camera = T.Camera(pos=(0.0, 165.0, 0.0), yaw=0.0, pitch=-20.0, roll=0.0, fov=90.0)
+    sc.camera.set_frame_size(width, height)
+    sc.lights = [T.PointLight(name="key", pos=tuple(rng.uniform(-200, 200, 3) + (0, 420, 200)),
+                              color=(1.0, 0.95, 0.9), power=float(rng.uniform(1e5, 2e5)))]
+    checker = T.Checker(name="checker", color1=(0.9, 0.9, 0.85), color2=(0.15, 0.2, 0.5),
+                        size=float(rng.uniform(15, 40)))
+    proc2 = T.Procedure2(
+        name="proc2",
+        colorU=rng.uniform(0, 0.4, (3, 3)).tolist(),
+        colorV=rng.uniform(0, 0.4, (3, 3)).tolist(),
+        freqU=rng.uniform(2, 15, 3).tolist(),
+        freqV=rng.uniform(2, 15, 3).tolist(),
+    )
+
+    def node(name, geom, shader, transform=None):
+        n = T.Node(name=name, geometry=geom, shader=shader)
+        if transform is not None:
+            transform(n.transform)
+        sc.nodes.append(n)
+        sc.geometries.append(geom)
+        sc.shaders.append(shader)
+
+    def spot(z):
+        return (float(rng.uniform(-150, 150)), float(rng.uniform(30, 70)), float(z))
+
+    node("floor", T.Plane(name="floor", y=0.0), T.Lambert(name="floor", color=(1.0, 1.0, 1.0), texture=checker))
+    node("phong_ball", T.Sphere(name="pb", center=spot(220), R=float(rng.uniform(30, 50))),
+         T.Phong(name="pb", color=tuple(rng.uniform(0.3, 1.0, 3)), exponent=float(rng.uniform(10, 60)), strength=0.7))
+    node("proc_ball", T.Sphere(name="qb", center=spot(300), R=float(rng.uniform(30, 50))),
+         T.Lambert(name="qb", color=(1.0, 1.0, 1.0), texture=proc2))
+    node("box", T.Cube(name="box", center=(0.0, 0.0, 0.0), side=60.0),
+         T.Lambert(name="box", color=tuple(rng.uniform(0.3, 1.0, 3))),
+         lambda tr: (tr.scale(1.5, 1.0, 1.2), tr.translate(spot(180))))
+    node("mirror_ball", T.Sphere(name="mb", center=(0.0, 60.0, 380.0), R=55.0),
+         T.Reflection(name="mirror", color=(0.9, 0.9, 0.9)))
+    return sc
+
+
+def _sdl_vec(v) -> str:
+    return " ".join(repr(float(x)) for x in v)
+
+
+def write_standin_sdl(directory: str, width: int = 1920, height: int = 1080, seed: int = 5,
+                      name: str = "standin.sdl", aa: bool = True) -> str:
+    """Write the flagship stand-in as a scene file the loaders read: an
+    SDLang ``name`` in ``directory`` and its two bitmaps beside it as BMP
+    files (``floor_tex.bmp``, ``box_tex.bmp``; 8-bit sRGB, so the loader's
+    gamma decode gives texels close to, not equal to, ``flagship_standin``'s).
+    Returns the scene file's path.  Same features as ``flagship_standin``:
+    CSG diff and inter, two bitmaps, a checker, a procedure2, Phong, a
+    scaled and translated cube, the mirror sphere, AA5 (``aa``),
+    maxTraceDepth 5."""
+    import os
+
+    from .imageio.bmp import save_bmp_file
+
+    rng = np.random.default_rng(seed)
+    for fname, size in (("floor_tex.bmp", 256), ("box_tex.bmp", 128)):
+        # linear texels in, sRGB bytes out (the loader decodes them back)
+        save_bmp_file(os.path.join(directory, fname), _bitmap(rng, size, size))
+    text = f"""// the flagship stand-in (chess2rt_tpu_torch/scenes.py), as a scene file
+Scene {{
+    Name "flagship_standin"
+    GlobalSettings {{
+        frameWidth {width}
+        frameHeight {height}
+        AAEnabled {"true" if aa else "false"}
+        maxTraceDepth 5
+        ambientLightColor 0.12 0.12 0.14
+    }}
+    Camera {{
+        pos 0.0 165.0 0.0
+        pitch -20.0
+        fov 90.0
+    }}
+    Lights {{
+        PointLight {{ name "key"; pos -160.0 420.0 120.0; color 1.0 0.95 0.9; power 150000.0 }}
+        PointLight {{ name "fill"; pos 220.0 260.0 500.0; color 0.8 0.85 1.0; power 60000.0 }}
+    }}
+    Geometries {{
+        Plane {{ name "floor"; y 0.0 }}
+        Cube {{ name "diff_cube"; center -150.0 50.0 330.0; side 100.0 }}
+        Sphere {{ name "diff_sphere"; center -150.0 70.0 290.0; R 62.0 }}
+        CsgDiff {{ name "diff"; left "diff_cube"; right "diff_sphere" }}
+        Sphere {{ name "inter_sphere"; center 0.0 0.0 0.0; R 50.0 }}
+        Cube {{ name "inter_cube"; center 0.0 0.0 0.0; side 80.0 }}
+        CsgInter {{ name "inter"; left "inter_sphere"; right "inter_cube" }}
+        Cube {{ name "box"; center 0.0 0.0 0.0; side 60.0 }}
+        Sphere {{ name "proc_ball"; center -60.0 40.0 200.0; R 40.0 }}
+        Sphere {{ name "mb"; center 0.0 60.0 360.0; R 55.0 }}
+    }}
+    Textures {{
+        BitmapTexture {{ name "floor_tex"; file "floor_tex.bmp"; scaling {1.0 / 180.0!r} }}
+        BitmapTexture {{ name "box_tex"; file "box_tex.bmp"; scaling {1.0 / 40.0!r} }}
+        Checker {{ name "checker"; color1 0.9 0.9 0.85; color2 0.15 0.2 0.5; size 12.0 }}
+        Procedure2 {{
+            name "proc2"
+            colorU {{ {_sdl_vec((0.4, 0.1, 0.1))}; {_sdl_vec((0.1, 0.3, 0.1))}; {_sdl_vec((0.05, 0.05, 0.3))} }}
+            colorV {{ {_sdl_vec((0.1, 0.1, 0.3))}; {_sdl_vec((0.3, 0.2, 0.05))}; {_sdl_vec((0.1, 0.3, 0.3))} }}
+            freqU 3.0 7.0 13.0
+            freqV 5.0 11.0 17.0
+        }}
+    }}
+    Shaders {{
+        Lambert {{ name "floor"; color 1.0 1.0 1.0; texture "floor_tex" }}
+        Phong {{ name "diff"; color 0.85 0.35 0.25; exponent 40.0; strength 0.8 }}
+        Lambert {{ name "inter"; color 1.0 1.0 1.0; texture "checker" }}
+        Lambert {{ name "box"; color 1.0 1.0 1.0; texture "box_tex" }}
+        Phong {{ name "proc"; color 1.0 1.0 1.0; exponent 20.0; strength 0.5; texture "proc2" }}
+        Reflection {{ name "mirror"; color 0.9 0.9 0.9 }}
+    }}
+    Nodes {{
+        Node {{ name "floor"; geometry "floor"; shader "floor" }}
+        Node {{ name "diff"; geometry "diff"; shader "diff" }}
+        Node {{ name "inter"; geometry "inter"; shader "inter"; translate 150.0 50.0 300.0 }}
+        Node {{ name "box"; geometry "box"; shader "box"; scale 1.6 1.0 1.3; translate 120.0 30.0 180.0 }}
+        Node {{ name "proc_ball"; geometry "proc_ball"; shader "proc" }}
+        Node {{ name "mirror_ball"; geometry "mb"; shader "mirror" }}
+    }}
+}}
+"""
+    path = os.path.join(directory, name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path

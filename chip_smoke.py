@@ -24,7 +24,13 @@ read just after:
   (``parallel.make_sharded_value_and_grad``);
 * the stage ladder of K1 (``ladder`` below, K3: the kernel cut
   after empty, raygen, scan and shadow, csrc/round0.cu built with
-  -DC2RT_STAGE=k) at 1080p.
+  -DC2RT_STAGE=k) at 1080p;
+* the eager Whitted twin (``render_frame_wavefront``, plain PyTorch: the
+  JAX package's XLA wavefront has no Pallas kernel) at 1080p in f32, and
+  float64 frames through ``render_frame``, which sends them to the twin;
+* the command line, ``python -m chess2rt_tpu_torch --file scene.sdl -o
+  out.bmp``, on a scene file with the stand-in's features: its f32 frame
+  goes through K1 (screen-tap and ray-input forms).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -72,7 +78,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. K3: every stage against its plain version at 320x240 and at 1080p, then
     the ladder at 1080p: ms per launch of empty, raygen, scan, shadow and the whole
     K1 (beside the times of the design before this one), registers and
-    stack per stage.
+    stack per stage;
+16. the twin on the 1080p AA5 depth-5 stand-in in f32 against the phase 4
+    fused frame (the frame limits), no K1 launch, its median ms (CUDA events,
+    median of 3 after 2 warm-ups) beside phase 5's, its peak memory; with
+    ``--profile`` its device-busy share;
+17. float64 on the card: the stand-in at 320x240, AA off, through
+    ``render_frame`` (the twin) against the port's float64 numpy oracle
+    copy (max |d| < 1e-4, u8 equal on > 99.9% of pixels: the oracle re-casts
+    CSG rays in 1e-6 steps), and a 64x48 AA5 frame of a CSG-free scene
+    (``scenes.csg_free_scene``), u8-equal everywhere with max |d| < 1e-6;
+    their times;
+18. the CLI end to end: ``scenes.write_standin_sdl`` writes the scene file
+    and its two BMP textures; ``app.main`` in this process with K1's counters
+    zeroed (its f32 frame launches K1), then ``python -m chess2rt_tpu_torch
+    --file ... -o ... --size 1920x1080 --stats -q`` as a subprocess, its BMP
+    decoded and compared byte for byte with ``srgb_u8`` of this process's
+    ``render_frame`` of the same file (0 differing bytes); the same with
+    ``--dtype f64 --size 320x240``; ``--debug-pixel 160,120`` through
+    ``app.main`` in this process; the wall time of each stage (load, device
+    init, pack, render, write); then the CLI's render stage split in fresh
+    processes (``first_frame_split``: import, device init, pack, K1's
+    library load, the first matmul, batched inverse, sort and K1 launch,
+    three frames), with CUDA's lazy module loading and with
+    ``CUDA_MODULE_LOADING=EAGER``.
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -90,11 +119,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -673,6 +704,7 @@ def main(argv) -> int:
         raise AssertionError(f"only {lit:.2%} of pixels are lit")
     plain = F.build_flagship_renderer(ts, WIDTH, HEIGHT, trace=R.round0_reference)
     frame_err = compare_frames("kernel frame vs plain frame", img, plain(tp))
+    fused_frame = img  # phase 16 holds the twin to it
     del img
 
     # ---- 5. timing -------------------------------------------------------------
@@ -701,6 +733,8 @@ def main(argv) -> int:
     ]
     kernels += gradient_phases(argv, card, dev)
     kernels += slice_phases(argv, card, dev, kernel_ms, k1_ms)
+    twin_phases(argv, card, dev, fused_frame, kernel_ms)
+    del fused_frame
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -1144,7 +1178,269 @@ def slice_phases(argv, card, dev, phase5_frame_ms, phase5_k1_ms):
     return entries
 
 
+def bmp_u8(path):
+    """[h, w, 3] uint8 RGB of a BMP file (the port's decoder)."""
+    from chess2rt_tpu_torch.imageio.bmp import load_bmp_file
+
+    p = load_bmp_file(path).pixels_u32
+    return np.stack([(p >> 16) & 0xFF, (p >> 8) & 0xFF, p & 0xFF], axis=-1).astype(np.uint8)
+
+
+def run_cli(args, timeout=600):
+    """``python -m chess2rt_tpu_torch *args`` from the repository root:
+    (stdout, wall seconds); raises on a nonzero exit."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "chess2rt_tpu_torch", *args], cwd=ROOT, capture_output=True,
+                         text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the CLI exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return res.stdout, wall
+
+
+def first_frame_split(path, dtype_name, size):
+    """A fresh process's first frames of a scene file, stage by stage: what
+    the CLI's render stage is made of.  Run as ``python chip_smoke.py
+    --first-frame SCENE f32|f64 WxH``; prints one JSON line of wall seconds."""
+    t = time.perf_counter()
+    import torch
+
+    out = {"import_torch": time.perf_counter() - t}
+    dev = torch.device(DEVICE)
+    t = time.perf_counter()
+    torch.zeros((), device=dev)
+    torch.cuda.synchronize()
+    out["init"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sys.path.insert(0, ROOT)
+    from chess2rt_tpu_torch import cuda_build
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+    from chess2rt_tpu_torch.scene import parse_scene_from_file
+
+    out["import_port"] = time.perf_counter() - t
+    w, h = (int(v) for v in size.split("x"))
+    scene = parse_scene_from_file(path)
+    scene.settings.frameWidth, scene.settings.frameHeight = w, h
+    scene.camera.set_frame_size(w, h)
+    t = time.perf_counter()
+    packed, static = pack_scene(scene, dtype=torch.float64 if dtype_name == "f64" else torch.float32, device=dev)
+    torch.cuda.synchronize()
+    out["pack"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if dtype_name == "f32":
+        cuda_build.load("round0")
+    out["k1_library"] = time.perf_counter() - t
+    # the first call of each library the frames use, each on its own
+    dt, first = packed.dtype, {}
+
+    def first_call(name, fn):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first[name] = time.perf_counter() - t
+
+    first_call("matmul", lambda: torch.ones((3, 3), dtype=dt, device=dev) @ torch.ones((3, 3), dtype=dt, device=dev))
+    first_call("inv_ex", lambda: torch.linalg.inv_ex(torch.eye(4, dtype=dt, device=dev).expand(8, 4, 4)))
+    first_call("sort", lambda: torch.sort(torch.arange(1 << 17, dtype=torch.int32, device=dev)))
+    if dtype_name == "f32":
+        from chess2rt_tpu_torch.ops import round0 as R
+
+        lay = R.layout(static, 64, 48)
+        prm = lay.pack(packed)
+        first_call("k1_64x48", lambda: R.round0(lay, prm))
+    out["first_calls"] = first
+    out["frames"] = []
+    for _ in range(3):
+        t = time.perf_counter()
+        with torch.no_grad():
+            render_frame(packed, static).cpu()
+        out["frames"].append(time.perf_counter() - t)
+    print(json.dumps(out))
+    return 0
+
+
+def run_first_frame(path, dtype_name, size, loading):
+    """``first_frame_split`` in a fresh process with ``CUDA_MODULE_LOADING``
+    set to ``loading``; its dict, plus the process's whole wall time."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--first-frame", path, dtype_name,
+                          f"{size[0]}x{size[1]}"], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, CUDA_MODULE_LOADING=loading))
+    if res.returncode != 0:
+        raise AssertionError(f"the first-frame split exited {res.returncode}:\n{res.stderr[-4000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["process"] = time.perf_counter() - t0
+    return out
+
+
+def compare_u8(label, got, want):
+    """Count the bytes of two uint8 images that differ; 0 expected."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {got.shape}, want {want.shape}")
+    differing = int((got != want).sum())
+    log(f"  {label}: {differing} differing bytes of {got.size}")
+    if differing:
+        raise AssertionError(f"{label}: {differing} bytes differ")
+
+
+def twin_phases(argv, card, dev, fused_frame, phase5_frame_ms):
+    """Phases 16-18: the eager Whitted twin, float64 frames on the card and
+    the CLI end to end."""
+    import torch
+    from chess2rt_tpu_torch import app
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import flagship as F
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.oracle import OracleRenderer
+    from chess2rt_tpu_torch.render.pipeline import render_frame, render_frame_wavefront
+    from chess2rt_tpu_torch.scene import parse_scene_from_file
+    from chess2rt_tpu_torch.scenes import csg_free_scene, flagship_standin, write_standin_sdl
+    from chess2rt_tpu_torch.utils.color import srgb_u8
+
+    def zero_counts():
+        R.launches = R.resid_launches = R.ray_launches = R.lin_launches = 0
+        F.bounce_rounds = 0
+
+    # ---- 16. the twin at 1080p ------------------------------------------------------------
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT), device=dev)
+    log(f"phase 16 twin frame {WIDTH}x{HEIGHT}, AA5, maxTraceDepth {ts.max_trace_depth}, f32 "
+        f"(render_frame_wavefront, plain PyTorch)")
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    twin = render_frame_wavefront(tp, ts)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    twin_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if R.launches:
+        raise AssertionError(f"the twin launched K1 {R.launches} times; it is the plain path")
+    if tuple(twin.shape) != (HEIGHT, WIDTH, 3) or twin.dtype != torch.float32 or twin.device != dev:
+        raise AssertionError(f"twin frame {tuple(twin.shape)} {twin.dtype} on {twin.device}")
+    log(f"  first frame {first_s:.3f} s wall, peak device memory above the scene {twin_peak:.3f} GiB")
+    twin_err = compare_frames("twin frame vs fused frame (phase 4)", twin, fused_frame)
+    del twin
+    # two warm-ups: the frame above and one more
+    twin_ms, twin_all = time_events(lambda k: render_frame_wavefront(jittered(tp, k), ts), 3, 1)
+    log(f"  twin frame {twin_ms:.3f} ms {['%.3f' % t for t in twin_all]} (fused frame, phase 5: "
+        f"{phase5_frame_ms:.3f} ms; {twin_ms / phase5_frame_ms:.1f}x) on {card}")
+    if "--profile" in argv:
+        profile_run("twin frame", lambda: render_frame_wavefront(jittered(tp, 94), ts))
+    del tp
+
+    # ---- 17. float64 on the card ------------------------------------------------------------
+    w, h = SMALL
+    log(f"phase 17 float64 frames on the card: the stand-in at {w}x{h}, AA off, through render_frame, "
+        f"against the port's float64 oracle")
+
+    def f64_frame(scene):
+        p64, s64 = pack_scene(scene, dtype=torch.float64, device=dev)
+        zero_counts()
+        img = render_frame(p64, s64)
+        torch.cuda.synchronize()
+        if R.launches or img.dtype != torch.float64 or img.device != dev:
+            raise AssertionError(f"the f64 frame ({img.dtype} on {img.device}) launched K1 {R.launches} times")
+        ms, all_ms = time_events(lambda k: render_frame(p64, s64), 3, 1)
+        return img.cpu().numpy(), ms, all_ms
+
+    def u8(x):
+        return srgb_u8(np.asarray(x, np.float32))
+
+    sc = flagship_standin(T, w, h)
+    sc.settings.AAEnabled = False
+    img64, f64_ms, f64_all = f64_frame(sc)
+    t0 = time.perf_counter()
+    gold = OracleRenderer(sc).render()
+    oracle_s = time.perf_counter() - t0
+    f64_err = float(np.abs(img64 - gold).max())
+    f64_u8 = float((u8(img64) == u8(gold)).all(-1).mean())
+    log(f"  stand-in {w}x{h} f64: {f64_ms:.3f} ms {['%.3f' % t for t in f64_all]}; against the oracle "
+        f"({oracle_s:.2f} s on the host): max |d| {f64_err:.3e}, u8 equal on {f64_u8:.6f} of pixels")
+    if not (f64_err < 1e-4 and f64_u8 > 0.999):
+        raise AssertionError(f"f64 stand-in against the oracle: max |d| {f64_err:.3e}, u8 equal {f64_u8:.6f}")
+    sc = csg_free_scene(T, 0, 64, 48)
+    img64, free_ms, free_all = f64_frame(sc)
+    gold = OracleRenderer(sc).render()
+    free_err = float(np.abs(img64 - gold).max())
+    free_diff = int((u8(img64) != u8(gold)).any(-1).sum())
+    log(f"  CSG-free scene 64x48 AA5 f64: {free_ms:.3f} ms {['%.3f' % t for t in free_all]}; against the "
+        f"oracle: max |d| {free_err:.3e}, {free_diff} pixels differ in u8")
+    if free_err >= 1e-6 or free_diff:
+        raise AssertionError(f"CSG-free f64 frame against the oracle: max |d| {free_err:.3e}, {free_diff} pixels")
+
+    # ---- 18. the CLI end to end ------------------------------------------------------------
+    log(f"phase 18 CLI: python -m chess2rt_tpu_torch on a scene file with the stand-in's features")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_standin_sdl(tmp, WIDTH, HEIGHT)
+        zero_counts()
+        if app.main(["--file", path, "-o", os.path.join(tmp, "inproc.bmp"), "-q"]) != 0:
+            raise AssertionError("app.main returned nonzero")
+        torch.cuda.synchronize()
+        cli_launches, cli_rays = R.launches, R.ray_launches
+        log(f"  app.main in this process: K1 launches {cli_launches} (ray-input form {cli_rays}, "
+            f"bounce rounds {F.bounce_rounds})")
+        if cli_launches - cli_rays != 5 or cli_rays != F.bounce_rounds or cli_rays < 5:
+            raise AssertionError(f"the CLI's f32 frame launched K1 {cli_launches} times ({cli_rays} ray-input)")
+
+        def in_process(size, dtype):
+            scene = parse_scene_from_file(path)
+            scene.settings.frameWidth, scene.settings.frameHeight = size
+            scene.camera.set_frame_size(*size)
+            p, s = pack_scene(scene, dtype=dtype, device=dev)
+            with torch.no_grad():
+                return srgb_u8(render_frame(p, s).float().cpu().numpy())
+
+        stages = {}
+        for label, size, dtype, extra in (("f32", (WIDTH, HEIGHT), torch.float32, []),
+                                          ("f64", SMALL, torch.float64, ["--dtype", "f64"])):
+            out = os.path.join(tmp, f"cli_{label}.bmp")
+            stdout, wall = run_cli(["--file", path, "-o", out, "--size", f"{size[0]}x{size[1]}", "--stats",
+                                    "-q", *extra])
+            line = next(x for x in stdout.splitlines() if x.startswith("Stages: "))
+            stages[label] = {k: float(v.split()[0]) for k, v in
+                             (part.split(" ", 1) for part in line[len("Stages: "):].split(", "))}
+            stages[label]["process"] = wall
+            log(f"  {label} {size[0]}x{size[1]}: {line} ({wall:.3f} s for the whole process)")
+            compare_u8(f"{label} CLI BMP vs srgb_u8 of render_frame in this process", bmp_u8(out),
+                       in_process(size, dtype))
+        # the dump in this process (a third process would add ~10 s of start-up)
+        dump = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(dump):
+            rc = app.main(["--file", path, "--size", f"{w}x{h}", "--dtype", "f64", "-q",
+                           "--debug-pixel", f"{w // 2},{h // 2}"])
+        wall = time.perf_counter() - t0
+        log(f"  app.main --dtype f64 --size {w}x{h} --debug-pixel {w // 2},{h // 2} ({wall:.3f} s):")
+        for line in dump.getvalue().splitlines():
+            log(f"    {line}")
+        if rc != 0 or "Mouse click at" not in dump.getvalue() or "oracle (f64)" not in dump.getvalue():
+            raise AssertionError("the debug-pixel dump is missing")
+        # the render stage split: what a fresh process's first frame spends beyond a warm one
+        first = {}
+        for label, size in (("f32", (WIDTH, HEIGHT)), ("f64", SMALL)):
+            for loading in ("LAZY", "EAGER"):
+                r = run_first_frame(path, label, size, loading)
+                first[f"{label}_{loading.lower()}"] = r
+                log(f"  fresh process {label} {size[0]}x{size[1]}, CUDA_MODULE_LOADING={loading}: import torch "
+                    f"{r['import_torch']:.3f}, init {r['init']:.3f}, import the port {r['import_port']:.3f}, pack "
+                    f"{r['pack']:.3f}, K1 library {r['k1_library']:.3f}, first calls "
+                    f"{', '.join('%s %.3f' % kv for kv in r['first_calls'].items())}, frames "
+                    f"{', '.join('%.3f' % f for f in r['frames'])} s ({r['process']:.3f} s for the process)")
+    log(json.dumps({
+        "twin_frame_ms": twin_ms, "twin_frame_all_ms": twin_all, "twin_first_frame_s": first_s,
+        "twin_peak_gib": twin_peak, "twin_frame_max_abs_err": twin_err,
+        "f64_standin_ms": f64_ms, "f64_standin_oracle_max_abs": f64_err, "f64_standin_oracle_u8_equal": f64_u8,
+        "f64_csg_free_ms": free_ms, "f64_csg_free_oracle_max_abs": free_err,
+        "cli_k1_launches": cli_launches, "cli_stages_s": stages, "first_frame_split_s": first,
+    }))
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--first-frame"]:
+        sys.exit(first_frame_split(*sys.argv[2:5]))
     t0 = time.perf_counter()
     rc = main(sys.argv[1:])
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

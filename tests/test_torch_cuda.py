@@ -416,3 +416,43 @@ def test_ladder_times_every_stage_and_the_whole_kernel(cuda):
     for times in chip_smoke.ladder(lay, lay.pack(tp, (0.3, 0.3)), reps=3, warm=1):
         assert set(times) == {*K3.STAGES, "full"}
         assert all(t > 0 for t in times.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_twin_on_the_card_matches_the_cpu(cuda, dtype):
+    """The eager Whitted twin (plain PyTorch) on the card against the same
+    frame on the CPU: f32 at the frame limits, f64 within 1e-9.  No kernel
+    launches: the twin is the plain path of float64 and uncovered scenes."""
+    import dataclasses
+
+    from chess2rt_tpu_torch.render.pipeline import render_frame_wavefront
+
+    frames = []
+    for dev in (cuda, "cpu"):
+        tp, ts = pack_scene(flagship_standin(T, 64, 48), dtype=dtype, device=dev)
+        before = R.launches
+        frames.append(render_frame_wavefront(tp, dataclasses.replace(ts, aa_enabled=False)).cpu())
+        assert R.launches == before
+    d = (frames[0].double() - frames[1].double()).abs().amax(-1)
+    if dtype == torch.float64:
+        assert d.max().item() <= 1e-9
+    else:
+        assert (d > 2e-3).double().mean().item() < 0.01 and d.median().item() < 2e-4
+
+
+def test_f64_render_frame_on_the_card_meets_the_oracle(cuda):
+    """``render_frame`` keeps a float64 frame on the card (the twin) and it
+    meets the float64 oracle u8-exactly on a CSG-free scene."""
+    from chess2rt_tpu_torch.oracle import OracleRenderer
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+    from chess2rt_tpu_torch.scenes import csg_free_scene
+    from chess2rt_tpu_torch.utils.color import srgb_u8
+
+    sc = csg_free_scene(T, 1, 48, 32)
+    tp, ts = pack_scene(sc, dtype=torch.float64, device=cuda)
+    img = render_frame(tp, ts)
+    assert img.device.type == "cuda" and img.dtype == torch.float64
+    gold = OracleRenderer(sc).render()
+    img = img.cpu().numpy()
+    assert np.abs(img - gold).max() < 1e-6
+    np.testing.assert_array_equal(srgb_u8(img.astype(np.float32)), srgb_u8(gold.astype(np.float32)))

@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from chess2rt_tpu.ops.pallas_trace import _make_packer
+from chess2rt_tpu_torch.models import types as TT
 from chess2rt_tpu_torch.models.packed import from_numpy, to_numpy
+from chess2rt_tpu_torch.models.packed import pack_scene as torch_pack_scene
 from chess2rt_tpu_torch.ops import round0 as R
 
-from torch_port_cases import RANDOM_SEEDS, H, W, jax_leaves, packed_pair
+from torch_port_cases import RANDOM_SEEDS, H, W, jax_leaves, packed_pair, scene
 
 torch.set_num_threads(2)
 
@@ -166,6 +168,13 @@ def test_port_never_imports_jax():
         "import chess2rt_tpu_torch.ops.flagship, chess2rt_tpu_torch.render.pipeline\n"
         "import chess2rt_tpu_torch.utils.color, chess2rt_tpu_torch.utils.vec\n"
         "import chess2rt_tpu_torch.exceptions\n"
+        "import chess2rt_tpu_torch.ops.geometry, chess2rt_tpu_torch.app, chess2rt_tpu_torch.native\n"
+        "import chess2rt_tpu_torch.scene, chess2rt_tpu_torch.scene.loader, chess2rt_tpu_torch.scene.sdlang\n"
+        "import chess2rt_tpu_torch.oracle, chess2rt_tpu_torch.oracle.renderer\n"
+        "import chess2rt_tpu_torch.imageio, chess2rt_tpu_torch.imageio.bmp, chess2rt_tpu_torch.imageio.bitmap\n"
+        "import chess2rt_tpu_torch.imageio.buffer, chess2rt_tpu_torch.imageio.image\n"
+        "import chess2rt_tpu_torch.utils.structlog, chess2rt_tpu_torch.render\n"
+        "import chess2rt_tpu_torch.parallel, chess2rt_tpu_torch.grad\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'chess2rt_tpu.')))\n"
         "assert not bad, bad\n"
         "assert 'chess2rt_tpu' not in sys.modules\n"
@@ -229,8 +238,13 @@ def test_render_frame_raises_for_unported_modes():
     # adaptive AA and chunk_pixels are ported: they render
     for change in ({"aa_adaptive": True}, {"chunk_pixels": 256, "aa_enabled": False}):
         assert render_frame(tp, dataclasses.replace(ts, **change)).shape == (H, W, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(dataclasses.replace(tp, node_matrix=tp.node_matrix.double()), ts)
+    for change in ({"has_env": True}, {"compensated_raygen": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render_frame(tp, dataclasses.replace(ts, **change))
+    # float64 frames are ported: the eager Whitted twin renders them
+    tp64, ts64 = torch_pack_scene(scene(TT, "standin"), dtype=torch.float64, device="cpu")
+    img = render_frame(tp64, dataclasses.replace(ts64, aa_enabled=False))
+    assert img.dtype == torch.float64 and img.shape == (H, W, 3)
 
 
 def test_color_torch_paths_match_jax_package_numpy():

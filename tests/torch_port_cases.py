@@ -8,6 +8,7 @@ in interpret mode.  Data crosses between the two as numpy arrays.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -101,6 +102,26 @@ def assert_frame_close(img, ref):
     d = np.abs(img.astype(np.float64) - ref).max(-1)
     assert (d > 2e-3).mean() < 0.01, ((d > 2e-3).mean(), d.max())
     assert np.median(d) < 2e-4, np.median(d)
+
+
+@contextlib.contextmanager
+def x64(on: bool = True):
+    """jax_enable_x64 for the block, restored after: xdist runs a file's
+    tests one after the other in one worker, so a leaked flag would change
+    the next test's dtypes."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", on)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+
+
+def u8(img):
+    """sRGB bytes of a float frame, as the BMP writer quantizes it."""
+    from chess2rt_tpu_torch.utils.color import srgb_u8
+
+    return srgb_u8(np.asarray(img, dtype=np.float32)).astype(int)
 
 
 def to_numpy(outs: dict) -> dict:
