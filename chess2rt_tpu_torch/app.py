@@ -240,7 +240,9 @@ def main(argv=None) -> int:
         stages["render"] = time.perf_counter() - t0
     else:
         from .models.packed import pack_scene
+        from .ops.prng import PRNGKey
 
+        key = PRNGKey(args.seed)  # the Monte-Carlo frames' stream (DoF, stereo), as the JAX CLI's
         # the device's context, so that pack and render time their own work
         t = time.perf_counter()
         torch.zeros((), device=device)
@@ -258,11 +260,11 @@ def main(argv=None) -> int:
                 from .parallel import make_mesh, render_frame_distributed
 
                 mesh = make_mesh() if device.type == "cuda" else make_mesh((device,))
-                img = render_frame_distributed(packed, static, mesh)
+                img = render_frame_distributed(packed, static, mesh, key)
             else:
                 from .render.pipeline import render_frame
 
-                img = render_frame(packed, static)
+                img = render_frame(packed, static, key)
             img = img.cpu().numpy()
         stages["render"] = time.perf_counter() - t
     dt = time.perf_counter() - t0

@@ -42,8 +42,8 @@
 //   one array at a fixed address: a decode or a parameter read is one
 //   broadcast shared-memory read at a word offset, with no pointer held in
 //   registers, instead of dependent global loads.  The tables are dynamic
-//   shared memory sized by the wrapper; a scene whose tables do not fit
-//   beside the hit lists is refused.
+//   shared memory sized by the wrapper; a scene whose tables take more than
+//   200 KB is refused.
 // * Distances are scanned, one record is built.  The closest-hit scan
 //   carries a distance and a small tag per node (which leaf, which root or
 //   cube face, and the CSG merge that dropped the hit, if any); the hit
@@ -51,16 +51,22 @@
 //   with their inside probes) is built ONCE per lane, for the hit that won
 //   the scan, from the same expressions as the scan's.  The flips are
 //   replayed from the tag: the program gives every leaf the set of CsgDiff
-//   merges above it, and a hit is flipped by those below the one that
-//   dropped it.  A lane that misses everything keeps the last node's
-//   record, as a record-carrying scan would.
-// * CSG lists out of local memory.  A list slot is a distance and a 16-bit
+//   merges above it (a list in the program's diff table), and a hit is
+//   flipped by those below the one that dropped it.  A lane that misses
+//   everything keeps the last node's record, as a record-carrying scan
+//   would.
+// * CSG lists out of local memory.  A list slot is a distance and a 32-bit
 //   tag.  A node that is one merge of two sphere or cube leaves (four hits;
 //   both CSG nodes of the flagship scene) keeps its slots in registers and
-//   runs the four-slot network unrolled.  Longer lists live in shared
-//   memory laid out [slot][thread] (conflict-free, and indexable at run
-//   time by the network's pairs): 12 KB per block for 16 slots of 128
-//   threads.  The shadow scans' dist-only lists take the same two paths.
+//   runs the four-slot network unrolled.  Longer lists are laid out
+//   [slot][thread] (conflict-free, and indexable at run time by the
+//   network's pairs), with as many slots as the scene's longest list (the
+//   program header's list capacity): in the block's dynamic shared memory
+//   after the two tables when both fit in the 227 KB a block may have, else
+//   in a per-lane scratch [2 * capacity, n] in global memory that the
+//   wrapper allocates (ops/round0.py list_placement decides, from the
+//   header).  No list length is refused below the tables' own limit.  The
+//   shadow scans' dist-only lists take the same two paths.
 // * Shadow scans only where the light sum is used.  Without F_VIS a lane
 //   that missed the scene or won a mirror or glass node writes zeros to the
 //   light rows whatever the scans say, so it skips them; such lanes are
@@ -78,10 +84,12 @@
 //   hardware's block scheduler balances them better than a fixed stride.
 // * Tensor cores have no part: the body has no matrix product.
 //
-// One compile-time switch besides the stage: -DC2RT_TABLES_SHARED=0 reads
-// the tables through global memory and needs no barrier, which is how a
-// host compiler can run this device code thread by thread
-// (tests/test_torch_kernel_host.py).
+// Two compile-time switches besides the stage, for the host build only
+// (tests/test_torch_kernel_host.py): -DC2RT_TABLES_SHARED=0 reads the
+// tables through global memory and needs no barrier, which is how a host
+// compiler can run this device code thread by thread; -DC2RT_STACK_WORD=k
+// keeps only k levels of is_inside's bit stack in a register, so that a
+// small scene reaches the levels kept in the lists.
 //
 // The stage probes (K3).  demos/kernel_probe.py build_stage traced four cut
 // copies of the TPU kernel (empty, raygen, scan, shadow) to find where a
@@ -104,17 +112,21 @@
 #ifndef C2RT_TABLES_SHARED
 #define C2RT_TABLES_SHARED 1
 #endif
+#ifndef C2RT_STACK_WORD
+#define C2RT_STACK_WORD 32
+#endif
 
 namespace {
 
 // stage cuts (ops/round0_probe.py STAGES); 0 is the whole kernel
 enum { STAGE_FULL = 0, STAGE_EMPTY = 1, STAGE_RAYGEN = 2, STAGE_SCAN = 3, STAGE_SHADOW = 4 };
 constexpr int STAGE = C2RT_STAGE;
+constexpr int STACK_WORD = C2RT_STACK_WORD;
+static_assert(STACK_WORD >= 1 && STACK_WORD <= 32, "C2RT_STACK_WORD must be 1..32");
 static_assert(STAGE >= STAGE_FULL && STAGE <= STAGE_SHADOW, "C2RT_STAGE must be 0..4");
 
 constexpr int BLOCK = 128;    // threads of a block: one 128-lane tile
 constexpr int MIN_BLOCKS = 5;  // resident blocks per SM that the registers are fitted to
-constexpr int MAX_HITS = 16;  // ops/round0.py MAX_HITS
 constexpr float INF = 1e30f;
 constexpr float EPS_SHADOW = 1e-3f;
 constexpr float PI_F = 3.14159265358979323846f;
@@ -123,10 +135,10 @@ constexpr float HALF_PI_F = 1.57079632679489661923f;
 constexpr float QUARTER_PI_F = 0.78539816339744830962f;
 
 // scene program layout (ops/round0.py: H_*, NODE_STRIDE, INSTR_STRIDE)
-constexpr int PROGRAM_VERSION = 4;
+constexpr int PROGRAM_VERSION = 5;
 enum {
   H_VERSION, H_NODES, H_LIGHTS, H_CAM, H_AMBIENT, H_AA, H_LIN, H_FLAGS,
-  H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB
+  H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB, H_DIFF_TAB, H_LIST_CAP
 };
 constexpr int NODE_STRIDE = 10;
 constexpr int INSTR_STRIDE = 8;
@@ -138,11 +150,12 @@ enum { OP_PLANE = 0, OP_SPHERE = 1, OP_CUBE = 2, OP_CSG = 3 };
 enum { CSG_UNION = 0, CSG_INTER = 1, CSG_DIFF = 2 };
 // node record fields
 enum { N_XKIND, N_XOFF, N_MAT, N_SHADER, N_TEX, N_TEXOFF, N_UV, N_START, N_COUNT, N_HITS };
-// instruction fields: a leaf is (op, parameter offset, the CsgDiff
-// instructions above it as a bit set of indices relative to the node's
-// first instruction); a CSG merge is (op, csg op, the right operand's
-// instruction range, its pairs' range, the operands' hit counts)
-enum { I_OP, I_ARG, I_DIFFS };
+// instruction fields: a leaf is (op, parameter offset, where its list of
+// the CsgDiff instructions above it starts in the diff table, that list's
+// length; the list holds indices relative to the node's first instruction,
+// ascending); a CSG merge is (op, csg op, the right operand's instruction
+// range, its pairs' range, the operands' hit counts)
+enum { I_OP, I_ARG, I_DIFFS, I_NDIFFS };
 enum { C_OP, C_CSG, C_RSTART, C_REND, C_PAIR0, C_NPAIRS, C_NL, C_NR };
 // shader and texture kinds (models/packed.py)
 enum { LAMBERT = 0, PHONG = 1, REFLECTION = 2, REFRACTION = 3 };
@@ -167,10 +180,14 @@ __device__ __forceinline__ float sel3(int a, float x, float y, float z) {
 // The scene's two tables.  In shared memory they are one array at a fixed
 // address, the program first and the parameters after it, so a read needs
 // no pointer register: an instruction, a node record and a light are word
-// offsets into it.  (C2RT_TABLES_SHARED=0: the same offsets into the
-// program in global memory, through the read-only path.)
+// offsets into it; the hit lists, when they are in shared memory, follow.
+// (C2RT_TABLES_SHARED=0, the host build: the same offsets into the tables
+// in global memory, through the read-only path, and `tables` is memory the
+// host harness provides for one block's lists.)
 #if C2RT_TABLES_SHARED
 extern __shared__ int tables[];
+#else
+int* tables;
 #endif
 struct Scene {
 #if C2RT_TABLES_SHARED
@@ -206,23 +223,45 @@ struct Scene {
   }
 };
 
-// One thread's hit list: per slot a distance and a tag.
-//   tag bits 0-4  the leaf's instruction, relative to the node's first
-//       bits 5-7  which hit of the leaf: a sphere's root (0 near, 1 far), a
-//                 cube's face
-//       bits 8-12 the instruction (relative) that dropped the hit: the leaf
-//                 itself when it missed, a CSG merge whose parity walk
-//                 rejected it, or TAG_KEPT
-constexpr int TAG_KEPT = 31;
-__device__ __forceinline__ int make_tag(int leaf, int which, bool valid) {
-  return leaf | (which << 5) | ((valid ? TAG_KEPT : leaf) << 8);
+// One thread's hit list: per slot a distance and a 32-bit tag.
+//   tag bits 0-12   the leaf's instruction, relative to the node's first
+//       bits 13-15  which hit of the leaf: a sphere's root (0 near, 1 far),
+//                   a cube's face
+//       bits 16-28  the instruction (relative) that dropped the hit: the
+//                   leaf itself when it missed, a CSG merge whose parity
+//                   walk rejected it, or TAG_KEPT
+//       bit 31      during a merge: the slot came from the right operand
+// A node's instructions number fewer than TAG_KEPT: 8191 instructions alone
+// take more than the tables' 200 KB (ops/round0.py MAX_TABLE_BYTES).
+constexpr int TAG_BITS = 13;
+constexpr unsigned TAG_FIELD = (1u << TAG_BITS) - 1u;
+constexpr unsigned TAG_KEPT = TAG_FIELD;
+constexpr unsigned TAG_SIDE = 1u << 31;
+__device__ __forceinline__ unsigned make_tag(int leaf, int which, bool valid) {
+  return (unsigned)leaf | ((unsigned)which << TAG_BITS) | ((valid ? TAG_KEPT : (unsigned)leaf) << 16);
 }
-// shared memory, laid out [slot][thread]: conflict-free, indexable at run time
-__shared__ float list_t[MAX_HITS * BLOCK];
-__shared__ unsigned short list_tag[MAX_HITS * BLOCK];
-struct Hits {
-  __device__ __forceinline__ float& t(int m) { return list_t[m * BLOCK + threadIdx.x]; }
-  __device__ __forceinline__ unsigned short& tag(int m) { return list_tag[m * BLOCK + threadIdx.x]; }
+// the tag of a hit that instruction `rel` dropped (the side bit cleared)
+__device__ __forceinline__ unsigned drop_tag(unsigned g, int rel) { return (g & 0xffffu) | ((unsigned)rel << 16); }
+
+// The lists, laid out [slot][thread] with a slot's tags after its
+// distances: conflict-free, and indexable at run time.  In the block's
+// shared memory after the tables (SharedLists, `at` = this thread's first
+// word), or in the wrapper's global scratch [2 * capacity, n] (GlobalLists,
+// `base` = this lane's first distance).
+struct SharedLists {
+  int at;
+  __device__ __forceinline__ float& t(int m) { return reinterpret_cast<float*>(tables)[at + 2 * m * BLOCK]; }
+  __device__ __forceinline__ unsigned& tag(int m) {
+    return reinterpret_cast<unsigned*>(tables)[at + (2 * m + 1) * BLOCK];
+  }
+};
+struct GlobalLists {
+  float* base;
+  size_t n;
+  __device__ __forceinline__ float& t(int m) { return base[2 * (size_t)m * n]; }
+  __device__ __forceinline__ unsigned& tag(int m) {
+    return reinterpret_cast<unsigned*>(base)[(2 * (size_t)m + 1) * n];
+  }
 };
 
 // ---- polynomial atan2 / asin (pallas_trace.atan2_poly / asin_poly) -------
@@ -404,18 +443,22 @@ __device__ __forceinline__ bool bool_op(int op, bool l, bool r) {
   return l && !r;  // diff
 }
 
-// is_inside of the postfix range [a, b) (one whole subexpression), on a
-// one-word bit stack
-__device__ bool is_inside(const Scene& s, int a, int b, float px, float py, float pz) {
+// is_inside of the postfix range [a, b) (one whole subexpression), on a bit
+// stack: its first STACK_WORD (32) levels in one register word, deeper ones
+// in the lane's list tags (free once the scan is done; the stack is never
+// deeper than the subexpression's leaves, so than the list's capacity)
+template <class L>
+__device__ bool is_inside(const Scene& s, L& H, int a, int b, float px, float py, float pz) {
   unsigned stk = 0u;
   int sp = 0;
+  auto get = [&](int i) -> bool { return i < STACK_WORD ? ((stk >> i) & 1u) != 0u : H.tag(i) != 0u; };
   for (int k = a; k < b; ++k) {
     const int ins = s.instr(k);
     const int op = s.word(ins + I_OP);
     bool in;
     if (op == OP_CSG) {
-      const bool r = (stk >> (sp - 1)) & 1u;
-      const bool l = (stk >> (sp - 2)) & 1u;
+      const bool r = get(sp - 1);
+      const bool l = get(sp - 2);
       sp -= 2;
       in = bool_op(s.word(ins + C_CSG), l, r);
     } else if (op == OP_SPHERE) {
@@ -429,10 +472,14 @@ __device__ bool is_inside(const Scene& s, int a, int b, float px, float py, floa
     } else {
       in = false;  // plane
     }
-    stk = (stk & ~(1u << sp)) | ((unsigned)in << sp);
+    if (sp < STACK_WORD) {
+      stk = (stk & ~(1u << sp)) | ((unsigned)in << sp);
+    } else {
+      H.tag(sp) = in;
+    }
     ++sp;
   }
-  return (stk >> (sp - 1)) & 1u;
+  return get(sp - 1);
 }
 
 // ---- all-hits lists + CSG parity walk (pallas_trace all_hits) -------------
@@ -443,9 +490,9 @@ __device__ bool is_inside(const Scene& s, int a, int b, float px, float py, floa
 // shadow scans).  `rel` is the leaf's instruction relative to its node's.
 template <bool TAGS>
 __device__ __forceinline__ void leaf_pair(const Scene& s, int ins, int rel, const Ray& r,
-                                          float& ta, float& tb, int& ga, int& gb) {
+                                          float& ta, float& tb, unsigned& ga, unsigned& gb) {
   const int g = s.word(ins + I_ARG);
-  ga = gb = 0;
+  ga = gb = 0u;
   if (s.word(ins + I_OP) == OP_SPHERE) {
     float x1, x2;
     const bool has = sphere_roots(s, g, r, x1, x2);
@@ -473,9 +520,9 @@ __device__ __forceinline__ void leaf_pair(const Scene& s, int ins, int rel, cons
 // Returns the closest hit's distance (TAGS: the first minimum and its tag;
 // without: the NaN-propagating minimum).
 template <bool TAGS>
-__device__ __forceinline__ float csg_two_leaves(const Scene& s, int start, const Ray& r, int& tag) {
+__device__ __forceinline__ float csg_two_leaves(const Scene& s, int start, const Ray& r, unsigned& tag) {
   float t[4];
-  int g[4];
+  unsigned g[4];
   leaf_pair<TAGS>(s, s.instr(start), 0, r, t[0], t[1], g[0], g[1]);
   leaf_pair<TAGS>(s, s.instr(start + 1), 1, r, t[2], t[3], g[2], g[3]);
   const int csg = s.word(s.instr(start + 2) + C_CSG);
@@ -487,7 +534,7 @@ __device__ __forceinline__ float csg_two_leaves(const Scene& s, int start, const
     const float tt = t[i];        \
     t[i] = t[j];                  \
     t[j] = tt;                    \
-    const int gg = g[i];          \
+    const unsigned gg = g[i];     \
     g[i] = g[j];                  \
     g[j] = gg;                    \
     const bool rr = right[i];     \
@@ -507,7 +554,7 @@ __device__ __forceinline__ float csg_two_leaves(const Scene& s, int start, const
     in_r = in_r ^ (right[m] && valid);
     if (valid && !bool_op(csg, in_l, in_r)) {  // dropped by this merge, instruction 2
       t[m] = INF;
-      g[m] = (g[m] & 0xff) | (2 << 8);
+      g[m] = drop_tag(g[m], 2);
     }
   }
   float best = t[0];
@@ -528,11 +575,11 @@ __device__ __forceinline__ float csg_two_leaves(const Scene& s, int start, const
 
 // Evaluates node expression instructions [start, start+count) into the
 // list: the whole expression's hits in the JAX kernel's order, as distances
-// (1e30 = none); TAGS as in leaf_pair.
-template <bool TAGS>
-__device__ void all_hits(const Scene& s, int start, int count, const Ray& r, Hits& H) {
+// (1e30 = none); TAGS as in leaf_pair.  Without TAGS a slot's tag holds only
+// the side bit a merge needs.
+template <bool TAGS, class L>
+__device__ void all_hits(const Scene& s, int start, int count, const Ray& r, L& H) {
   int sp = 0;
-  unsigned side = 0u;  // bit m: slot m came from a CSG's right operand
   for (int k = start; k < start + count; ++k) {
     const int ins = s.instr(k);
     const int op = s.word(ins + I_OP);
@@ -540,17 +587,17 @@ __device__ void all_hits(const Scene& s, int start, int count, const Ray& r, Hit
     if (op == OP_PLANE) {
       const float t = plane_closest(s, s.word(ins + I_ARG), r, false).t;
       H.t(sp) = t;
-      if (TAGS) H.tag(sp) = (unsigned short)make_tag(rel, 0, t < INF);
+      if (TAGS) H.tag(sp) = make_tag(rel, 0, t < INF);
       ++sp;
     } else if (op != OP_CSG) {
       float ta, tb;
-      int ga, gb;
+      unsigned ga, gb;
       leaf_pair<TAGS>(s, ins, rel, r, ta, tb, ga, gb);
       H.t(sp) = ta;
       H.t(sp + 1) = tb;
       if (TAGS) {
-        H.tag(sp) = (unsigned short)ga;
-        H.tag(sp + 1) = (unsigned short)gb;
+        H.tag(sp) = ga;
+        H.tag(sp + 1) = gb;
       }
       sp += 2;
     } else {
@@ -558,36 +605,38 @@ __device__ void all_hits(const Scene& s, int start, int count, const Ray& r, Hit
       const int pair0 = s.word(ins + C_PAIR0), n_pairs = s.word(ins + C_NPAIRS);
       const int n_l = s.word(ins + C_NL), n_r = s.word(ins + C_NR);
       const int base = sp - n_l - n_r;
-      // initial parity: odd hit count => started inside (geometry.d:307-309)
+      // initial parity: odd hit count => started inside (geometry.d:307-309);
+      // and each slot's side
       int c_l = 0, c_r = 0;
-      for (int m = 0; m < n_l; ++m) c_l += H.t(base + m) < INF;
-      for (int m = 0; m < n_r; ++m) c_r += H.t(base + n_l + m) < INF;
+      for (int m = base; m < sp; ++m) {
+        const bool from_right = m >= base + n_l;
+        (from_right ? c_r : c_l) += H.t(m) < INF;
+        if (TAGS) {
+          H.tag(m) = from_right ? (H.tag(m) | TAG_SIDE) : (H.tag(m) & ~TAG_SIDE);
+        } else {
+          H.tag(m) = from_right ? TAG_SIDE : 0u;
+        }
+      }
       bool in_l = c_l & 1, in_r = c_r & 1;
-      const unsigned span = ((1u << (n_l + n_r)) - 1u) << base;
-      side = (side & ~span) | ((((1u << n_r) - 1u) << n_l) << base);
       for (int q = pair0; q < pair0 + n_pairs; ++q) {
         const int i = base + s.pair(q, 0), j = base + s.pair(q, 1);
         const float ti = H.t(i), tj = H.t(j);
         if (ti > tj) {
           H.t(i) = tj;
           H.t(j) = ti;
-          if (TAGS) {
-            const unsigned short gi = H.tag(i);
-            H.tag(i) = H.tag(j);
-            H.tag(j) = gi;
-          }
-          const unsigned bi = (side >> i) & 1u, bj = (side >> j) & 1u;
-          side = (side & ~((1u << i) | (1u << j))) | (bj << i) | (bi << j);
+          const unsigned gi = H.tag(i);
+          H.tag(i) = H.tag(j);
+          H.tag(j) = gi;
         }
       }
       for (int m = base; m < sp; ++m) {
         const bool valid = H.t(m) < INF;
-        const bool from_right = (side >> m) & 1u;
+        const bool from_right = (H.tag(m) & TAG_SIDE) != 0u;
         in_l = in_l ^ (!from_right && valid);
         in_r = in_r ^ (from_right && valid);
         if (valid && !bool_op(csg, in_l, in_r)) {  // dropped here
           H.t(m) = INF;
-          if (TAGS) H.tag(m) = (unsigned short)((H.tag(m) & 0xff) | (rel << 8));
+          if (TAGS) H.tag(m) = drop_tag(H.tag(m), rel);
         }
       }
     }
@@ -597,7 +646,8 @@ __device__ void all_hits(const Scene& s, int start, int count, const Ray& r, Hit
 // Closest hit of one node's expression, untransformed, as a distance and the
 // tag that hit_record rebuilds the record from.  Ties: the first minimum in
 // list order.
-__device__ float expr_closest(const Scene& s, int nd, const Ray& r, Hits& H, int& tag) {
+template <class L>
+__device__ float expr_closest(const Scene& s, int nd, const Ray& r, L& H, unsigned& tag) {
   const int start = s.word(nd + N_START), count = s.word(nd + N_COUNT);
   if (count == 1) {
     const int ins = s.instr(start);
@@ -643,10 +693,12 @@ __device__ float expr_closest(const Scene& s, int nd, const Ray& r, Hits& H, int
 // the normal flipped by every CsgDiff above the leaf that kept the hit
 // (geometry.d:377-397, probe step 1e-3), and `t`, the distance the scan
 // ended with (1e30 when the hit missed or was dropped).
-__device__ Rec hit_record(const Scene& s, int nd, const Ray& r, int tag, float t, bool uv) {
+template <class L>
+__device__ Rec hit_record(const Scene& s, L& H, int nd, const Ray& r, unsigned tag, float t, bool uv) {
   const int start = s.word(nd + N_START);
-  const int ins = s.instr(start + (tag & 31));
-  const int op = s.word(ins + I_OP), g = s.word(ins + I_ARG), which = (tag >> 5) & 7;
+  const int ins = s.instr(start + (int)(tag & TAG_FIELD));
+  const int op = s.word(ins + I_OP), g = s.word(ins + I_ARG);
+  const int which = (int)((tag >> TAG_BITS) & 7u);
   Rec h;
   if (op == OP_PLANE) {
     h = plane_closest(s, g, r, uv);
@@ -658,16 +710,18 @@ __device__ Rec hit_record(const Scene& s, int nd, const Ray& r, int tag, float t
   } else {
     h = cube_face(s, g, r, which, uv);
   }
-  const int dropped = (tag >> 8) & 31;
-  unsigned diffs = (unsigned)s.word(ins + I_DIFFS) & ((1u << dropped) - 1u);
-  while (diffs) {
-    const int csg = s.instr(start + __ffs(diffs) - 1);
-    diffs &= diffs - 1u;
+  // the CsgDiff merges above the leaf, ascending, up to the one that dropped it
+  const int dropped = (int)((tag >> 16) & TAG_FIELD);
+  const int d0 = s.word(ins + I_DIFFS), n_diffs = s.word(ins + I_NDIFFS);
+  for (int q = 0; q < n_diffs; ++q) {
+    const int rel = s.word(d0 + q);
+    if (rel >= dropped) break;
+    const int csg = s.instr(start + rel);
     const int r_start = s.word(csg + C_RSTART), r_end = s.word(csg + C_REND);
     const float hx = r.ox + r.dx * h.t, hy = r.oy + r.dy * h.t, hz = r.oz + r.dz * h.t;
-    const bool before = is_inside(s, r_start, r_end, hx - r.dx * 1e-3f, hy - r.dy * 1e-3f,
+    const bool before = is_inside(s, H, r_start, r_end, hx - r.dx * 1e-3f, hy - r.dy * 1e-3f,
                                   hz - r.dz * 1e-3f);
-    const bool after = is_inside(s, r_start, r_end, hx + r.dx * 1e-3f, hy + r.dy * 1e-3f,
+    const bool after = is_inside(s, H, r_start, r_end, hx + r.dx * 1e-3f, hy + r.dy * 1e-3f,
                                  hz + r.dz * 1e-3f);
     if (before != after) {
       h.nx = -h.nx;
@@ -681,7 +735,8 @@ __device__ Rec hit_record(const Scene& s, int nd, const Ray& r, int tag, float t
 
 // ---- dist-only variant for the shadow scans --------------------------------
 
-__device__ float expr_min_dist(const Scene& s, int nd, const Ray& r, Hits& H) {
+template <class L>
+__device__ float expr_min_dist(const Scene& s, int nd, const Ray& r, L& H) {
   const int start = s.word(nd + N_START), count = s.word(nd + N_COUNT);
   if (count == 1) {
     const int ins = s.instr(start);
@@ -699,7 +754,7 @@ __device__ float expr_min_dist(const Scene& s, int nd, const Ray& r, Hits& H) {
   }
   const int nh = s.word(nd + N_HITS);
   if (count == 3 && nh == 4) {
-    int unused;
+    unsigned unused;
     return csg_two_leaves<false>(s, start, r, unused);
   }
   all_hits<false>(s, start, count, r, H);
@@ -748,7 +803,8 @@ __device__ __forceinline__ float world_dist(const Scene& s, int nd, float d, flo
 }
 
 // node i's closest hit along r: its distance, and the tag of the hit
-__device__ float node_closest(const Scene& s, int i, const Ray& r, Hits& H, int& tag) {
+template <class L>
+__device__ float node_closest(const Scene& s, int i, const Ray& r, L& H, unsigned& tag) {
   const int nd = s.node(i);
   float inv_dl;
   const Ray lr = local_ray(s, nd, r, inv_dl);
@@ -756,12 +812,13 @@ __device__ float node_closest(const Scene& s, int i, const Ray& r, Hits& H, int&
 }
 
 // the record of node i's hit `tag` at world distance t, normal in the world
-__device__ Rec node_record(const Scene& s, int i, const Ray& r, int tag, float t) {
+template <class L>
+__device__ Rec node_record(const Scene& s, L& H, int i, const Ray& r, unsigned tag, float t) {
   const int nd = s.node(i);
   const bool uv = s.word(nd + N_UV) != 0;
   float inv_dl;
   const Ray lr = local_ray(s, nd, r, inv_dl);
-  Rec h = hit_record(s, nd, lr, tag, t, uv);
+  Rec h = hit_record(s, H, nd, lr, tag, t, uv);
   if (s.word(nd + N_XKIND) == X_MATRIX) {
     // world normal: row vector times mi^T (the inverse is read again
     // rather than kept in registers across the record)
@@ -777,7 +834,8 @@ __device__ Rec node_record(const Scene& s, int i, const Ray& r, int tag, float t
   return h;
 }
 
-__device__ float node_min_dist(const Scene& s, int i, const Ray& r, Hits& H) {
+template <class L>
+__device__ float node_min_dist(const Scene& s, int i, const Ray& r, L& H) {
   const int nd = s.node(i);
   float inv_dl;
   const Ray lr = local_ray(s, nd, r, inv_dl);
@@ -786,8 +844,8 @@ __device__ float node_min_dist(const Scene& s, int i, const Ray& r, Hits& H) {
 
 // does any node lie between the ray's origin and `target` along it
 // (scene.d:62-78); stops at the first that does
-__device__ __forceinline__ bool occluded(const Scene& s, int n_nodes, const Ray& sray, float target,
-                                         Hits& H) {
+template <class L>
+__device__ __forceinline__ bool occluded(const Scene& s, int n_nodes, const Ray& sray, float target, L& H) {
   bool occ = false;
   for (int i = 0; i < n_nodes && !occ; ++i) occ = node_min_dist(s, i, sray, H) <= target;
   return occ;
@@ -795,7 +853,8 @@ __device__ __forceinline__ bool occluded(const Scene& s, int n_nodes, const Ray&
 
 // ---- one lane ---------------------------------------------------------------
 
-__device__ __forceinline__ void trace_lane(const Scene& s, Hits& H, int lane,
+template <class L>
+__device__ __forceinline__ void trace_lane(const Scene& s, L& H, int lane,
                                            const float* __restrict__ orig,
                                            const float* __restrict__ dir, float* __restrict__ out,
                                            int* __restrict__ win_out, int n, int width, int height) {
@@ -848,9 +907,10 @@ __device__ __forceinline__ void trace_lane(const Scene& s, Hits& H, int lane,
   // (renderer.d:336-338), and a lane that misses them all keeps the last
   // node's record, as the record-carrying scan did
   float best_t = INF;
-  int best_tag = 0, best_node = 0, win = -1;
+  unsigned best_tag = 0u;
+  int best_node = 0, win = -1;
   for (int i = 0; i < n_nodes; ++i) {
-    int tag;
+    unsigned tag;
     const float t = node_closest(s, i, r, H, tag);
     if (i == 0 || t <= best_t) {
       if (t < INF) win = i;
@@ -860,7 +920,7 @@ __device__ __forceinline__ void trace_lane(const Scene& s, Hits& H, int lane,
     }
   }
   // the one record this lane needs
-  const Rec hit = node_record(s, best_node, r, best_tag, best_t);
+  const Rec hit = node_record(s, H, best_node, r, best_tag, best_t);
   if (STAGE == STAGE_SCAN) {
     out[lane] = hit.t;
     out[(size_t)n + lane] = (float)win + ((flags & F_UV) ? hit.u : hit.nx);
@@ -1055,10 +1115,13 @@ __device__ __forceinline__ void trace_lane(const Scene& s, Hits& H, int lane,
 // ---- the kernel -------------------------------------------------------------
 
 // A block copies the two tables into shared memory, then traces the 128
-// lanes of tile blockIdx.x.
+// lanes of tile blockIdx.x.  GLOBAL_LISTS: the hit lists are in `lists`, a
+// global [2 * capacity, n] scratch; otherwise after the tables in shared
+// memory.
+template <bool GLOBAL_LISTS>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 round0_kernel(const float* __restrict__ prm, const int* __restrict__ prog, int n_prm, int n_prog,
-              const float* __restrict__ orig, const float* __restrict__ dir,
+              const float* __restrict__ orig, const float* __restrict__ dir, float* __restrict__ lists,
               float* __restrict__ out, int* __restrict__ win_out, int n, int width, int height) {
 #if C2RT_TABLES_SHARED
   for (int k = threadIdx.x; k < n_prog; k += BLOCK) tables[k] = __ldg(prog + k);
@@ -1067,31 +1130,53 @@ round0_kernel(const float* __restrict__ prm, const int* __restrict__ prog, int n
 #endif
   Scene s;
   s.bind(prm, prog, n_prog);
-  Hits H;
   const unsigned lane = blockIdx.x * BLOCK + threadIdx.x;
-  if (lane < (unsigned)n) trace_lane(s, H, (int)lane, orig, dir, out, win_out, n, width, height);
+  if (lane >= (unsigned)n) return;
+  if constexpr (GLOBAL_LISTS) {
+    GlobalLists H{lists + lane, (size_t)n};
+    trace_lane(s, H, (int)lane, orig, dir, out, win_out, n, width, height);
+  } else {
+    SharedLists H{n_prog + n_prm + (int)threadIdx.x};
+    trace_lane(s, H, (int)lane, orig, dir, out, win_out, n, width, height);
+  }
 }
 
 // ---- host side -------------------------------------------------------------
 
-// dynamic shared memory of a launch: the two tables
-int table_bytes(int n_prm, int n_prog) {
-  return C2RT_TABLES_SHARED ? 4 * (n_prm + n_prog) : 0;
+// dynamic shared memory of a launch: the two tables, and the hit lists when
+// they are not in global memory (a distance and a tag per slot and thread)
+int shared_bytes(int n_prm, int n_prog, int list_cap, bool global_lists) {
+  return 4 * (n_prm + n_prog) + (global_lists ? 0 : 8 * list_cap * BLOCK);
 }
 
-// Whether `dyn_bytes` of tables fit in a block's shared memory beside the
-// hit lists on the current device; raises the kernel's dynamic limit to
-// what the device allows.
-bool tables_fit(int dyn_bytes) {
+// Whether `dyn_bytes` fit in a block's shared memory on the current device;
+// raises the kernel's dynamic limit to what the device allows.
+template <bool GLOBAL_LISTS>
+bool shared_fits(int dyn_bytes) {
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, round0_kernel) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, round0_kernel<GLOBAL_LISTS>) != cudaSuccess)
     return false;
   if ((size_t)dyn_bytes + attr.sharedSizeBytes > (size_t)optin) return false;
-  return cudaFuncSetAttribute(round0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(round0_kernel<GLOBAL_LISTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               optin - (int)attr.sharedSizeBytes) == cudaSuccess;
+}
+
+// the fit depends on the device, the placement and the bytes only
+template <bool GLOBAL_LISTS>
+bool fits_cached(int dyn) {
+  static int cached_dev = -1, cached_dyn = -1;
+  static bool cached_fit = false;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != cached_dev || dyn != cached_dyn) {
+    cached_fit = shared_fits<GLOBAL_LISTS>(dyn);
+    cached_dev = dev;
+    cached_dyn = dyn;
+  }
+  return cached_fit;
 }
 
 }  // namespace
@@ -1099,34 +1184,35 @@ bool tables_fit(int dyn_bytes) {
 extern "C" {
 
 // Launches K1 on `stream` for n lanes.  `prm` ([n_prm] f32) and `prog`
-// ([n_prog] int32) are the scene's tables.  `orig`/`dir` ([n, 3] f32) select
-// the ray-input form; both null select in-kernel ray-gen for the n pixels
-// from the lane base in prm's lin slot (the screen-tap form: base 0, n =
-// width * height; the lin-input form: any slice).  `out` is [K, n] f32
-// with K the layout's float outputs (the program's flags say which,
-// residual rows included), `win` [n] int32.  A stage build (C2RT_STAGE
-// 1..4) writes two rows into `out` and leaves `win` alone.  Returns
-// cudaErrorInvalidValue when the tables do not fit in a block's shared
-// memory, else cudaGetLastError() after the launch (0 = launched).
-int c2rt_round0(const float* prm, const int* prog, int n_prm, int n_prog, const float* orig,
-                const float* dir, float* out, int* win, int n, int width, int height,
+// ([n_prog] int32) are the scene's tables; `list_cap` is the program's
+// list capacity (its header's H_LIST_CAP).  `orig`/`dir` ([n, 3] f32)
+// select the ray-input form; both null select in-kernel ray-gen for the n
+// pixels from the lane base in prm's lin slot (the screen-tap form: base
+// 0, n = width * height; the lin-input form: any slice).  `lists` is null
+// for hit lists in shared memory, or a [2 * list_cap, n] f32 scratch in
+// global memory.  `out` is [K, n] f32 with K the layout's float outputs
+// (the program's flags say which, residual rows included), `win` [n]
+// int32.  A stage build (C2RT_STAGE 1..4) writes two rows into `out` and
+// leaves `win` alone.  Returns cudaErrorInvalidValue when the tables (and
+// the lists, if shared) do not fit in a block's shared memory, else
+// cudaGetLastError() after the launch (0 = launched).
+int c2rt_round0(const float* prm, const int* prog, int n_prm, int n_prog, int list_cap, const float* orig,
+                const float* dir, float* lists, float* out, int* win, int n, int width, int height,
                 void* stream) {
   if (n <= 0) return 0;
-  // the fit depends on the device and the tables' size only
-  static int cached_dev = -1, cached_dyn = -1;
-  static bool cached_fit = false;
-  const int dyn = table_bytes(n_prm, n_prog);
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev != cached_dev || dyn != cached_dyn) {
-    cached_fit = tables_fit(dyn);
-    cached_dev = dev;
-    cached_dyn = dyn;
-  }
-  if (!cached_fit) return static_cast<int>(cudaErrorInvalidValue);
+  const bool global_lists = lists != nullptr;
+  const int dyn = shared_bytes(n_prm, n_prog, list_cap, global_lists);
   const int n_tiles = (int)(((unsigned)n + BLOCK - 1u) / BLOCK);
-  round0_kernel<<<n_tiles, BLOCK, dyn, static_cast<cudaStream_t>(stream)>>>(
-      prm, prog, n_prm, n_prog, orig, dir, out, win, n, width, height);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (global_lists) {
+    if (!fits_cached<true>(dyn)) return static_cast<int>(cudaErrorInvalidValue);
+    round0_kernel<true><<<n_tiles, BLOCK, dyn, st>>>(prm, prog, n_prm, n_prog, orig, dir, lists, out, win, n,
+                                                     width, height);
+  } else {
+    if (!fits_cached<false>(dyn)) return static_cast<int>(cudaErrorInvalidValue);
+    round0_kernel<false><<<n_tiles, BLOCK, dyn, st>>>(prm, prog, n_prm, n_prog, orig, dir, lists, out, win, n,
+                                                      width, height);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,100 @@
+// The uniform draw of jax.random for Hopper: threefry2x32 in its
+// partitionable form, one thread per element.
+//
+// Replaces no Pallas kernel: the JAX package draws its random numbers with
+// jax.random.uniform, which XLA computes (jax/_src/prng.py
+// _threefry_random_bits_partitionable, jax/_src/random.py _uniform).  This
+// kernel computes the same bits.  Element i of a draw of shape S (flat,
+// row-major) hashes the 64-bit counter i, split as (i >> 32, i & 0xffffffff),
+// under the key (k1, k2) with 20 rounds of threefry2x32, giving (b1, b2):
+// f32 takes the 32 bits b1 ^ b2, f64 the 64 bits b1 << 32 | b2, and the
+// mantissa bits become a float in [1, 2) less 1.  The draw is positional:
+// element i depends on i and the key only, so a draw of n elements gathered
+// at some lanes equals what those lanes of the full draw hold.
+//
+// What bounds it on this card: about 80 integer operations per element
+// against 4 or 8 bytes written, so the integer pipes, not the memory; a
+// thread computes one element and writes it, neighbouring threads
+// neighbouring addresses.  The key arrives as two kernel arguments: keys are
+// derived on the host (ops/prng.py), so no draw waits on the device.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int BLOCK = 256;
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+// threefry2x32 with 20 rounds, as jax/_src/prng.py _threefry2x32_lowering
+__device__ __forceinline__ void threefry2x32(uint32_t k1, uint32_t k2, uint32_t& x0, uint32_t& x1) {
+  const uint32_t k3 = k1 ^ k2 ^ 0x1BD11BDAu;
+  const uint32_t ks[3] = {k1, k2, k3};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += k1;
+  x1 += k2;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl(x1, rot[i & 1][j]);
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ T to_uniform(uint32_t b1, uint32_t b2);
+
+template <>
+__device__ __forceinline__ float to_uniform<float>(uint32_t b1, uint32_t b2) {
+  const uint32_t bits = ((b1 ^ b2) >> 9) | 0x3f800000u;
+  return __uint_as_float(bits) - 1.0f;
+}
+
+template <>
+__device__ __forceinline__ double to_uniform<double>(uint32_t b1, uint32_t b2) {
+  const unsigned long long bits =
+      ((((unsigned long long)b1 << 32) | b2) >> 12) | 0x3ff0000000000000ull;
+  return __longlong_as_double((long long)bits) - 1.0;
+}
+
+template <class T>
+__global__ void __launch_bounds__(BLOCK) uniform_kernel(uint32_t k1, uint32_t k2, long long n, T* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x0 = (uint32_t)((unsigned long long)i >> 32), x1 = (uint32_t)i;
+  threefry2x32(k1, k2, x0, x1);
+  out[i] = to_uniform<T>(x0, x1);
+}
+
+// ---- host side -------------------------------------------------------------
+
+}  // namespace
+
+extern "C" {
+
+// Writes n uniforms in [0, 1) of the key (k1, k2) to `out` on `stream`:
+// f32 when f64 == 0, else f64.  Returns cudaGetLastError() after the
+// launch (0 = launched; nothing to do when n <= 0).
+int c2rt_uniform(unsigned k1, unsigned k2, long long n, void* out, int f64, void* stream) {
+  if (n <= 0) return 0;
+  const long long blocks = (n + BLOCK - 1) / BLOCK;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f64) {
+    uniform_kernel<double><<<(unsigned)blocks, BLOCK, 0, st>>>(k1, k2, n, static_cast<double*>(out));
+  } else {
+    uniform_kernel<float><<<(unsigned)blocks, BLOCK, 0, st>>>(k1, k2, n, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* c2rt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+}  // extern "C"

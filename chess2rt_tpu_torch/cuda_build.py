@@ -34,6 +34,7 @@ STAGES = {"empty": 1, "raygen": 2, "scan": 3, "shadow": 4}
 SOURCES = {
     "round0": ("round0.cu", ()),
     "texel_hist": ("texel_hist.cu", ()),
+    "threefry": ("threefry.cu", ()),
     **{f"round0_{stage}": ("round0.cu", (f"-DC2RT_STAGE={k}",)) for stage, k in STAGES.items()},
 }
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -42,7 +43,7 @@ BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # exported C functions of each library: (name, argtypes, restype)
 _ROUND0_EXPORTS = (
-    ("c2rt_round0", [_vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
+    ("c2rt_round0", [_vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp], _ci),
     ("c2rt_program_version", [], _ci),
     ("c2rt_stage", [], _ci),
     ("c2rt_error_string", [_ci], ctypes.c_char_p),
@@ -52,6 +53,10 @@ _EXPORTS = {
     **{f"round0_{stage}": _ROUND0_EXPORTS for stage in STAGES},
     "texel_hist": (
         ("c2rt_texel_hist", [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp], _ci),
+        ("c2rt_error_string", [_ci], ctypes.c_char_p),
+    ),
+    "threefry": (
+        ("c2rt_uniform", [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _vp, _ci, _vp], _ci),
         ("c2rt_error_string", [_ci], ctypes.c_char_p),
     ),
 }

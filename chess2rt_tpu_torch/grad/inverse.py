@@ -12,10 +12,13 @@ ran optax Adam over every leaf, here only the trained leaves require grad
 and sit in the optimizer: the same updates, since Adam's update of a zero
 gradient is zero.  ``update_scales`` becomes a per-field learning rate
 (Adam's update is linear in it), ``lr_decay_to`` the non-staircase
-``optax.exponential_decay``.  The deterministic Whitted path draws no
-random numbers, so ``key`` is accepted and unused; the JAX options that
-steer TPU machinery (``auto_pallas``, ``resample_keys``) are not carried.
-Fitting over a device mesh is ROADMAP.md queue 1 item 11.
+``optax.exponential_decay``.  A Monte-Carlo frame (DoF, stereo) draws
+from ``key`` (ops/prng.py, None is ``PRNGKey(0)``): step i renders with
+``fold_in(key, i)`` when ``resample_keys`` is on (the default: SGD on the
+expected loss), else with ``key`` every step (the render becomes a smooth
+deterministic function of the parameters), as in JAX.  The JAX option that
+steers TPU machinery (``auto_pallas``) is not carried.  Fitting over a
+device mesh is ROADMAP.md queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from ..models.packed import LEAF_NAMES, ScenePacked, SceneStatic, from_leaves, leaves
+from ..ops import prng
 from ..render.pipeline import render_frame
 from .checkpoint import load_checkpoint, save_checkpoint
 
@@ -49,6 +53,8 @@ class InverseProblem:
     update_scales: Optional[dict] = None
     # final-lr fraction of an exponential decay over `steps` (1.0: constant)
     lr_decay_to: float = 1.0
+    # True: step i renders with fold_in(key, i); False: with key every step
+    resample_keys: bool = True
 
 
 def make_optimizer(params: Dict[str, torch.Tensor], problem: InverseProblem):
@@ -81,7 +87,7 @@ def fit(
     on_step: Optional[Callable[[int, float], None]] = None,
 ):
     """Adam on pixel L2.  Returns (packed_optimized, losses)."""
-    del key  # the deterministic path draws no random numbers
+    key = prng.as_key(key)
     if problem.mesh is not None:
         raise NotImplementedError("fit: fitting over a device mesh is not ported yet (ROADMAP.md queue 1 item 11)")
     trained = tuple(problem.train_fields)
@@ -105,7 +111,8 @@ def fit(
     for i in range(start, problem.steps):
         schedule(i)
         opt.zero_grad(set_to_none=True)
-        loss = ((render_frame(packed, static) - target) ** 2).mean()
+        step_key = prng.fold_in(key, i) if problem.resample_keys else key
+        loss = ((render_frame(packed, static, step_key) - target) ** 2).mean()
         loss.backward()
         opt.step()
         losses.append(loss.item())

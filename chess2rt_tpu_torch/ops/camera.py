@@ -1,20 +1,24 @@
 """Device-side camera: the frame's screen corners and pinhole rays
 (camera.d:77-147).
 
-Counterpart of chess2rt_tpu/ops/camera.py, uncompensated pinhole branch
-only (the df32 ``compensated_raygen`` opt-in is ROADMAP.md queue 1 item 10,
-DoF and stereo item 7).  The op order is the JAX package's: the round-0
-kernel's camera slot is built from these corners, and a reordered product
-moves knife-edge pixels and camera gradients.
+Counterpart of chess2rt_tpu/ops/camera.py: the pinhole rays with the
+stereo eye offset and the depth-of-field disc sample (the df32
+``compensated_raygen`` opt-in is ROADMAP.md queue 1 item 10).  The op order
+is the JAX package's: the round-0 kernel's camera slot is built from these
+corners, and a reordered product moves knife-edge pixels and camera
+gradients.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..models.packed import CameraPacked
 from ..utils import vec
+from . import prng
 
 
 def begin_frame(cam: CameraPacked, aspect: float):
@@ -71,11 +75,20 @@ def _norm(v):
     return v / torch.sqrt((v * v).sum(-1, keepdim=True))
 
 
-def screen_rays(cam: CameraPacked, frame, width: float, height: float, x, y):
-    """Pinhole getScreenRay over a batch of (possibly fractional) pixel
-    coordinates (camera.d:119-147): -> (orig, dir), each [..., 3].  The
-    pos-free corners are interpolated (see begin_frame), so differentiable
-    in every camera leaf the corners depend on."""
+def screen_rays(cam: CameraPacked, frame, width: float, height: float, x, y, stereo_offset: float = 0.0,
+                dof: bool = False, key=None, disc_uv=None):
+    """getScreenRay over a batch of (possibly fractional) pixel coordinates
+    (camera.d:119-174): -> (orig, dir), each [..., 3].  The pos-free
+    corners are interpolated (see begin_frame), so differentiable in every
+    camera leaf the corners depend on.  ``stereo_offset`` in {-1, 0, +1}
+    moves the eye along the camera's right axis by the stereo separation.
+
+    ``dof``: the depth-of-field sample (camera.d:154-173): the focal point
+    along the pinhole ray, the origin moved on the disc of radius
+    ``disc_multiplier`` by two uniforms drawn from ``key`` (``split(key)``,
+    one per key, as JAX draws them) or given as ``disc_uv`` = (angle_u,
+    rad_u): a lane-compacted caller gathers them from the full-width draw,
+    since the draw is positional."""
     fx = (x / width)[..., None]
     fy = (y / height)[..., None]
     target_rel = (
@@ -84,5 +97,28 @@ def screen_rays(cam: CameraPacked, frame, width: float, height: float, x, y):
         + (frame["down_left_rel"] - frame["up_left_rel"]) * fy
     )
     dir = _norm(target_rel)
-    orig = torch.broadcast_to(frame["pos"], target_rel.shape)
+    stereo_off = frame["right_dir"] * (stereo_offset * cam.stereo_separation) if stereo_offset else 0.0
+    if not dof:
+        orig = torch.broadcast_to(frame["pos"], target_rel.shape)
+        if stereo_offset:
+            orig = orig + stereo_off
+        return orig, dir
+
+    # focal point and disc origin pos-relative throughout (T_rel = T - pos)
+    cos_theta = (dir * frame["front_dir"]).sum(-1)
+    M = cam.focal_plane_dist / cos_theta
+    T_rel = stereo_off + dir * M[..., None]
+    if disc_uv is None:
+        k1, k2 = prng.split(key)
+        angle_u = prng.uniform(k1, x.shape, x.dtype, device=x.device)
+        rad_u = prng.uniform(k2, x.shape, x.dtype, device=x.device)
+    else:
+        angle_u, rad_u = disc_uv
+    angle = angle_u * (2 * math.pi)
+    rad = torch.sqrt(rad_u)
+    dx = torch.sin(angle) * rad * cam.disc_multiplier
+    dy = torch.cos(angle) * rad * cam.disc_multiplier
+    orig_off = dx[..., None] * frame["right_dir"] + dy[..., None] * frame["up_dir"] + stereo_off
+    orig = frame["pos"] + orig_off
+    dir = _norm(T_rel - orig_off)
     return orig, dir

@@ -2,7 +2,8 @@
 
 Counterpart of the renderer half of chess2rt_tpu/ops/pallas_trace.py
 (``combine_outputs``, ``build_bounce_finisher``, ``build_flagship_renderer``,
-``build_rows_renderer``) for the deterministic Whitted frame:
+``build_rows_renderer``) for the Whitted frame, deterministic or
+Monte-Carlo (depth of field, stereo):
 
     for each AA tap:   round0 (screen-tap)  ->  combine_outputs (deferred
                        bitmap quad gather, continuation carry)  ->  bounce
@@ -14,6 +15,13 @@ Counterpart of the renderer half of chess2rt_tpu/ops/pallas_trace.py
   form at slab width, so peak memory follows the slab), with quirk AA (5
   taps everywhere) or adaptive AA (4 more taps only on the pixels
   ``aa_detect`` flags, lane-compacted through the ray-input form).
+* the Monte-Carlo renderer of ``build_flagship_renderer`` (DoF, stereo):
+  the rays come from ``screen_rays`` with the JAX package's random streams
+  (ops/prng.py: the same keys, the same bits) and go through K1's
+  ray-input form at full width, in ``chunk_pixels`` slabs, or, for the 4
+  adaptive-AA taps of a DoF frame, lane-compacted to the flagged pixels
+  (their uniforms drawn at full width and gathered, since a draw is
+  positional);
 * ``build_rows_renderer``: one contiguous slice of the flat pixel grid
   through K1's lin-input form (ray-gen in the kernel from the slice's lane
   base): the per-shard body of parallel/mesh.py.
@@ -42,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from ..models.packed import REFLECTION, REFRACTION, TEX_BITMAP, ScenePacked, SceneStatic, leaves
+from . import prng
 from . import shade as S
 from .camera import begin_frame, screen_rays
 from .round0 import BOUNCE_BLOCK, TILE_N, exact_lane_base, layout, round0, supports
@@ -260,17 +269,23 @@ def _adaptive_taps(base, mask, full_taps, compact):
     return base.index_put((sel[:count],), acc[:count] / 5.0)
 
 
-def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=round0):
-    """Flagship forward renderer: fn(packed) -> [H, W, 3] radiance.
+def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=round0, uniform=None):
+    """Flagship renderer: fn(packed, key=None) -> [H, W, 3] radiance.
 
-    Covers the deterministic (non-MC) frame: with or without AA, quirk AA
+    The deterministic frame (``key`` unused): with or without AA, quirk AA
     (all 5 taps everywhere) or adaptive AA (``aa_adaptive``: the 4 extra
     taps lane-compacted onto the flagged pixels, ``aa_capacity`` lanes or
     1/32 of the frame, full width on overflow), un-chunked or in
-    ``chunk_pixels`` slabs.  Callers dispatch here through
-    render/pipeline.render_frame, which raises for every other mode."""
+    ``chunk_pixels`` slabs.  DoF and stereo frames go to
+    ``_build_mc_renderer``, which draws with ``uniform`` (None:
+    ``prng.uniform``; its plain version ``prng.uniform_reference`` renders
+    the same frame without the threefry kernel).
+    Callers dispatch here through render/pipeline.render_frame, which
+    raises for every other mode."""
     from ..render.pipeline import aa_detect
 
+    if static.dof or static.stereo:
+        return _build_mc_renderer(static, width, height, trace, uniform)
     n = width * height
     lay = layout(static, width, height)
     a0 = lay.off["aa"]
@@ -305,7 +320,7 @@ def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=
         cap_aa = _aa_capacity(static.aa_capacity or -(-n // 32))
         finish_aa = build_bounce_finisher(static, width, height, cap_aa, is_slab=True)
 
-    def render(packed: ScenePacked):
+    def render(packed: ScenePacked, key=None):
         prm0 = lay.pack(packed)
         call = round0_call(packed, trace)
         if not static.aa_enabled:
@@ -334,6 +349,149 @@ def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=
         return render_tap(packed, prm0, lay.pack(packed, aa_offset), round0_call(packed, trace))
 
     render.tap = tap
+    return render
+
+
+def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, uniform):
+    """The DoF / stereo renderer (pallas_trace.build_flagship_renderer's
+    ``mc_mode``): fn(packed, key=None) -> [H, W, 3], ``key`` a threefry key
+    (None is ``PRNGKey(0)``).  It mirrors the JAX package's XLA sampling
+    (render/pipeline.render_samples, _render_pixels) key for key: per AA tap
+    a key, per DoF sample ``split(key, 4)`` for the x and y jitter and the
+    disc, both eyes of a stereo sample from one key.  Every pass of rays
+    goes through K1's ray-input form, at full width or in ``chunk_pixels``
+    slabs (pad lanes re-trace the last ray; the slabs do not change the key
+    stream, unlike the twin's chunked frame).  Adaptive AA on a DoF frame
+    without stereo or slabs lane-compacts the 4 taps to ``aa_capacity`` (or
+    1/32 of the frame) lanes when the flagged pixels fit, each sample's
+    uniforms drawn at full width and gathered at the flagged lanes; other
+    adaptive frames run the taps at full width and blend by the mask.  The
+    "fits" decision is made on the host."""
+    from ..render.pipeline import AA_KERNEL, aa_detect, compact_indices
+
+    n = width * height
+    lay = layout(static, width, height)
+    slabs = _chunk_slabs(static, n)
+    W, H = float(width), float(height)
+    if slabs is None:
+        finish_mc = build_bounce_finisher(static, width, height, n)
+
+        def trace_rays(packed, prm0, orig, dir, call):
+            o = call(lay, prm0, orig.contiguous(), dir.contiguous())
+            color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+            return finish_mc(packed, prm0, color, cont, atten, ro, rd, call)
+
+    else:
+        C, n_slabs = slabs
+        pad = n_slabs * C - n
+        finish_slab = build_bounce_finisher(static, width, height, C, is_slab=True)
+
+        def trace_rays(packed, prm0, orig, dir, call):
+            if pad:  # pad lanes re-trace the last ray; sliced off below
+                orig = torch.cat([orig, orig[-1:].expand(pad, 3)])
+                dir = torch.cat([dir, dir[-1:].expand(pad, 3)])
+            out = []
+            for s in range(n_slabs):
+                o = call(lay, prm0, orig[s * C:(s + 1) * C].contiguous(), dir[s * C:(s + 1) * C].contiguous())
+                color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+                out.append(finish_slab(packed, prm0, color, cont, atten, ro, rd, call))
+            return torch.cat(out)[:n]
+
+    aa_mc_fast = static.aa_enabled and static.aa_adaptive and static.dof and not static.stereo and slabs is None
+    if aa_mc_fast:
+        cap_mc = _aa_capacity(static.aa_capacity or -(-n // 32))
+        finish_aa_mc = build_bounce_finisher(static, width, height, cap_mc, is_slab=True)
+
+    def render(packed: ScenePacked, key=None):
+        from ..render.pipeline import _combine_stereo
+
+        draw = uniform or prng.uniform
+        key = prng.as_key(key)
+        prm0 = lay.pack(packed)
+        call = round0_call(packed, trace)
+        cam, dt, dev = packed.camera, packed.dtype, packed.device
+        frame = begin_frame(cam, width / height)
+        lin = torch.arange(n, device=dev)
+        xf, yf = (lin % width).to(dt), (lin // width).to(dt)
+        offsets = torch.tensor(AA_KERNEL, dtype=dt, device=dev)
+
+        def disc(k, like):
+            """The disc uniforms ``screen_rays`` would draw from ``k``."""
+            k1, k2 = prng.split(k)
+            return draw(k1, like.shape, dt, device=dev), draw(k2, like.shape, dt, device=dev)
+
+        def trace_one(xx, yy, k):
+            uv = disc(k, xx) if static.dof else None  # both eyes draw the same
+            if static.stereo:
+                ol, dl = screen_rays(cam, frame, W, H, xx, yy, -1.0, dof=static.dof, disc_uv=uv)
+                orr, drr = screen_rays(cam, frame, W, H, xx, yy, +1.0, dof=static.dof, disc_uv=uv)
+                left = trace_rays(packed, prm0, ol, dl, call)
+                return _combine_stereo(left, trace_rays(packed, prm0, orr, drr, call))
+            o3, d3 = screen_rays(cam, frame, W, H, xx, yy, 0.0, dof=static.dof, disc_uv=uv)
+            return trace_rays(packed, prm0, o3, d3, call)
+
+        def samples(xx, yy, k):
+            if not static.dof:
+                return trace_one(xx, yy, k)
+            acc = torch.zeros(xx.shape + (3,), dtype=dt, device=dev)
+            for _ in range(static.dof_samples):
+                k, kj, kj2, kr = prng.split(k, 4)
+                jx = xx + draw(kj, xx.shape, dt, device=dev)
+                jy = yy + draw(kj2, yy.shape, dt, device=dev)
+                acc = acc + trace_one(jx, jy, kr)
+            return acc / static.dof_samples
+
+        def full_taps(img, key):
+            acc = img
+            for off in offsets:
+                key, kk = prng.split(key)
+                acc = acc + samples(xf + off[0], yf + off[1], kk)
+            return acc / 5.0
+
+        key, k0 = prng.split(key)
+        img = samples(xf, yf, k0)
+        if not static.aa_enabled:
+            return img.reshape(height, width, 3)
+        if not static.aa_adaptive:
+            return full_taps(img, key).reshape(height, width, 3)
+        mask = aa_detect(img.reshape(height, width, 3)).reshape(-1)
+        count = int(mask.sum()) if aa_mc_fast else None  # host sync (see module docstring)
+        if count is None or count > cap_mc:
+            return torch.where(mask[:, None], full_taps(img, key), img).reshape(height, width, 3)
+        if count == 0:
+            return img.reshape(height, width, 3)
+        sel = compact_indices(mask, n, cap_mc).long()
+        selc = sel.clamp_max(n - 1)  # junk slots re-render the last lane and are dropped
+        xs0, ys0 = (selc % width).to(dt), (selc // width).to(dt)
+
+        def trace_c(o3, d3):
+            o = call(lay, prm0, o3.contiguous(), d3.contiguous())
+            color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+            return finish_aa_mc(packed, prm0, color, cont, atten, ro, rd, call)
+
+        def samples_c(xx, yy, k):
+            """The DoF loop on the compacted lanes with the FULL-WIDTH
+            stream: each uniform drawn at (n,) and gathered at ``selc``."""
+            acc = torch.zeros((cap_mc, 3), dtype=dt, device=dev)
+            for _ in range(static.dof_samples):
+                k, kj, kj2, kr = prng.split(k, 4)
+                jx = xx + draw(kj, (n,), dt, device=dev)[selc]
+                jy = yy + draw(kj2, (n,), dt, device=dev)[selc]
+                k1, k2 = prng.split(kr)
+                uv = draw(k1, (n,), dt, device=dev)[selc], draw(k2, (n,), dt, device=dev)[selc]
+                o3, d3 = screen_rays(cam, frame, W, H, jx, jy, 0.0, dof=True, disc_uv=uv)
+                acc = acc + trace_c(o3, d3)
+            return acc / static.dof_samples
+
+        acc = img[selc]
+        for off in offsets:
+            key, kk = prng.split(key)
+            acc = acc + samples_c(xs0 + off[0], ys0 + off[1], kk)
+        # every compacted lane below ``count`` is flagged; an out-of-place
+        # scatter, since the graph may hold ``img``
+        return img.index_put((sel[:count],), acc[:count] / 5.0).reshape(height, width, 3)
+
+    render.tap = None  # a Monte-Carlo frame has no single deterministic tap
     return render
 
 

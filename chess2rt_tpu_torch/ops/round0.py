@@ -45,7 +45,6 @@ from ..models.packed import (
     TEX_PROC2,
     ScenePacked,
     SceneStatic,
-    max_hits,
 )
 from .camera import begin_frame
 
@@ -57,8 +56,6 @@ TILE_N = 8 * 128
 BOUNCE_BLOCK = 128
 INF = 1e30
 EPS_SHADOW = 1e-3  # f32 self-intersection offset (ops/shade.shadow_eps)
-# per-thread hit-list capacity compiled into csrc/round0.cu (MAX_HITS there)
-MAX_HITS = 16
 
 # kernel launches made by ``round0`` (the CUDA path only): every launch,
 # those of them that also wrote the residual rows (want_hit / want_vis),
@@ -323,16 +320,23 @@ def make_packer(static: SceneStatic, width: int, height: int):
 # --------------------------------------------------------------------------
 
 # header slots; keep in sync with the H_* constants in csrc/round0.cu
-PROGRAM_VERSION = 4
+PROGRAM_VERSION = 5
 (H_VERSION, H_NODES, H_LIGHTS, H_CAM, H_AMBIENT, H_AA, H_LIN, H_FLAGS,
- H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB) = range(12)
+ H_LIGHT_TAB, H_NODE_TAB, H_INSTR_TAB, H_PAIR_TAB, H_DIFF_TAB, H_LIST_CAP) = range(14)
 HEADER = 16
 # The kernel keeps the program and the parameter vector in a block's shared
-# memory, beside its hit lists (12 KB) and below the card's 227 KB per
-# block: the two tables together may hold this many bytes
+# memory: the two tables together may hold this many bytes
 MAX_TABLE_BYTES = 200 * 1024
+# what a block may have of an H100's shared memory, and K1's threads per block
+SHARED_BLOCK_BYTES = 227 * 1024
+BLOCK_THREADS = 128
 NODE_STRIDE = 10
 INSTR_STRIDE = 8
+# the hit tags' instruction fields (csrc/round0.cu TAG_BITS): a node's
+# instructions must number fewer than TAG_KEPT, which 200 KB of tables
+# cannot hold anyway (8191 instructions take 262 KB)
+TAG_BITS = 13
+TAG_KEPT = (1 << TAG_BITS) - 1
 # flags; F_HIT / F_VIS add the residual rows (want_hit / want_vis); F_UV says
 # that some node's records carry UVs (read by the scan stage probe only)
 F_PHONG, F_REFR, F_EMIT_L, F_CONT, F_HIT, F_VIS, F_UV = 1, 2, 4, 8, 16, 32, 64
@@ -358,26 +362,25 @@ def scene_program(static: SceneStatic, off: dict, expr_tables, n_prm: int, want_
                   want_vis=False) -> np.ndarray:
     """Encode the scene's structure as an int32 table (layout in
     csrc/round0.cu): a header, one NODE_STRIDE record per node, the
-    geometry expressions as postfix instructions, and the compare-exchange
-    pairs of every CSG merge.  Parameters stay in the packer's f32 vector
-    (``n_prm`` words); this table only says where they are and what to do
-    with them.  The flags also select the output rows, the residual ones
-    included.  A leaf instruction carries, as a bit set of instruction
-    indices relative to its node's first, the CsgDiff merges above it: the
-    kernel replays their normal flips for the one hit it builds a record
-    of."""
-    for i, ns in enumerate(static.nodes):
-        if max_hits(ns.geom) > MAX_HITS:
-            raise ValueError(
-                f"node {i}: {max_hits(ns.geom)} hits per ray exceed the kernel's MAX_HITS={MAX_HITS}"
-            )
+    geometry expressions as postfix instructions, the compare-exchange
+    pairs of every CSG merge, and the diff table.  Parameters stay in the
+    packer's f32 vector (``n_prm`` words); this table only says where they
+    are and what to do with them.  The flags also select the output rows,
+    the residual ones included.  A leaf instruction points at its list in
+    the diff table: the CsgDiff merges above it, as instruction indices
+    relative to its node's first, ascending.  The kernel replays their
+    normal flips for the one hit it builds a record of.  The header's list
+    capacity is the longest hit list of any node: the slots a lane's CSG
+    lists need (``list_placement``)."""
     instrs = []
     pairs = []
+    leaf_diffs = {}  # leaf instruction -> the CsgDiff instructions above it
 
     def emit(expr, start):
         """Postfix emission; returns the number of hits the expression yields."""
         kind = expr[0]
         if kind != "csg":
+            leaf_diffs[len(instrs)] = []
             instrs.append([{"plane": OP_PLANE, "sphere": OP_SPHERE, "cube": OP_CUBE}[kind],
                            expr[1], 0, 0, 0, 0, 0, 0])
             return 1 if kind == "plane" else 2
@@ -391,15 +394,17 @@ def scene_program(static: SceneStatic, off: dict, expr_tables, n_prm: int, want_
         instrs.append([OP_CSG, CSG_OPS[op], r_start, r_end, len(pairs), len(net), n_l, n_r])
         pairs.extend(net)
         if op == "diff":
-            for ins in instrs[l_start:r_end]:
-                if ins[0] != OP_CSG:
-                    ins[2] |= 1 << (r_end - start)
+            for k in range(l_start, r_end):
+                if k in leaf_diffs:
+                    leaf_diffs[k].append(r_end - start)
         return n_l + n_r
 
     nodes = []
     for i, ns in enumerate(static.nodes):
         start = len(instrs)
         nh = emit(expr_tables[i], start)
+        if len(instrs) - start >= TAG_KEPT:
+            raise ValueError(f"node {i}: {len(instrs) - start} instructions exceed the hit tags' {TAG_KEPT - 1}")
         if ns.identity_transform:
             xk, xo = X_IDENT, 0
         elif ns.offset_only:
@@ -431,6 +436,12 @@ def scene_program(static: SceneStatic, off: dict, expr_tables, n_prm: int, want_
     node_tab = light_tab + len(lights)
     instr_tab = node_tab + NODE_STRIDE * len(nodes)
     pair_tab = instr_tab + INSTR_STRIDE * len(instrs)
+    diff_tab = pair_tab + 2 * len(pairs)
+    diffs = []
+    for k, above in leaf_diffs.items():
+        # each merge was appended after the leaves below it: ascending
+        instrs[k][2], instrs[k][3] = diff_tab + len(diffs), len(above)
+        diffs.extend(above)
     head = [0] * HEADER
     head[H_VERSION] = PROGRAM_VERSION
     head[H_NODES] = len(nodes)
@@ -444,9 +455,21 @@ def scene_program(static: SceneStatic, off: dict, expr_tables, n_prm: int, want_
     head[H_NODE_TAB] = node_tab
     head[H_INSTR_TAB] = instr_tab
     head[H_PAIR_TAB] = pair_tab
-    flat = head + lights + sum(nodes, []) + sum(instrs, []) + [x for pr in pairs for x in pr]
+    head[H_DIFF_TAB] = diff_tab
+    head[H_LIST_CAP] = max(nd[-1] for nd in nodes) if nodes else 1
+    flat = head + lights + sum(nodes, []) + sum(instrs, []) + [x for pr in pairs for x in pr] + diffs
     check_table_bytes(len(flat), n_prm)
     return np.asarray(flat, dtype=np.int32)
+
+
+def list_placement(program: np.ndarray, n_prm: int) -> str:
+    """Where K1 keeps a lane's CSG hit lists for this scene: "shared" when the
+    two tables and the lists of a block's 128 threads (the header's list
+    capacity of slots, a distance and a tag each) fit in the
+    ``SHARED_BLOCK_BYTES`` a block may have, else "global" (a scratch
+    [2 * capacity, n] the wrapper allocates)."""
+    lists = 8 * int(program[H_LIST_CAP]) * BLOCK_THREADS
+    return "shared" if 4 * (program.size + n_prm) + lists <= SHARED_BLOCK_BYTES else "global"
 
 
 # --------------------------------------------------------------------------
@@ -1122,6 +1145,7 @@ def round0(
     n_lanes: Optional[int] = None,
     want_hit: bool = False,
     want_vis: bool = False,
+    placement: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """One fused Whitted round (K1).  Screen-tap form with ``orig=None``
     (N = width * height lanes, ray-gen in-kernel from the camera slot and
@@ -1134,7 +1158,9 @@ def round0(
     off.
 
     ``want_hit`` / ``want_vis`` add the residual rows (see ``layout``); a
-    layout built with them does the same.
+    layout built with them does the same.  ``placement`` ("shared" or
+    "global") overrides ``list_placement`` for the kernel's hit lists, so
+    that a test can drive both on one scene.
 
     ``prm`` on a CUDA device launches csrc/round0.cu (or raises); on the
     CPU it runs ``round0_reference``.  There is no fallback between the two.
@@ -1146,11 +1172,13 @@ def round0(
     if lin_input and orig is not None:
         raise ValueError("round0: the lin-input form takes no rays")
     n = _lane_count(lay, lin_input, n_lanes) if orig is None else None
+    if placement not in (None, "shared", "global"):
+        raise ValueError(f"round0: placement must be 'shared' or 'global', got {placement!r}")
     if prm.device.type == "cpu":
         return round0_reference(lay, prm, orig, dir, lin_input=lin_input, n_lanes=n_lanes)
     if prm.device.type != "cuda":
         raise RuntimeError(f"round0: no kernel for device {prm.device}")
-    return _round0_cuda(lay, prm, orig, dir, n, lin_input)
+    return _round0_cuda(lay, prm, orig, dir, n, lin_input, placement)
 
 
 def _check(name, t, dtype, shape, device):
@@ -1166,9 +1194,18 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"round0: {name} must be contiguous")
 
 
-def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False):
-    """Check the inputs, allocate the outputs and launch csrc/round0.cu on
-    ``n`` lanes (the rays' count in the ray-input form)."""
+def list_scratch(lay: Round0Layout, n: int, device, placement: Optional[str] = None) -> Optional[torch.Tensor]:
+    """The global [2 * capacity, n] scratch of K1's hit lists for an
+    ``n``-lane launch, or None when they go in shared memory."""
+    if (placement or list_placement(lay.program, lay.n_prm)) == "shared":
+        return None
+    return torch.empty((2 * int(lay.program[H_LIST_CAP]), n), dtype=torch.float32, device=device)
+
+
+def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False, placement=None):
+    """Check the inputs, allocate the outputs (and the hit lists' scratch
+    when they go in global memory) and launch csrc/round0.cu on ``n`` lanes
+    (the rays' count in the ray-input form)."""
     global launches, resid_launches, ray_launches, lin_launches
     from .. import cuda_build
 
@@ -1188,6 +1225,7 @@ def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False):
     prog = lay.program_on(dev)
     out = torch.empty((len(lay.names), n), dtype=torch.float32, device=dev)
     win = torch.empty((n,), dtype=torch.int32, device=dev)
+    lists = list_scratch(lay, n, dev, placement)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.c2rt_round0(
@@ -1195,8 +1233,10 @@ def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False):
             prog.data_ptr(),
             lay.n_prm,
             prog.numel(),
+            int(lay.program[H_LIST_CAP]),
             None if orig is None else orig.data_ptr(),
             None if dir is None else dir.data_ptr(),
+            None if lists is None else lists.data_ptr(),
             out.data_ptr(),
             win.data_ptr(),
             n,

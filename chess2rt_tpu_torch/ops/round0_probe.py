@@ -31,7 +31,7 @@ from typing import Tuple
 
 import torch
 
-from .round0 import EPS_SHADOW, PROGRAM_VERSION, Round0Layout, _check, _node_scans, _raygen
+from .round0 import EPS_SHADOW, H_LIST_CAP, PROGRAM_VERSION, Round0Layout, _check, _node_scans, _raygen, list_scratch
 
 STAGES = ("empty", "raygen", "scan", "shadow")
 
@@ -108,8 +108,10 @@ def round0_stage(lay: Round0Layout, prm: torch.Tensor, stage: str) -> Tuple[torc
     if lib.c2rt_program_version() != PROGRAM_VERSION or lib.c2rt_stage() != cuda_build.STAGES[stage]:
         raise RuntimeError(f"round0_stage: the {stage} build of csrc/round0.cu is not the one expected")
     out = torch.empty((2, n), dtype=torch.float32, device=dev)
+    lists = list_scratch(lay, n, dev)
     with torch.cuda.device(dev):
-        err = lib.c2rt_round0(prm.data_ptr(), lay.program_on(dev).data_ptr(), lay.n_prm, lay.program.size, None, None,
+        err = lib.c2rt_round0(prm.data_ptr(), lay.program_on(dev).data_ptr(), lay.n_prm, lay.program.size,
+                              int(lay.program[H_LIST_CAP]), None, None, None if lists is None else lists.data_ptr(),
                               out.data_ptr(), None, n, lay.width, lay.height, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"round0_stage: kernel launch failed: {cuda_build.error_string(name, err)}")

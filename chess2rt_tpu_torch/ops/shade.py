@@ -152,7 +152,10 @@ def bitmap_plan(packed: ScenePacked, static: SceneStatic, winc, u, v, onehot=Non
 class _QuadGather(torch.autograd.Function):
     """``table[key]`` whose backward sums the cotangent rows per key: a
     stable sort of the rows by key (JAX's ``lax.sort``, outside the kernel
-    there too), then K2 on the sorted runs."""
+    there too), then K2 on the sorted runs.  K2 is f32 only, as the TPU
+    kernel is; another dtype (the f64 twin's) takes the plain segment sum in
+    its own dtype, ``index_add_`` over the sorted rows, as JAX's ``_qgf_bwd``
+    sends it to its dtype-generic sorted scatter."""
 
     @staticmethod
     def forward(ctx, table, key):
@@ -163,15 +166,14 @@ class _QuadGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (key,) = ctx.saved_tensors
-        if g.dtype != torch.float32:
-            raise NotImplementedError(
-                "quad_gather_flat: texel gradients of non-f32 tables are not ported yet "
-                "(ROADMAP.md queue 1 item 5, the texel-grad f64 path)"
-            )
         kf = key.reshape(-1)
         gf = g.reshape(kf.shape[0], g.shape[-1])
         sk, perm = torch.sort(kf, stable=True)
-        return texel_histogram(sk, gf[perm].contiguous(), ctx.n_rows), None
+        rows = gf[perm].contiguous()
+        if g.dtype != torch.float32:
+            out = torch.zeros((ctx.n_rows, g.shape[-1]), dtype=g.dtype, device=g.device)
+            return out.index_add_(0, sk.long(), rows), None
+        return texel_histogram(sk, rows, ctx.n_rows), None
 
 
 def quad_gather_flat(table, key):

@@ -81,7 +81,10 @@ def _fused_shard_setup(static: SceneStatic, mesh: Mesh, trace=round0):
     if static.gi_enabled:
         raise NotImplementedError("sharded GI is not ported yet (ROADMAP.md queue 1 item 8)")
     if static.dof or static.stereo:
-        raise NotImplementedError("sharded DoF and stereo are not ported yet (ROADMAP.md queue 1 item 7)")
+        raise NotImplementedError(
+            "sharded DoF and stereo frames (the JAX package's per-shard sampler, a fold_in of the key per "
+            "shard) are not ported yet (ROADMAP.md queue 1 item 11)"
+        )
     if not supports(static):
         raise NotImplementedError(
             "sharding a scene the round-0 kernel does not cover (the JAX package's per-shard XLA "

@@ -1,11 +1,12 @@
 """Frame rendering (renderer.d:83-189, :254-376).
 
 Counterpart of chess2rt_tpu/render/pipeline.py.  Two paths render a
-deterministic Whitted frame:
+Whitted frame, deterministic or Monte-Carlo (depth of field, stereo):
 
 * the fused path (ops/flagship.py): K1, the hand-written round-0 kernel, per
-  AA tap plus torch glue.  ``render_frame`` takes it for float32 frames of
-  the scenes K1 covers (``ops/round0.supports``);
+  AA tap (per sample and eye under DoF and stereo) plus torch glue.
+  ``render_frame`` takes it for float32 frames of the scenes K1 covers
+  (``ops/round0.supports``);
 * the eager Whitted twin of the JAX package's XLA wavefront
   (``render_frame_wavefront``): ``trace_whitted`` runs maxTraceDepth + 1
   wavefront rounds over the whole ray batch with an ``alive`` mask, each
@@ -26,11 +27,16 @@ a gradient is recorded (recomputed in the backward, shadow scans included:
 torch has no counterpart of the JAX policy that saves only the shadow bits).
 Everything stays differentiable by autograd in every ScenePacked leaf.
 
+The random streams are the JAX package's: ``key`` is a threefry key of
+ops/prng.py (the default ``PRNGKey(0)``), split per sample, AA tap and
+chunk slab in the JAX order, and every draw is ``prng.uniform``, bit-equal
+to ``jax.random.uniform``, so a DoF or stereo frame matches JAX's under the
+same key.
+
 Not ported yet, each raising NotImplementedError naming its ROADMAP.md
-item: GI (item 8), DoF and stereo (item 7, with the RNG), bump maps (item
-9), environment cubemaps and compensated ray-gen (item 10).  ``key`` is
-accepted for the JAX signatures and unused: the deterministic Whitted
-path draws no random numbers.
+item: GI (item 8; a GI scene with DoF renders DoF Whitted samples, as in
+JAX), bump maps (item 9), environment cubemaps and compensated ray-gen
+(item 10).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.packed import LAMBERT, PHONG, REFLECTION, REFRACTION, ScenePacked, SceneStatic, pack_scene
 from ..ops import geometry as G
+from ..ops import prng
 from ..ops import shade as S
 from ..ops.camera import begin_frame, screen_rays
 
@@ -212,8 +219,7 @@ def continue_bounces(packed, static, color, atten, alive, orig, dir, n_rounds):
 def _check_ported(static: SceneStatic, who: str):
     """Raise for a frame whose mode is not ported yet, naming its ROADMAP item."""
     todo = (
-        "GI (ROADMAP.md queue 1 item 8)" if static.gi_enabled
-        else "DoF and stereo (ROADMAP.md queue 1 item 7)" if static.dof or static.stereo
+        "GI (ROADMAP.md queue 1 item 8)" if static.gi_enabled and not static.dof
         else "bump maps (ROADMAP.md queue 1 item 9)" if static.has_bump
         else "environment cubemaps (ROADMAP.md queue 1 item 10)" if static.has_env
         else "compensated ray-gen (ROADMAP.md queue 1 item 10)" if static.compensated_raygen
@@ -224,19 +230,50 @@ def _check_ported(static: SceneStatic, who: str):
 
 
 def render_samples(packed: ScenePacked, static: SceneStatic, frame, x, y, key=None, dx=1.0, dy=1.0):
-    """renderSample for a batch of (fractional) pixel coordinates -> [N, 3],
-    the deterministic branch: one pinhole ray per coordinate through
-    ``trace_whitted``.  The Monte-Carlo branch (DoF, GI, stereo) raises.
-    (The JAX package's ``trace_fn`` / ``gi_trace_fn`` hooks serve its mesh
-    layer's XLA per-shard sampler, not ported.)"""
-    del key, dx, dy
-    if static.dof or static.stereo or static.gi_enabled:
-        raise NotImplementedError(
-            "render_samples: the Monte-Carlo branch (DoF, stereo: ROADMAP.md queue 1 item 7; GI: item 8) "
-            "is not ported yet"
-        )
-    o, d = screen_rays(packed.camera, frame, float(static.width), float(static.height), x, y)
-    return trace_whitted(packed, static, o, d)
+    """renderSample for a batch of (fractional) pixel coordinates -> [N, 3]
+    (renderer.d:254-313).  Deterministic: one pinhole ray per coordinate
+    through ``trace_whitted`` (two with stereo, combined).  With DoF, the
+    Monte-Carlo loop: ``dof_samples`` samples, each splitting the key in
+    four for the x and y jitter (scaled by ``dx``, ``dy``) and the disc
+    sample, as JAX's ``lax.scan`` does.  Dispatch order as renderSample's:
+    DoF first (a GI scene with DoF traces Whitted DoF samples), GI (item 8,
+    raises), then stereo.  (The JAX package's ``trace_fn`` / ``gi_trace_fn``
+    hooks serve its mesh layer's XLA per-shard sampler, ROADMAP item 11.)"""
+    cam = packed.camera
+    W, H = float(static.width), float(static.height)
+    key = prng.as_key(key)
+
+    def trace_one(xx, yy, k):
+        if static.gi_enabled and not static.dof:
+            raise NotImplementedError("render_samples: GI (ROADMAP.md queue 1 item 8) is not ported yet")
+        if static.stereo:
+            ol, dl = screen_rays(cam, frame, W, H, xx, yy, -1.0, dof=static.dof, key=k)
+            orr, drr = screen_rays(cam, frame, W, H, xx, yy, +1.0, dof=static.dof, key=k)
+            return _combine_stereo(trace_whitted(packed, static, ol, dl), trace_whitted(packed, static, orr, drr))
+        o, d = screen_rays(cam, frame, W, H, xx, yy, 0.0, dof=static.dof, key=k)
+        return trace_whitted(packed, static, o, d)
+
+    if not (static.dof or static.gi_enabled):
+        return trace_one(x, y, key)
+    n_samples = static.dof_samples if static.dof else static.paths_per_pixel
+    acc = torch.zeros(x.shape + (3,), dtype=x.dtype, device=x.device)
+    for _ in range(n_samples):
+        key, kj, kj2, kr = prng.split(key, 4)
+        jx = x + prng.uniform(kj, x.shape, x.dtype, device=x.device) * dx
+        jy = y + prng.uniform(kj2, y.shape, y.dtype, device=y.device) * dy
+        acc = acc + trace_one(jx, jy, kr)
+    return acc / n_samples
+
+
+def _combine_stereo(left, right):
+    """Anaglyph combine (color.d:10-15): red from the left eye, green and
+    blue from the right, each a quarter of its color and three quarters of
+    its gray."""
+    l = left * 0.25 + left.mean(-1, keepdim=True) * 0.75
+    r = right * 0.25 + right.mean(-1, keepdim=True) * 0.75
+    mask_l = torch.tensor([1.0, 0.0, 0.0], dtype=left.dtype, device=left.device)
+    mask_r = torch.tensor([0.0, 1.0, 1.0], dtype=left.dtype, device=left.device)
+    return l * mask_l + r * mask_r
 
 
 def aa_detect(img):
@@ -269,27 +306,31 @@ def _offsets(like):
     return torch.tensor(AA_KERNEL, dtype=like.dtype, device=like.device)
 
 
-def _flat_pass(packed: ScenePacked, static: SceneStatic, frame, xf, yf, fn=render_samples):
-    """``fn(packed, static, frame, x, y)`` over a flat pixel batch, in
-    ``chunk_pixels`` slabs when that is set (pad lanes render pixel (0, 0)
-    and are cut)."""
+def _flat_pass(packed: ScenePacked, static: SceneStatic, frame, xf, yf, key, fn=render_samples):
+    """``fn(packed, static, frame, x, y, key)`` over a flat pixel batch, in
+    ``chunk_pixels`` slabs when that is set: one key per slab from
+    ``split(key, slabs)``, as JAX's chunked body (pad lanes render pixel
+    (0, 0) and are cut)."""
     n = xf.numel()
     c = static.chunk_pixels
     if not c or c >= n:
-        return fn(packed, static, frame, xf, yf)
+        return fn(packed, static, frame, xf, yf, key)
     pad = (-n) % c
     xs = torch.cat([xf, xf.new_zeros(pad)]).reshape(-1, c)
     ys = torch.cat([yf, yf.new_zeros(pad)]).reshape(-1, c)
-    return torch.cat([fn(packed, static, frame, xs[i], ys[i]) for i in range(xs.shape[0])])[:n]
+    keys = prng.split(key, xs.shape[0])
+    return torch.cat([fn(packed, static, frame, xs[i], ys[i], keys[i]) for i in range(xs.shape[0])])[:n]
 
 
-def _render_pixels(packed: ScenePacked, static: SceneStatic, frame, xf, yf):
-    """Base sample plus the AA taps for one flat pixel batch."""
-    img = render_samples(packed, static, frame, xf, yf)
+def _render_pixels(packed: ScenePacked, static: SceneStatic, frame, xf, yf, key):
+    """Base sample plus the AA taps for one flat pixel batch, a key each."""
+    key, k0 = prng.split(key)
+    img = render_samples(packed, static, frame, xf, yf, k0)
     if static.aa_enabled:
         acc = img
         for off in _offsets(xf):
-            acc = acc + render_samples(packed, static, frame, xf + off[0], yf + off[1])
+            key, kk = prng.split(key)
+            acc = acc + render_samples(packed, static, frame, xf + off[0], yf + off[1], kk)
         img = acc / 5.0
     return img
 
@@ -299,9 +340,12 @@ def render_frame_wavefront(packed: ScenePacked, static: SceneStatic, key=None):
     ``render_frame`` with ``use_pallas`` off) -> [H, W, 3] in the scene's
     dtype, on its device: quirk AA (5 taps everywhere), adaptive AA (the 4
     extra taps where ``aa_detect`` flags the base frame) and
-    ``chunk_pixels`` slabs, which bound peak memory by the slab."""
-    del key
+    ``chunk_pixels`` slabs, which bound peak memory by the slab; DoF and
+    stereo with the JAX key streams (``key`` None is ``PRNGKey(0)``; an
+    un-chunked adaptive frame splits as ``_render_pixels`` does, so its
+    flagged pixels take the quirk path's values)."""
     _check_ported(static, "render_frame_wavefront")
+    key = prng.as_key(key)
     dt = packed.dtype
     W, H = static.width, static.height
     ys, xs = torch.meshgrid(torch.arange(H, dtype=dt, device=packed.device),
@@ -311,21 +355,24 @@ def render_frame_wavefront(packed: ScenePacked, static: SceneStatic, key=None):
     frame = begin_frame(packed.camera, W / H)
 
     if static.aa_enabled and static.aa_adaptive:
-        base = _flat_pass(packed, static, frame, xf, yf)
+        key, k0 = prng.split(key)
+        base = _flat_pass(packed, static, frame, xf, yf, k0)
         mask = aa_detect(base.reshape(H, W, 3)).reshape(-1)
         acc = base
         for off in _offsets(xf):
-            acc = acc + _flat_pass(packed, static, frame, xf + off[0], yf + off[1])
+            key, kk = prng.split(key)
+            acc = acc + _flat_pass(packed, static, frame, xf + off[0], yf + off[1], kk)
         return torch.where(mask[:, None], acc / 5.0, base).reshape(H, W, 3)
-    return _flat_pass(packed, static, frame, xf, yf, _render_pixels).reshape(H, W, 3)
+    return _flat_pass(packed, static, frame, xf, yf, key, _render_pixels).reshape(H, W, 3)
 
 
 def render_frame(packed: ScenePacked, static: SceneStatic, key=None):
     """Full-frame render -> [H, W, 3] on the scene's device: the fused path
     (K1) for float32 frames of the scenes ``ops/round0.supports`` covers,
-    the eager Whitted twin (``render_frame_wavefront``) for every other
-    frame it renders.  A covered scene with more CSG hits per ray than K1's
-    ``round0.MAX_HITS`` raises in ``round0.scene_program``."""
+    DoF and stereo included, the eager Whitted twin
+    (``render_frame_wavefront``) for every other frame it renders.  ``key``
+    (a threefry key of ops/prng.py; None is ``PRNGKey(0)``) seeds the
+    Monte-Carlo frames."""
     from ..ops.round0 import supports
 
     _check_ported(static, "render_frame")
@@ -333,7 +380,7 @@ def render_frame(packed: ScenePacked, static: SceneStatic, key=None):
         return render_frame_wavefront(packed, static, key)
     from ..ops.flagship import build_flagship_renderer
 
-    return build_flagship_renderer(static, static.width, static.height)(packed)
+    return build_flagship_renderer(static, static.width, static.height)(packed, key)
 
 
 def render_scene(scene, dtype=torch.float32, key=None, fix=None, device=None):

@@ -32,7 +32,16 @@ def _bitmap(rng, h, w):
     return np.clip(np.stack(chans, axis=-1) + noise, 0.0, 1.0).astype(np.float32)
 
 
-def flagship_standin(T, width: int = 1920, height: int = 1080, seed: int = 5, glass: bool = False):
+# the Monte-Carlo variants of the stand-in's camera: the focal plane at the
+# CSG pieces' depth along the view (the diff 349, the inter 321 units), and
+# fNumber 2 (a disc of radius 10 / 2 = 5 units, camera.d:252), which blurs
+# the floor near the camera and the mirror sphere behind; the eyes of the
+# stereo pair 6 units apart
+DOF_FOCAL_PLANE, DOF_F_NUMBER, STEREO_SEPARATION = 335.0, 2.0, 6.0
+
+
+def flagship_standin(T, width: int = 1920, height: int = 1080, seed: int = 5, glass: bool = False,
+                     dof: bool = False, stereo: bool = False, samples: int = 25):
     """The flagship stand-in scene at ``width`` x ``height``: AA on,
     maxTraceDepth 5, two point lights, and
 
@@ -44,7 +53,11 @@ def flagship_standin(T, width: int = 1920, height: int = 1080, seed: int = 5, gl
     * the mirror sphere Reflection(0.9, 0.9, 0.9) at (0, 60, 360), R=55
       (with ``glass``: Refraction(0.95, 0.95, 0.95), ior 1.5, instead).
 
-    ``T`` is a ``models.types`` module (either package's)."""
+    ``dof``: the camera's depth of field on, ``samples`` per pixel (the
+    reference's default 25), focused on the CSG pieces; ``stereo``: the
+    anaglyph stereo pair (DOF_FOCAL_PLANE, DOF_F_NUMBER,
+    STEREO_SEPARATION).  ``T`` is a ``models.types`` module (either
+    package's)."""
     rng = np.random.default_rng(seed)
     sc = T.Scene(name="flagship_standin")
     sc.settings.frameWidth, sc.settings.frameHeight = width, height
@@ -53,6 +66,12 @@ def flagship_standin(T, width: int = 1920, height: int = 1080, seed: int = 5, gl
     sc.settings.ambientLightColor = (0.12, 0.12, 0.14)
     sc.camera = T.Camera(pos=(0.0, 165.0, 0.0), yaw=0.0, pitch=-20.0, roll=0.0, fov=90.0)
     sc.camera.set_frame_size(width, height)
+    if dof:
+        sc.camera.dof, sc.camera.numSamples = True, samples
+        sc.camera.focalPlaneDist, sc.camera.fNumber = DOF_FOCAL_PLANE, DOF_F_NUMBER
+        sc.camera.discMultiplier = 10.0 / DOF_F_NUMBER
+    if stereo:
+        sc.camera.stereoSeparation = STEREO_SEPARATION
     sc.lights = [
         T.PointLight(name="key", pos=(-160.0, 420.0, 120.0), color=(1.0, 0.95, 0.9), power=150000.0),
         T.PointLight(name="fill", pos=(220.0, 260.0, 500.0), color=(0.8, 0.85, 1.0), power=60000.0),
@@ -191,12 +210,18 @@ def csg_stress_scene(T, kind: str, width: int = 32, height: int = 24):
     """Scenes that load the round-0 kernel's CSG hit lists the most.
 
     ``"deep16"``: a union of eight overlapping spheres, 16 hits per ray (the
-    kernel's ``MAX_HITS``), checker-textured so its records carry UVs; a
-    scaled and translated intersection of a four-sphere union with a cube
-    (10 hits); a floor plane.  ``"nested_diff"``: CsgDiff nodes inside
-    CsgDiff nodes on both sides, so a hit's normal is flipped by more than
-    one level and hits are dropped at inner and outer levels; one of them
-    translated, one a mirror.  One light, AA off, a 70 degree camera."""
+    list length the kernel held before its lists were sized per scene),
+    checker-textured so its records carry UVs; a scaled and translated
+    intersection of a four-sphere union with a cube (10 hits); a floor
+    plane.  ``"nested_diff"``: CsgDiff nodes inside CsgDiff nodes on both
+    sides, so a hit's normal is flipped by more than one level and hits are
+    dropped at inner and outer levels; one of them translated, one a
+    mirror.  ``"deep40"``: a union of 20 overlapping spheres (40 hits, 39
+    instructions: one sphere and a balanced union of 19), checker-textured,
+    scaled and translated; a floor plane.  ``"diff_nest"``: 17 spheres nested right-deep under
+    CsgDiffs, s0 - (s1 - (s2 - ...)), 33 instructions and 34 hits, so tags
+    name instructions past 31 and a leaf sits under up to 16 CsgDiffs; a
+    floor plane.  One light, AA off, a 70 degree camera."""
     sc = T.Scene(name=f"csg_stress_{kind}")
     sc.settings.frameWidth, sc.settings.frameHeight = width, height
     sc.camera.set_frame_size(width, height)
@@ -211,6 +236,13 @@ def csg_stress_scene(T, kind: str, width: int = 32, height: int = 24):
         for k, part in enumerate(parts[1:]):
             geom = T.CsgUnion(name=f"{name}u{k}", op="union", left=geom, right=part)
         return geom
+
+    def balanced_union(name, parts):
+        if len(parts) == 1:
+            return parts[0]
+        m = len(parts) // 2
+        return T.CsgUnion(name=f"{name}{len(parts)}_{m}", op="union", left=balanced_union(f"{name}l", parts[:m]),
+                          right=balanced_union(f"{name}r", parts[m:]))
 
     def node(name, geom, shader, transform=None):
         n = T.Node(name=name, geometry=geom, shader=shader)
@@ -252,8 +284,29 @@ def csg_stress_scene(T, kind: str, width: int = 32, height: int = 24):
         pit = T.CsgDiff(name="pit", op="diff", left=T.Sphere(name="pit_s", center=(0.8, 3.2, 2.0), R=1.2),
                         right=T.Sphere(name="pit_h", center=(0.8, 3.4, 1.1), R=0.8))
         node("pit", pit, T.Reflection(name="pit", color=(0.9, 0.9, 0.9)))
+    elif kind == "deep40":
+        # a sphere in front of a 5 x 4 wall of 19 overlapping spheres, the wall a
+        # balanced union (the reference's CSG keeps the hits where the state
+        # after a crossing is inside, so below the top merge a union drops its
+        # exits and the wall itself never wins; the top merge still sorts and
+        # walks all 40 slots)
+        wall = [T.Sphere(name=f"d{k}", center=(-2.4 + 1.2 * (k % 5), -0.5 + 0.8 * (k // 5), 0.6 + 0.3 * (k % 2)),
+                         R=0.65) for k in range(1, 20)]
+        front = T.Sphere(name="d0", center=(-0.4, 0.4, -0.4), R=0.9)
+        node("cluster", T.CsgUnion(name="cl", op="union", left=front, right=balanced_union("cl", wall)),
+             T.Lambert(name="cluster", color=(1.0, 1.0, 1.0), texture=checker),
+             lambda tr: (tr.scale(1.1, 1.0, 0.9), tr.translate((0.3, 0.2, 1.0))))
+    elif kind == "diff_nest":
+        geom = None
+        for k in reversed(range(17)):
+            ball = T.Sphere(name=f"n{k}", center=(-1.6 + 0.2 * k, 0.8 + 0.1 * (k % 3), 0.6 - 0.05 * k),
+                            R=1.5 - 0.04 * k)
+            geom = ball if geom is None else T.CsgDiff(name=f"nd{k}", op="diff", left=ball, right=geom)
+        node("nest", geom,
+             T.Phong(name="nest", color=(0.8, 0.6, 0.3), exponent=20.0, strength=0.5, texture=checker))
     else:
-        raise ValueError(f"csg_stress_scene: kind must be 'deep16' or 'nested_diff', got {kind!r}")
+        raise ValueError(f"csg_stress_scene: kind must be 'deep16', 'nested_diff', 'deep40' or 'diff_nest', "
+                         f"got {kind!r}")
     return sc
 
 
@@ -312,7 +365,8 @@ def _sdl_vec(v) -> str:
 
 
 def write_standin_sdl(directory: str, width: int = 1920, height: int = 1080, seed: int = 5,
-                      name: str = "standin.sdl", aa: bool = True) -> str:
+                      name: str = "standin.sdl", aa: bool = True, dof: bool = False, stereo: bool = False,
+                      samples: int = 25) -> str:
     """Write the flagship stand-in as a scene file the loaders read: an
     SDLang ``name`` in ``directory`` and its two bitmaps beside it as BMP
     files (``floor_tex.bmp``, ``box_tex.bmp``; 8-bit sRGB, so the loader's
@@ -320,7 +374,8 @@ def write_standin_sdl(directory: str, width: int = 1920, height: int = 1080, see
     Returns the scene file's path.  Same features as ``flagship_standin``:
     CSG diff and inter, two bitmaps, a checker, a procedure2, Phong, a
     scaled and translated cube, the mirror sphere, AA5 (``aa``),
-    maxTraceDepth 5."""
+    maxTraceDepth 5, and the Monte-Carlo camera options (``dof``,
+    ``stereo``, ``samples``)."""
     import os
 
     from .imageio.bmp import save_bmp_file
@@ -329,6 +384,12 @@ def write_standin_sdl(directory: str, width: int = 1920, height: int = 1080, see
     for fname, size in (("floor_tex.bmp", 256), ("box_tex.bmp", 128)):
         # linear texels in, sRGB bytes out (the loader decodes them back)
         save_bmp_file(os.path.join(directory, fname), _bitmap(rng, size, size))
+    camera_mc = ""
+    if dof:
+        camera_mc += (f"\n        dof true\n        numSamples {samples}\n        focalPlaneDist {DOF_FOCAL_PLANE!r}"
+                      f"\n        fNumber {DOF_F_NUMBER!r}")
+    if stereo:
+        camera_mc += f"\n        stereoSeparation {STEREO_SEPARATION!r}"
     text = f"""// the flagship stand-in (chess2rt_tpu_torch/scenes.py), as a scene file
 Scene {{
     Name "flagship_standin"
@@ -342,7 +403,7 @@ Scene {{
     Camera {{
         pos 0.0 165.0 0.0
         pitch -20.0
-        fov 90.0
+        fov 90.0{camera_mc}
     }}
     Lights {{
         PointLight {{ name "key"; pos -160.0 420.0 120.0; color 1.0 0.95 0.9; power 150000.0 }}

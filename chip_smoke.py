@@ -35,13 +35,15 @@ read just after:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit, CUDA and nvcc versions;
-2. build: K1, K2 and K3's four stages from the checkout's sources, one nvcc
-   each, in parallel; registers, stack and spill bytes of every library;
+2. build: K1, K2, the threefry draw and K3's four stages from the
+   checkout's sources, one nvcc each, in parallel; registers, stack and
+   spill bytes of every library;
 3. K1 against its plain PyTorch version on the card: screen-tap and
-   ray-input at 320x240, on the stand-in and on the two CSG stress scenes
-   (a 16-hit list and nested CsgDiffs: the shared-memory hit lists, which
-   the stand-in's four-hit nodes never reach), then at the main path's
-   shapes (a 1080p tap and its block-compacted bounce rays);
+   ray-input at 320x240, on the stand-in and on the four CSG stress scenes
+   (16- and 40-hit lists, nested CsgDiffs, a 33-instruction nest: the hit
+   lists, which the stand-in's four-hit nodes never reach), each with the
+   lists in shared and in global memory (the same bits), then at the main
+   path's shapes (a 1080p tap and its block-compacted bounce rays);
 4. the frame at 1080p: K1's launch count from this run, a finite frame
    with most pixels lit, and the same frame through the plain version;
 5. timing with CUDA events: ms per frame and ms per 1080p K1 tap, kernel
@@ -101,7 +103,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     processes (``first_frame_split``: import, device init, pack, K1's
     library load, the first matmul, batched inverse, sort and K1 launch,
     three frames), with CUDA's lazy module loading and with
-    ``CUDA_MODULE_LOADING=EAGER``.
+    ``CUDA_MODULE_LOADING=EAGER``;
+19. the threefry draw (csrc/threefry.cu) bit-equal to its plain PyTorch
+    version on the card, and the card's plain draw to the CPU's, in f32 and
+    f64 at 2,073,600 lanes, with both times;
+20. the DoF stand-in (``scenes.flagship_standin(dof=True)``): the kernel
+    path against the plain path (plain K1, plain draws) at 640x480 with 4
+    samples, then the 1080p AA5 frame with the reference's 25 samples: its
+    ms (median of 3 after 1 warm-up), K1's and the draw's launch counts
+    (125 ray-input taps plus the bounce rounds, 500 draws), peak memory,
+    and the draws' share of the frame; K1's ray-input form against its
+    plain version on the frame's DoF rays;
+21. the stereo stand-in at 1080p AA5: kernel path against plain path, its
+    ms;
+22. the adaptive DoF frame at 1080p (4 samples): the flagged pixels, the
+    capacity, the lane-compacted taps against the full-width ones; the
+    chunked DoF frame (``chunk_pixels`` 262,144) against the un-chunked
+    frame.
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -202,6 +220,18 @@ OPS_MATRIX = (69, 44)  # (closest-hit record, dist-only); an offset costs 3
 #   powf * strength / dist2 4, += 6); diffuse * light 3; the mirror
 #   continuation 24 (ddn 5, R 9, rsq 7, scale 3)
 OPS_RAYGEN, OPS_HITPOINT, OPS_SHADOW_RAY, OPS_LIGHT, OPS_PHONG, OPS_OUT, OPS_CONT = 26, 20, 13, 25, 37, 3, 24
+# the threefry draw's integer operations per element (csrc/threefry.cu): the
+# counter's two key adds 2, 20 rounds of add, rotate (one funnel shift) and
+# xor 60, five key injections of three adds 15, the third key word 2, the
+# bits to a float (xor or or-shift, or, subtract) 4.  Counted against the
+# f32 rate above, the only non-tensor rate of the table (Hopper's 32-bit
+# integer rate is half of it), so the bound stays a lower bound
+OPS_THREEFRY = 83
+# the Monte-Carlo phases (19-22): the draw's width (one 1080p frame), the
+# DoF frame's samples at 640x480 (against the plain path) and at 1080p
+# (the reference's default), the adaptive and chunked DoF frames' samples
+MC_LANES = WIDTH * HEIGHT
+MC_SMALL_SAMPLES, MC_SAMPLES, MC_ADAPTIVE_SAMPLES = 4, 25, 4
 
 
 def log(msg: str) -> None:
@@ -481,31 +511,44 @@ def scattered_rays(seed, n, dev, center=(0.0, 120.0, 220.0), spread=150.0):
     return torch.from_numpy(orig).to(dev), torch.from_numpy(d).to(dev)
 
 
+STRESS_SCENES = ("deep16", "nested_diff", "deep40", "diff_nest")
+
+
 def compare_stress_scenes(dev, seed, residual):
-    """K1 against its plain version on the two CSG stress scenes
-    (scenes.csg_stress_scene) at SMALL, screen-tap and ray-input: the nodes
-    whose hit lists are longer than four take the kernel's shared-memory
-    lists and its pair-table network, and the nested CsgDiffs its replayed
-    normal flips, none of which the stand-in reaches.  Every node must win
-    some lane of the tap."""
+    """K1 against its plain version on the four CSG stress scenes
+    (scenes.csg_stress_scene) at SMALL, screen-tap and ray-input, with the
+    hit lists in shared memory and in global memory (the same bits both
+    ways): the nodes whose hit lists are longer than four take the kernel's
+    lists and its pair-table network (up to 40 slots, 39 instructions), and
+    the nested CsgDiffs its replayed normal flips (a leaf under 16 of them,
+    instructions past 31), none of which the stand-in reaches.  Every node
+    must win some lane of the tap."""
+    import torch
     from chess2rt_tpu_torch.models import types as T
     from chess2rt_tpu_torch.models.packed import pack_scene
     from chess2rt_tpu_torch.ops import round0 as R
     from chess2rt_tpu_torch.scenes import csg_stress_scene
 
     w, h = SMALL
-    for kind in ("deep16", "nested_diff"):
+    for kind in STRESS_SCENES:
         tp, ts = pack_scene(csg_stress_scene(T, kind, w, h), device=dev)
         lay = R.layout(ts, w, h, want_hit=residual, want_vis=residual)
         prm = lay.pack(tp, AA)
-        tap = R.round0(lay, prm)
-        compare_round0(f"{kind} {w}x{h} screen-tap", tap, R.round0_reference(lay, prm), lay.names)
-        winners = set(tap["win"].unique().tolist())
-        if winners != set(range(-1, len(ts.nodes))):
-            raise AssertionError(f"{kind}: the tap's winners {sorted(winners)} are not every node and a miss")
         orig_t, dir_t = scattered_rays(seed, w * h, dev, center=(0.0, 1.0, 0.0), spread=6.0)
-        compare_round0(f"{kind} {w}x{h} ray-input", R.round0(lay, prm, orig_t, dir_t),
-                       R.round0_reference(lay, prm, orig_t, dir_t), lay.names)
+        log(f"  {kind}: list capacity {int(lay.program[R.H_LIST_CAP])}, placement "
+            f"{R.list_placement(lay.program, lay.n_prm)} by the header")
+        for form, rays in (("screen-tap", ()), ("ray-input", (orig_t, dir_t))):
+            ref = R.round0_reference(lay, prm, *rays)
+            out = {pl: R.round0(lay, prm, *rays, placement=pl) for pl in ("shared", "global")}
+            compare_round0(f"{kind} {w}x{h} {form}", out["shared"], ref, lay.names)
+            differ = [k for k in out["shared"] if not torch.equal(out["shared"][k], out["global"][k])]
+            if differ:
+                raise AssertionError(f"{kind} {form}: the global lists change {differ}")
+            if form == "screen-tap":
+                winners = set(out["shared"]["win"].unique().tolist())
+                if winners != set(range(-1, len(ts.nodes))):
+                    raise AssertionError(f"{kind}: the tap's winners {sorted(winners)} are not every node and a miss")
+        log(f"  {kind}: global lists give the same bits as shared")
 
 
 def bounce_rays(tp, ts, tap):
@@ -735,6 +778,7 @@ def main(argv) -> int:
     kernels += slice_phases(argv, card, dev, kernel_ms, k1_ms)
     twin_phases(argv, card, dev, fused_frame, kernel_ms)
     del fused_frame
+    kernels += mc_phases(argv, card, dev, kernel_ms)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -1436,6 +1480,217 @@ def twin_phases(argv, card, dev, fused_frame, phase5_frame_ms):
         "f64_csg_free_ms": free_ms, "f64_csg_free_oracle_max_abs": free_err,
         "cli_k1_launches": cli_launches, "cli_stages_s": stages, "first_frame_split_s": first,
     }))
+
+
+def bits(t):
+    """A float tensor's bits as integers (bit-equality, NaNs included)."""
+    import torch
+
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def mc_phases(argv, card, dev, phase5_frame_ms):
+    """Phases 19-22: the threefry draw, the DoF, stereo, adaptive DoF and
+    chunked DoF frames.  Returns the kernels-line entries of the draw and of
+    K1's ray-input form at the DoF frame's width."""
+    import torch
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import flagship as F
+    from chess2rt_tpu_torch.ops import prng
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.ops.camera import begin_frame, screen_rays
+    from chess2rt_tpu_torch.render.pipeline import aa_detect, render_frame
+    from chess2rt_tpu_torch.scenes import flagship_standin
+
+    def zero_counts():
+        R.launches = R.resid_launches = R.ray_launches = R.lin_launches = 0
+        F.bounce_rounds = 0
+        prng.launches = 0
+
+    def plain_renderer(static, w, h):
+        return F.build_flagship_renderer(static, w, h, trace=R.round0_reference, uniform=prng.uniform_reference)
+
+    busy = torch.ones((8192, 8192), dtype=torch.float32, device=dev)
+    key = prng.PRNGKey(20)
+
+    # ---- 19. the threefry draw --------------------------------------------------------------
+    n = MC_LANES
+    log(f"phase 19 threefry draw: {n} lanes, kernel against plain on the card and against plain on the CPU")
+    draw = {}
+    for dt in (torch.float32, torch.float64):
+        k = prng.fold_in(prng.PRNGKey(19), dt == torch.float64)
+        zero_counts()
+        out = prng.uniform(k, (n,), dt, device=dev)
+        torch.cuda.synchronize()
+        if prng.launches != 1:
+            raise AssertionError(f"the draw launched the kernel {prng.launches} times")
+        plain = prng.uniform_reference(k, (n,), dt, device=dev)
+        cpu = prng.uniform_reference(k, (n,), dt, device="cpu")
+        card_vs_plain = int((bits(out) != bits(plain)).sum())
+        draw_err = (out.double() - plain.double()).abs().max().item()
+        plain_vs_cpu = int((bits(plain).cpu() != bits(cpu)).sum())
+        lo, hi = out.min().item(), out.max().item()
+        ms, _ = time_events(lambda i: prng.uniform(k, (n,), dt, device=dev), 20, 3)
+        q_ms = queued_ms(lambda: prng.uniform(k, (n,), dt, device=dev), 20, busy)
+        plain_ms, _ = time_events(lambda i: prng.uniform_reference(k, (n,), dt, device=dev), 5, 1)
+        rand_ms, _ = time_events(lambda i: torch.rand(n, dtype=dt, device=dev), 20, 3)
+        name = str(dt).split(".")[-1]
+        log(f"  {name}: kernel vs plain on the card {card_vs_plain} differing values, plain on the card vs plain "
+            f"on the CPU {plain_vs_cpu}; range [{lo:.3e}, {hi:.6f}); kernel {ms:.4f} ms per call, {q_ms:.4f} ms "
+            f"queued; plain {plain_ms:.3f} ms; torch.rand (Philox, another stream: no yardstick of the same "
+            f"function) {rand_ms:.4f} ms")
+        if card_vs_plain or plain_vs_cpu or not (0.0 <= lo and hi < 1.0):
+            raise AssertionError(f"threefry {name}: {card_vs_plain} values differ from the plain draw, "
+                                 f"{plain_vs_cpu} between the card and the CPU, range [{lo}, {hi}]")
+        draw[name] = (ms, q_ms, plain_ms, draw_err, *bound(n * out.element_size(), n * OPS_THREEFRY))
+    del out, plain, cpu
+
+    # ---- 20. the DoF frame --------------------------------------------------------------------
+    w, h = GRAD_SIZE
+    tp, ts = pack_scene(flagship_standin(T, w, h, dof=True, samples=MC_SMALL_SAMPLES), device=dev)
+    log(f"phase 20 DoF stand-in (focal plane {tp.camera.focal_plane_dist.item()}, disc radius "
+        f"{tp.camera.disc_multiplier.item()}): {w}x{h} AA5 {MC_SMALL_SAMPLES} samples, kernel path vs plain path")
+    zero_counts()
+    img = render_frame(tp, ts, key)
+    torch.cuda.synchronize()
+    draws, rays, rounds = prng.launches, R.ray_launches, F.bounce_rounds
+    taps = 5 * MC_SMALL_SAMPLES
+    log(f"  K1 launches {R.launches} (ray-input {rays}, bounce rounds {rounds}), draws {draws}")
+    if draws != 4 * taps or rays != R.launches or rays != taps + rounds or R.resid_launches:
+        raise AssertionError(f"the {w}x{h} DoF frame: {draws} draws, K1 {R.launches} launches ({rays} ray-input, "
+                             f"{rounds} bounce rounds) for {taps} taps")
+    if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"DoF frame {tuple(img.shape)} is not a finite {h}x{w}x3 image")
+    zero_counts()
+    plain = plain_renderer(ts, w, h)(tp, key)
+    torch.cuda.synchronize()
+    if R.launches or prng.launches:
+        raise AssertionError(f"the plain DoF path launched K1 {R.launches} times and the draw {prng.launches}")
+    dof_small_err = compare_frames(f"DoF {w}x{h} kernel frame vs plain frame", img, plain)
+    del img, plain
+
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT, dof=True, samples=MC_SAMPLES), device=dev)
+    log(f"  DoF {WIDTH}x{HEIGHT} AA5, {MC_SAMPLES} samples")
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    img = render_frame(tp, ts, key)
+    torch.cuda.synchronize()
+    dof_peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    dof_draws, dof_rays, dof_rounds = prng.launches, R.ray_launches, F.bounce_rounds
+    taps = 5 * MC_SAMPLES
+    log(f"  K1 launches {R.launches} (ray-input {dof_rays}, bounce rounds {dof_rounds}), draws {dof_draws}, "
+        f"peak device memory above the scene {dof_peak:.3f} GiB")
+    if dof_draws != 4 * taps or dof_rays != R.launches or dof_rays != taps + dof_rounds:
+        raise AssertionError(f"the 1080p DoF frame: {dof_draws} draws, K1 {R.launches} launches")
+    if not bool(torch.isfinite(img).all()) or (img.amax(-1) > 0).double().mean().item() <= 0.5:
+        raise AssertionError("the 1080p DoF frame is not finite or mostly black")
+    dof_ms, dof_all = time_events(lambda i: render_frame(jittered(tp, i), ts, prng.fold_in(key, i)), 3, 1)
+    def frame_draws(i):
+        for j in range(dof_draws):
+            prng.uniform(prng.fold_in(key, j), (MC_LANES,), device=dev)
+
+    draws_ms, _ = time_events(frame_draws, 1, 1)
+    log(f"  DoF frame {dof_ms:.3f} ms {['%.3f' % t for t in dof_all]} (the deterministic frame, phase 5: "
+        f"{phase5_frame_ms:.3f} ms; {dof_ms / phase5_frame_ms:.1f}x) on {card}; its {dof_draws} draws alone "
+        f"{draws_ms:.3f} ms, {draws_ms / dof_ms:.1%} of the frame")
+    # K1's ray-input form on the frame's first DoF rays (what every MC pass launches)
+    frame = begin_frame(tp.camera, WIDTH / HEIGHT)
+    lin = torch.arange(MC_LANES, device=dev)
+    k1, k2 = prng.split(prng.PRNGKey(21))
+    uv = (prng.uniform(k1, (MC_LANES,), device=dev), prng.uniform(k2, (MC_LANES,), device=dev))
+    o3, d3 = screen_rays(tp.camera, frame, float(WIDTH), float(HEIGHT), (lin % WIDTH).float() + 0.5,
+                         (lin // WIDTH).float() + 0.5, 0.0, dof=True, disc_uv=uv)
+    o3, d3 = o3.contiguous(), d3.contiguous()
+    lay = R.layout(ts, WIDTH, HEIGHT)
+    prm0 = lay.pack(tp)
+    mc_err = compare_round0(f"ray-input on {MC_LANES} DoF rays", R.round0(lay, prm0, o3, d3),
+                            R.round0_reference(lay, prm0, o3, d3), lay.names)
+    mc_bound = k1_bound(lay, MC_LANES, lit_shares(R.round0(lay, prm0, o3, d3, want_vis=True), ts.n_lights),
+                        ray_input=True)
+    mc_ms, _ = time_events(lambda i: R.round0(lay, prm0, o3, d3), 20, 3)
+    mc_q = queued_ms(lambda: R.round0(lay, prm0, o3, d3), 20, busy)
+    mc_plain_ms, _ = time_events(lambda i: R.round0_reference(lay, prm0, o3, d3), 3, 1)
+    log(f"  K1 ray-input on {MC_LANES} DoF rays: {mc_ms:.4f} ms per call, {mc_q:.4f} ms queued, plain "
+        f"{mc_plain_ms:.3f} ms, bound {mc_bound[0]:.4f} ms ({mc_bound[1]})")
+    if "--profile" in argv:
+        profile_run("DoF frame", lambda: render_frame(jittered(tp, 95), ts, key))
+    del img, o3, d3, uv, lin
+
+    # ---- 21. the stereo frame -------------------------------------------------------------------
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT, stereo=True), device=dev)
+    log(f"phase 21 stereo stand-in {WIDTH}x{HEIGHT} AA5 (eye separation {tp.camera.stereo_separation.item()})")
+    zero_counts()
+    img = render_frame(tp, ts, key)
+    torch.cuda.synchronize()
+    st_launches, st_rays, st_rounds = R.launches, R.ray_launches, F.bounce_rounds
+    log(f"  K1 launches {st_launches} (ray-input {st_rays}, bounce rounds {st_rounds}), draws {prng.launches}")
+    if st_rays != st_launches or st_rays != 10 + st_rounds or prng.launches:
+        raise AssertionError(f"the stereo frame: K1 {st_launches} launches ({st_rays} ray-input) for 10 eye taps "
+                             f"and {st_rounds} bounce rounds, {prng.launches} draws")
+    stereo_err = compare_frames("stereo kernel frame vs plain frame", img, plain_renderer(ts, WIDTH, HEIGHT)(tp, key))
+    stereo_ms, stereo_all = time_events(lambda i: render_frame(jittered(tp, i), ts, key), 3, 1)
+    log(f"  stereo frame {stereo_ms:.3f} ms {['%.3f' % t for t in stereo_all]} on {card}")
+    del img
+
+    # ---- 22. the adaptive and the chunked DoF frames --------------------------------------------
+    sc = flagship_standin(T, WIDTH, HEIGHT, dof=True, samples=MC_ADAPTIVE_SAMPLES)
+    sc.settings.adaptiveAA = True
+    tp, ts = pack_scene(sc, device=dev)
+    base = render_frame(tp, dataclasses.replace(ts, aa_enabled=False), key)
+    flagged = int(aa_detect(base).sum())
+    cap = F._aa_capacity(flagged)
+    log(f"phase 22 adaptive DoF {WIDTH}x{HEIGHT}, {MC_ADAPTIVE_SAMPLES} samples: {flagged} pixels flagged "
+        f"({flagged / MC_LANES:.2%}); the default capacity {F._aa_capacity(-(-MC_LANES // 32))} lanes")
+    adaptive = {}
+    for label, capacity in (("compact", cap), ("full width", 1024)):
+        tsa = dataclasses.replace(ts, aa_capacity=capacity)
+        zero_counts()
+        out = render_frame(tp, tsa, key)
+        torch.cuda.synchronize()
+        launches, rays, rounds, draws = R.launches, R.ray_launches, F.bounce_rounds, prng.launches
+        ms, all_ms = time_events(lambda i: render_frame(jittered(tp, i), tsa, key), 2, 0)
+        adaptive[label] = (out, ms)
+        log(f"  {label} (aa_capacity {capacity}): K1 launches {launches} (ray-input {rays}, bounce rounds "
+            f"{rounds}), draws {draws}, {ms:.3f} ms {['%.3f' % t for t in all_ms]}")
+    adaptive_err = compare_frames("adaptive DoF: compact taps vs full-width taps", adaptive["compact"][0],
+                                  adaptive["full width"][0])
+    base_ms = adaptive["full width"][1]
+    sc = flagship_standin(T, WIDTH, HEIGHT, dof=True, samples=MC_ADAPTIVE_SAMPLES)
+    tp, ts = pack_scene(sc, device=dev)
+    whole = render_frame(tp, ts, key)
+    tsc = dataclasses.replace(ts, chunk_pixels=CHUNK_PIXELS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    chunked = render_frame(tp, tsc, key)
+    torch.cuda.synchronize()
+    chunk_peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    chunk_err = compare_frames(f"chunked DoF (chunk_pixels {CHUNK_PIXELS}) vs un-chunked", chunked, whole)
+    chunk_ms, chunk_all = time_events(lambda i: render_frame(jittered(tp, i), tsc, key), 2, 0)
+    log(f"  chunked DoF frame {chunk_ms:.3f} ms {['%.3f' % t for t in chunk_all]}, peak {chunk_peak:.3f} GiB")
+    del whole, chunked, adaptive, base
+
+    log(json.dumps({
+        "draw_ms": {k: v[:3] for k, v in draw.items()}, "draw_bound_ms": {k: v[4] for k, v in draw.items()},
+        "dof_small_max_abs_err": dof_small_err,
+        "dof_frame_ms": dof_ms, "dof_frame_all_ms": dof_all, "dof_draws": dof_draws, "dof_k1_launches": dof_rays,
+        "dof_bounce_rounds": dof_rounds, "dof_peak_gib": dof_peak, "dof_draws_ms": draws_ms,
+        "stereo_frame_ms": stereo_ms, "stereo_max_abs_err": stereo_err, "stereo_k1_launches": st_launches,
+        "adaptive_dof_flagged": flagged, "adaptive_dof_capacity": cap, "adaptive_dof_max_abs_err": adaptive_err,
+        "adaptive_dof_full_ms": base_ms, "chunked_dof_ms": chunk_ms, "chunked_dof_max_abs_err": chunk_err,
+        "chunked_dof_peak_gib": chunk_peak,
+    }))
+    f32 = draw["float32"]
+    return [
+        {**kernel_entry("threefry uniform draw, f32 (2,073,600 lanes; no TPU kernel: XLA's threefry2x32)",
+                        "chess2rt_tpu_torch/csrc/threefry.cu", "none: XLA's threefry2x32 (jax.random.uniform)",
+                        dof_draws, f32[3], f32[0], f32[2], *f32[4:]), "queued_ms": f32[1]},
+        {**kernel_entry(f"round0 ray-input form (K1, one DoF pass of {MC_LANES} rays)", K1_SOURCE, K1_REPLACES,
+                        dof_rays, mc_err, mc_ms, mc_plain_ms, *mc_bound), "queued_ms": mc_q},
+    ]
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib
+import inspect
 import json
 import os
 import statistics
@@ -70,10 +71,17 @@ def k1_runs(pkg, dev, rays=None):
         f"{gw}x{gh} residual tap": lambda: R.round0(glay, gprm),
         f"shard tap, {lanes} lanes": lambda: R.round0(lay, prm_lin, lin_input=True, n_lanes=lanes),
     }
-    for kind in ("deep16", "nested_diff") if hasattr(scenes, "csg_stress_scene") else ():
-        sp, ss = pack_scene(scenes.csg_stress_scene(T, kind, w, h), device=dev)
+    placements = ("shared", "global") if "placement" in inspect.signature(R.round0).parameters else (None,)
+    for kind in ("deep16", "nested_diff", "deep40", "diff_nest") if hasattr(scenes, "csg_stress_scene") else ():
+        try:
+            sp, ss = pack_scene(scenes.csg_stress_scene(T, kind, w, h), device=dev)
+        except ValueError:  # a scene an earlier commit does not have
+            continue
         slay = R.layout(ss, w, h)
-        runs[f"{kind} {w}x{h} tap"] = lambda slay=slay, sprm=slay.pack(sp): R.round0(slay, sprm)
+        for pl in placements:
+            label = f"{kind} {w}x{h} tap" + (f" ({pl} lists)" if pl and pl != "shared" else "")
+            kw = {"placement": pl} if pl else {}
+            runs[label] = lambda slay=slay, sprm=slay.pack(sp), kw=kw: R.round0(slay, sprm, **kw)
     return runs, (o3, d3)
 
 

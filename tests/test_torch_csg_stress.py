@@ -1,16 +1,18 @@
 """The CSG stress scenes against the JAX package's plain (XLA) path.
 
-``scenes.csg_stress_scene`` builds the two scenes that load K1's CSG hit
-lists the most: ``deep16`` (a 16-hit union, the kernel's MAX_HITS) and
-``nested_diff`` (CsgDiff inside CsgDiff on both sides).  The JAX Pallas
-kernel in interpret mode takes too long to compile for them, so here the
+``scenes.csg_stress_scene`` builds the scenes that load K1's CSG hit lists
+the most: ``deep16`` (a 16-hit union), ``nested_diff`` (CsgDiff inside
+CsgDiff on both sides), ``deep40`` (a 40-hit union of 39 instructions) and
+``diff_nest`` (17 spheres under nested CsgDiffs, 33 instructions).  The JAX
+Pallas kernel in interpret mode takes too long to compile for them, so here the
 port's plain version ``round0_reference`` is held to the JAX package's
 non-Pallas path on the same rays: ``ops.geometry.scene_closest`` (winner,
 distance, raw normal, UVs) and ``ops.geometry.test_visibility`` (the shadow
 bit) from the faceforward-offset hit point, as ``ops.shade.shade_direct``
 takes it.  tests/test_torch_kernel_host.py holds the kernel's device code
 to that plain version on the same scenes, which anchors it to the JAX
-package.
+package.  The JAX side of the two long scenes runs eagerly: XLA takes
+minutes to compile their networks.
 
 Rays: the 32x24 screen tap's own (made by the JAX camera) and seeded rays
 scattered through the scene.  Limits: the repo's kernel-vs-reference limits
@@ -64,6 +66,7 @@ def _jax_plain(static, jp, orig, dir):
 
 
 FORMS = ("tap_rays", "scattered")
+LONG = ("deep40", "diff_nest")
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,14 +76,18 @@ def _both_sides(kind):
     jp, js = jax_pack_scene(csg_stress_scene(JT, kind, W, H), dtype=jnp.float32)
     tp, ts = torch_pack_scene(csg_stress_scene(TT, kind, W, H), device="cpu")
     orig, dir = (np.concatenate(x) for x in zip(*[_rays(jp, form) for form in FORMS]))
-    ref = to_numpy(jax.jit(functools.partial(_jax_plain, js))(jp, jnp.asarray(orig), jnp.asarray(dir)))
+    if kind in LONG:
+        with jax.disable_jit():
+            ref = to_numpy(_jax_plain(js, jp, jnp.asarray(orig), jnp.asarray(dir)))
+    else:
+        ref = to_numpy(jax.jit(functools.partial(_jax_plain, js))(jp, jnp.asarray(orig), jnp.asarray(dir)))
     lay = R.layout(ts, W, H, want_hit=True, want_vis=True)
     out = to_numpy(R.round0_reference(lay, lay.pack(tp), torch.from_numpy(orig), torch.from_numpy(dir)))
     return out, ref, ts
 
 
 @pytest.mark.parametrize("form", FORMS)
-@pytest.mark.parametrize("kind", ["deep16", "nested_diff"])
+@pytest.mark.parametrize("kind", ["deep16", "nested_diff", *LONG])
 def test_plain_version_matches_jax_xla_path(kind, form):
     out, ref, ts = _both_sides(kind)
     lanes = slice(FORMS.index(form) * W * H, (FORMS.index(form) + 1) * W * H)

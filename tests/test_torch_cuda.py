@@ -1,10 +1,13 @@
 """The hand-written kernels against their plain PyTorch versions, on the
 card: K1 (csrc/round0.cu) in its screen-tap, ray-input, residual and
-lin-input forms on the stand-in, the seeded fuzz scenes and the two CSG
-stress scenes (a 16-hit list, nested CsgDiffs), K2 (csrc/texel_hist.cu) on
-the shapes a row-parallel segmented sum can get wrong, K3's four stages
-(round0.cu built with -DC2RT_STAGE=k), the round-0 gradient through each
-form, and the sharded, chunked and adaptive frames at small sizes.
+lin-input forms on the stand-in, the seeded fuzz scenes and the four CSG
+stress scenes (16- and 40-hit lists, nested CsgDiffs, a 33-instruction
+CsgDiff nest), with its hit lists in shared and in global memory, K2
+(csrc/texel_hist.cu) on the shapes a row-parallel segmented sum can get
+wrong, K3's four stages (round0.cu built with -DC2RT_STAGE=k), the round-0
+gradient through each form, the threefry draw (csrc/threefry.cu) bit for
+bit, and the sharded, chunked, adaptive, DoF and stereo frames at small
+sizes.
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -25,6 +28,7 @@ import torch
 from chess2rt_tpu_torch.models import types as T
 from chess2rt_tpu_torch.models.packed import LEAF_NAMES, from_leaves, leaves, pack_scene
 from chess2rt_tpu_torch.ops import flagship as F
+from chess2rt_tpu_torch.ops import prng
 from chess2rt_tpu_torch.ops import round0 as R
 from chess2rt_tpu_torch.ops import texel_hist as K2
 from chess2rt_tpu_torch.ops.round0_grad import diff_round0
@@ -60,9 +64,11 @@ SCENES = {
     # the refraction and total-internal-reflection branch
     "glass": lambda: flagship_standin(T, 160, 120, glass=True),
     **{f"random{s}": (lambda s=s: random_scene(T, s, width=96, height=72)) for s in range(1000, 1012)},
-    # a 16-hit list (the kernel's MAX_HITS) and CsgDiff nodes nested on both sides
+    # 16- and 40-hit lists, CsgDiff nodes nested on both sides, a 33-instruction nest
     "deep16": lambda: csg_stress_scene(T, "deep16", 96, 72),
     "nested_diff": lambda: csg_stress_scene(T, "nested_diff", 96, 72),
+    "deep40": lambda: csg_stress_scene(T, "deep40", 96, 72),
+    "diff_nest": lambda: csg_stress_scene(T, "diff_nest", 96, 72),
 }
 
 
@@ -320,8 +326,8 @@ def test_tables_beyond_shared_memory_are_refused(cuda, monkeypatch):
     prog = torch.zeros(10_000, dtype=torch.int32, device=cuda)
     out = torch.zeros((3, 128), dtype=torch.float32, device=cuda)
     win = torch.zeros(128, dtype=torch.int32, device=cuda)
-    err = lib.c2rt_round0(prm.data_ptr(), prog.data_ptr(), prm.numel(), prog.numel(), None, None, out.data_ptr(),
-                          win.data_ptr(), 128, 64, 48, None)
+    err = lib.c2rt_round0(prm.data_ptr(), prog.data_ptr(), prm.numel(), prog.numel(), 1, None, None, None,
+                          out.data_ptr(), win.data_ptr(), 128, 64, 48, None)
     torch.cuda.synchronize()
     assert err == 1  # cudaErrorInvalidValue: 280,000 bytes of tables, refused before the launch
     with pytest.raises(ValueError, match="shared memory"):
@@ -456,3 +462,55 @@ def test_f64_render_frame_on_the_card_meets_the_oracle(cuda):
     img = img.cpu().numpy()
     assert np.abs(img - gold).max() < 1e-6
     np.testing.assert_array_equal(srgb_u8(img.astype(np.float32)), srgb_u8(gold.astype(np.float32)))
+
+
+@pytest.mark.parametrize("name", ["deep16", "nested_diff", "deep40", "diff_nest"])
+def test_list_placements_give_the_same_bits(cuda, name):
+    """The hit lists in global memory against shared memory: residual rows
+    on, screen-tap and ray-input, every output bit-equal."""
+    tp, ts = pack_scene(SCENES[name](), device=cuda)
+    lay = R.layout(ts, ts.width, ts.height, want_hit=True, want_vis=True)
+    prm = lay.pack(tp, (0.3, 0.6))
+    assert R.list_placement(lay.program, lay.n_prm) == "shared"
+    for rays in ((), _rays(name, ts.width * ts.height, cuda)):
+        shared = R.round0(lay, prm, *rays, placement="shared")
+        glob = R.round0(lay, prm, *rays, placement="global")
+        for k in shared:
+            assert torch.equal(shared[k], glob[k]), k
+        _assert_close(shared, R.round0_reference(lay, prm, *rays), [k for k in lay.names if not k.startswith("vis")])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 100_003])
+def test_threefry_draw_matches_plain_bit_for_bit(cuda, dtype, n):
+    key = prng.fold_in(prng.PRNGKey(n), 3)
+    before = prng.launches
+    out = prng.uniform(key, (n,), dtype, device=cuda)
+    assert prng.launches == before + 1
+    view = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(out.view(view), prng.uniform_reference(key, (n,), dtype, device=cuda).view(view))
+    assert torch.equal(out.cpu().view(view), prng.uniform_reference(key, (n,), dtype, device="cpu").view(view))
+    assert prng.uniform(key, (0,), dtype, device=cuda).shape == (0,)
+
+
+@pytest.mark.parametrize("mode", ["dof", "stereo", "dof_adaptive", "dof_chunked"])
+def test_mc_frame_matches_plain_frame(cuda, mode):
+    """DoF and stereo frames through K1's ray-input form and the threefry
+    draw against the plain path (plain K1, plain draws), at the frame
+    limits."""
+    import dataclasses
+
+    sc = flagship_standin(T, 96, 72, dof=mode != "stereo", stereo=mode == "stereo", samples=3)
+    sc.settings.adaptiveAA = mode == "dof_adaptive"
+    tp, ts = pack_scene(sc, device=cuda)
+    if mode == "dof_chunked":
+        ts = dataclasses.replace(ts, chunk_pixels=2048)
+    key = prng.PRNGKey(5)
+    R.launches = R.ray_launches = prng.launches = 0
+    img = F.build_flagship_renderer(ts, 96, 72)(tp, key)
+    assert R.ray_launches and R.launches == R.ray_launches and (prng.launches > 0) == (mode != "stereo")
+    ref = F.build_flagship_renderer(ts, 96, 72, trace=R.round0_reference, uniform=prng.uniform_reference)(tp, key)
+    d = (img - ref).abs().amax(-1).double()
+    assert bool(torch.isfinite(img).all())
+    assert (d > 2e-3).double().mean().item() < 0.01
+    assert d.median().item() < 2e-4

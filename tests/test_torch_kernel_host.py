@@ -3,15 +3,17 @@ on the CPU.
 
 * K2's wrapper: how ``plan`` cuts N rows into spans and sizes the scratch,
   which load width ``load_width`` picks, what an empty input gives.
-* K1's scene program: its table offsets and every node's hit-list length,
-  the CsgDiff set every leaf carries, the shared-memory limit, and the constants
-  that ops/round0.py, ops/texel_hist.py and cuda_build.py share with the
-  CUDA sources (read from the source text).
+* K1's scene program: its table offsets, every node's hit-list length and
+  the list capacity, the CsgDiff list every leaf carries, the shared-memory
+  limit and the lists' placement, and the constants that ops/round0.py,
+  ops/texel_hist.py and cuda_build.py share with the CUDA sources (read
+  from the source text).
 * csrc/round0.cu's device code compiled by the host's C++ compiler through
   a small stand-in for ``cuda_runtime.h`` and run thread by thread (tables
   in global memory, so no barrier is needed), against ``round0_reference``
-  on the stand-in, the seeded fuzz scenes and the two CSG stress scenes, in
-  every form, with and without the residual rows, at the repo's
+  on the stand-in, the seeded fuzz scenes and the four CSG stress scenes, in
+  every form, with and without the residual rows, with the hit lists in
+  (emulated) shared and in global memory, at the repo's
   kernel-vs-reference limits.  This checks the kernel's logic (the tags,
   the winner-only record, the replayed CsgDiff flips, the register merge,
   the skipped scans), not its speed; the card tests check the build itself.
@@ -103,6 +105,8 @@ SCENES = {
     "glass": lambda: flagship_standin(TT, W, H, glass=True),
     "deep16": lambda: csg_stress_scene(TT, "deep16", W, H),
     "nested_diff": lambda: csg_stress_scene(TT, "nested_diff", W, H),
+    "deep40": lambda: csg_stress_scene(TT, "deep40", W, H),
+    "diff_nest": lambda: csg_stress_scene(TT, "diff_nest", W, H),
     **{f"random{s}": (lambda s=s: random_scene(TT, s, width=W, height=H)) for s in range(1000, 1008)},
 }
 
@@ -111,19 +115,25 @@ def _packed(name):
     return pack_scene(SCENES[name](), device="cpu")
 
 
-@pytest.mark.parametrize("name,longest", [("standin", 4), ("deep16", 16), ("nested_diff", 8)])
+@pytest.mark.parametrize("name,longest", [("standin", 4), ("deep16", 16), ("nested_diff", 8), ("deep40", 40),
+                                          ("diff_nest", 34)])
 def test_header_holds_table_lengths_and_longest_list(name, longest):
     _, ts = _packed(name)
     lay = R.layout(ts, W, H)
     prog = lay.program
-    # the tables follow the header in order and the pairs end the program
-    light_tab, node_tab, instr_tab, pair_tab = (prog[h] for h in (R.H_LIGHT_TAB, R.H_NODE_TAB, R.H_INSTR_TAB,
-                                                                  R.H_PAIR_TAB))
+    # the tables follow the header in order and the diff table ends the program
+    light_tab, node_tab, instr_tab, pair_tab, diff_tab = (
+        prog[h] for h in (R.H_LIGHT_TAB, R.H_NODE_TAB, R.H_INSTR_TAB, R.H_PAIR_TAB, R.H_DIFF_TAB))
     assert light_tab == R.HEADER and node_tab == light_tab + ts.n_lights
     assert instr_tab == node_tab + R.NODE_STRIDE * len(ts.nodes)
-    assert (pair_tab - instr_tab) % R.INSTR_STRIDE == 0 and (prog.size - pair_tab) % 2 == 0
-    assert _longest_list(prog) == longest <= R.MAX_HITS
+    assert (pair_tab - instr_tab) % R.INSTR_STRIDE == 0 and (diff_tab - pair_tab) % 2 == 0
+    leaves = [k for k in range((pair_tab - instr_tab) // R.INSTR_STRIDE)
+              if prog[instr_tab + R.INSTR_STRIDE * k] != R.OP_CSG]
+    assert prog.size - diff_tab == sum(prog[instr_tab + R.INSTR_STRIDE * k + 3] for k in leaves)
+    # the list capacity is the longest list, and every scene here keeps its lists in shared memory
+    assert _longest_list(prog) == longest == prog[R.H_LIST_CAP]
     assert R.check_table_bytes(prog.size, lay.n_prm) == 4 * (prog.size + lay.n_prm)
+    assert R.list_placement(prog, lay.n_prm) == "shared"
 
 
 def _longest_list(prog):
@@ -133,19 +143,25 @@ def _longest_list(prog):
 
 
 def _diffs_above(expr, start):
-    """[(leaf instruction, bit set of the CsgDiff instructions above it)] of
-    an expression emitted from instruction ``start`` on, both relative to
+    """[(leaf instruction, the CsgDiff instructions above it, ascending)] of
+    an expression emitted from instruction ``start`` on, all relative to
     the node's first instruction, and the number of instructions emitted."""
     if expr[0] != "csg":
-        return [(start, 0)], 1
+        return [(start, [])], 1
     left, n_left = _diffs_above(expr[2], start)
     right, n_right = _diffs_above(expr[3], start + n_left)
     here = start + n_left + n_right
-    bit = (1 << here) if expr[1] == "diff" else 0
-    return [(k, m | bit) for k, m in left + right], n_left + n_right + 1
+    above = [here] if expr[1] == "diff" else []
+    return [(k, d + above) for k, d in left + right], n_left + n_right + 1
 
 
-@pytest.mark.parametrize("name", ["standin", "nested_diff", "deep16", "random1003", "random1005"])
+def _leaf_diffs(prog, k):
+    """The diff list of instruction ``k`` (absolute), read from the diff table."""
+    ins = prog[prog[R.H_INSTR_TAB] + R.INSTR_STRIDE * k:][: R.INSTR_STRIDE]
+    return prog[ins[2]: ins[2] + ins[3]].tolist()
+
+
+@pytest.mark.parametrize("name", ["standin", "nested_diff", "deep16", "random1003", "random1005", "diff_nest"])
 def test_leaves_carry_the_diffs_above_them(name):
     _, ts = _packed(name)
     lay = R.layout(ts, W, H)
@@ -155,29 +171,35 @@ def test_leaves_carry_the_diffs_above_them(name):
     for i, expr in enumerate(lay.expr_tables):
         start = prog[node_tab + R.NODE_STRIDE * i + 7]
         want, count = _diffs_above(expr, 0)
-        assert count == prog[node_tab + R.NODE_STRIDE * i + 8] <= 31  # the tag's five bits
-        for rel, mask in want:
-            ins = prog[instr_tab + R.INSTR_STRIDE * (start + rel):][: R.INSTR_STRIDE]
-            assert ins[0] != R.OP_CSG and ins[2] == mask, (i, rel)
-            seen_diff |= mask != 0
-    if name in ("standin", "nested_diff"):
+        assert count == prog[node_tab + R.NODE_STRIDE * i + 8] < R.TAG_KEPT  # the tag's instruction field
+        for rel, diffs in want:
+            assert prog[instr_tab + R.INSTR_STRIDE * (start + rel)] != R.OP_CSG
+            assert _leaf_diffs(prog, start + rel) == diffs, (i, rel)
+            seen_diff |= bool(diffs)
+    if name in ("standin", "nested_diff", "diff_nest"):
         assert seen_diff
 
 
 def test_nested_diff_leaves_sit_under_two_diffs():
-    _, ts = _packed("nested_diff")
-    prog = R.layout(ts, W, H).program
-    instr_tab = prog[R.H_INSTR_TAB]
-    n_instr = (prog[R.H_PAIR_TAB] - instr_tab) // R.INSTR_STRIDE
-    masks = [int(prog[instr_tab + R.INSTR_STRIDE * k + 2]) for k in range(n_instr)
-             if prog[instr_tab + R.INSTR_STRIDE * k] != R.OP_CSG]
-    assert max(bin(m).count("1") for m in masks) == 2
+    """And the long nest's leaves under up to 16, past instruction 31."""
+    for name, most, last in (("nested_diff", 2, None), ("diff_nest", 16, 32)):
+        _, ts = _packed(name)
+        prog = R.layout(ts, W, H).program
+        instr_tab = prog[R.H_INSTR_TAB]
+        n_instr = (prog[R.H_PAIR_TAB] - instr_tab) // R.INSTR_STRIDE
+        lists = [_leaf_diffs(prog, k) for k in range(n_instr) if prog[instr_tab + R.INSTR_STRIDE * k] != R.OP_CSG]
+        assert max(len(d) for d in lists) == most
+        if last is not None:
+            assert max(max(d, default=0) for d in lists) == last
 
 
 def test_tables_beyond_shared_memory_are_refused(monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         R.check_table_bytes(60_000, 10_000)
-    assert R.MAX_TABLE_BYTES + 12 * 1024 <= 227 * 1024  # the hit lists take 12 KB of a block's 227
+    # tables at the limit leave a block room for lists of 27 slots; a node of
+    # TAG_KEPT instructions could not fit in the tables at all
+    assert R.SHARED_BLOCK_BYTES - R.MAX_TABLE_BYTES == 27 * 8 * R.BLOCK_THREADS
+    assert 4 * R.INSTR_STRIDE * R.TAG_KEPT > R.MAX_TABLE_BYTES
     # a scene whose own tables are too large: layout() refuses it
     _, ts = _packed("deep16")
     n_bytes = 4 * (R.layout(ts, W, H).program.size + R.layout(ts, W, H).n_prm)
@@ -191,6 +213,11 @@ def test_tables_beyond_shared_memory_are_refused(monkeypatch):
 
 
 def test_seventeen_hits_are_refused_and_sixteen_are_not():
+    """Neither is refused now that K1 sizes its lists per scene (it held 16
+    slots once): 16 and 17 hits encode with their own list capacity, and a
+    list that does not fit in a block's shared memory beside the tables
+    goes to global memory."""
+
     def chain(n_spheres, plane):
         sc = TT.Scene()
         geom = TT.Sphere(name="s0", center=(0.0, 0.0, 5.0), R=1.0)
@@ -202,9 +229,15 @@ def test_seventeen_hits_are_refused_and_sixteen_are_not():
         sc.nodes = [TT.Node(name="n", geometry=geom, shader=TT.Lambert(name="l"))]
         return pack_scene(sc, device="cpu")[1]
 
-    assert _longest_list(R.layout(chain(8, False), 8, 8).program) == 16
-    with pytest.raises(ValueError, match="MAX_HITS"):
-        R.layout(chain(8, True), 8, 8)
+    for n_spheres, plane, want in ((8, False, 16), (8, True, 17), (20, True, 41)):
+        lay = R.layout(chain(n_spheres, plane), 8, 8)
+        assert _longest_list(lay.program) == lay.program[R.H_LIST_CAP] == want
+        assert R.list_placement(lay.program, lay.n_prm) == "shared"
+    # the same list beside tables that leave it no room
+    prog = R.layout(chain(20, True), 8, 8).program
+    room = R.SHARED_BLOCK_BYTES - 8 * 41 * R.BLOCK_THREADS
+    assert R.list_placement(prog, room // 4 - prog.size) == "shared"
+    assert R.list_placement(prog, room // 4 - prog.size + 1) == "global"
 
 
 def _enum(text, first):
@@ -219,21 +252,21 @@ def test_program_constants_match_the_cuda_source():
         return int(re.search(r"constexpr int " + name + r" = (\d+);", text).group(1))
 
     assert const("PROGRAM_VERSION") == R.PROGRAM_VERSION
-    assert const("MAX_HITS") == R.MAX_HITS
+    assert const("TAG_BITS") == R.TAG_BITS and 2 * R.TAG_BITS + 3 <= 31  # leaf, which, dropped; bit 31 the side
     assert const("NODE_STRIDE") == R.NODE_STRIDE and const("INSTR_STRIDE") == R.INSTR_STRIDE
-    assert const("BLOCK") == R.BOUNCE_BLOCK == 128
+    assert const("BLOCK") == R.BOUNCE_BLOCK == R.BLOCK_THREADS == 128
     header = _enum(text, "H_VERSION")
     assert [getattr(R, name) for name in header] == list(range(len(header))) and len(header) <= R.HEADER
     flags = dict(re.findall(r"\b(F_[A-Z_]+) = (\d+)", re.search(r"enum \{ F_PHONG.*?\};", text, re.S).group(0)))
     assert {k: int(v) for k, v in flags.items()} == {k: getattr(R, k) for k in flags} and len(flags) == 7
     # the four-slot network that the register merge unrolls
     assert re.findall(r"^\s*C2RT_CE\((\d), (\d)\)$", text, re.M) == [(str(i), str(j)) for i, j in R._oddeven_pairs(4)]
-    # the shared-memory budget: 16 slots of 128 threads, a float and a 16-bit tag each
-    assert const("MAX_HITS") * const("BLOCK") * 6 == 12 * 1024
+    # the lists' bytes per slot and thread: a float distance and a 32-bit tag
+    assert "8 * list_cap * BLOCK" in text and "unsigned& tag(int m)" in text
     params = re.search(r"int c2rt_round0\((.*?)\)", text, re.S).group(1).split(",")
     for name in ("round0", *[f"round0_{s}" for s in K3.STAGES]):
         (argtypes,) = [a for fn, a, _ in cuda_build._EXPORTS[name] if fn == "c2rt_round0"]
-        assert len(params) == len(argtypes) == 12
+        assert len(params) == len(argtypes) == 14
 
 
 def test_every_library_has_a_source_and_a_binding():
@@ -269,23 +302,37 @@ inline int __float_as_int(float f) { int x; std::memcpy(&x, &f, 4); return x; }
 
 HARNESS = r"""
 }  // namespace
-extern "C" int host_round0(const float* prm, const int* prog, int n_prm, int n_prog, const float* orig,
-                           const float* dir, float* out, int* win, int n, int width, int height) {
+#include <vector>
+// lists == null: the lists in a block's "shared" memory, a buffer laid out
+// as the kernel's dynamic allocation (tables, then the lists) that every
+// thread of a block shares; else the global [2 * list_cap, n] scratch
+extern "C" int host_round0(const float* prm, const int* prog, int n_prm, int n_prog, int list_cap,
+                           const float* orig, const float* dir, float* lists, float* out, int* win, int n,
+                           int width, int height) {
   const int n_tiles = (n + BLOCK - 1) / BLOCK;
+  std::vector<int> block(n_prog + n_prm + 2 * list_cap * BLOCK, 0x7fc00000);
+  tables = block.data();
   gridDim.x = n_tiles;
   blockDim.x = BLOCK;
   for (unsigned b = 0; b < (unsigned)n_tiles; ++b)
     for (unsigned t = 0; t < (unsigned)BLOCK; ++t) {
       blockIdx.x = b;
       threadIdx.x = t;
-      round0_kernel(prm, prog, n_prm, n_prog, orig, dir, out, win, n, width, height);
+      if (lists == nullptr)
+        round0_kernel<false>(prm, prog, n_prm, n_prog, orig, dir, lists, out, win, n, width, height);
+      else
+        round0_kernel<true>(prm, prog, n_prm, n_prog, orig, dir, lists, out, win, n, width, height);
     }
+  tables = nullptr;
   return 0;
 }
 """
 
 BUILDS = {
     "kernel": (),
+    # is_inside's register stack cut to 2 levels: the long nest reaches the
+    # levels kept in the lists
+    "stack2": ("-DC2RT_STACK_WORD=2",),
     **{stage: (f"-DC2RT_STAGE={k}",) for stage, k in cuda_build.STAGES.items()},
 }
 
@@ -312,12 +359,12 @@ def host_kernels(tmp_path_factory):
         assert proc.returncode == 0, err[-3000:]
         fn = ctypes.CDLL(str(tmp / f"lib{name}.so")).host_round0
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci]
+        fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci]
         fns[name] = fn
     return fns
 
 
-def _run(fn, lay, prm, orig=None, dir=None, n=None, rows=None):
+def _run(fn, lay, prm, orig=None, dir=None, n=None, rows=None, placement=None):
     """What ``_round0_cuda`` does, with the host build in the kernel's place."""
     prog = torch.from_numpy(lay.program)
     if orig is not None:
@@ -326,8 +373,12 @@ def _run(fn, lay, prm, orig=None, dir=None, n=None, rows=None):
         n = lay.width * lay.height
     out = torch.full((len(lay.names) if rows is None else rows, n), float("nan"))
     win = torch.full((n,), -7, dtype=torch.int32)
-    fn(prm.data_ptr(), prog.data_ptr(), lay.n_prm, prog.numel(), None if orig is None else orig.data_ptr(),
-       None if dir is None else dir.data_ptr(), out.data_ptr(), win.data_ptr(), n, lay.width, lay.height)
+    lists = R.list_scratch(lay, n, "cpu", placement)
+    if lists is not None:
+        lists.fill_(float("nan"))
+    fn(prm.data_ptr(), prog.data_ptr(), lay.n_prm, prog.numel(), int(lay.program[R.H_LIST_CAP]),
+       None if orig is None else orig.data_ptr(), None if dir is None else dir.data_ptr(),
+       None if lists is None else lists.data_ptr(), out.data_ptr(), win.data_ptr(), n, lay.width, lay.height)
     if rows is not None:
         return out
     res = dict(zip(lay.names, out.unbind(0)))
@@ -384,11 +435,31 @@ def test_device_code_matches_plain_version(host_kernels, name, residual):
 
 
 def test_device_code_reaches_every_node_of_the_stress_scenes(host_kernels):
-    for name in ("deep16", "nested_diff"):
+    for name in ("deep16", "nested_diff", "deep40", "diff_nest"):
         tp, ts = _packed(name)
         lay = R.layout(ts, W, H)
         win = _run(host_kernels["kernel"], lay, lay.pack(tp))["win"]
         assert set(win.tolist()) == set(range(-1, len(ts.nodes))), name
+
+
+@pytest.mark.parametrize("name", ["deep16", "nested_diff", "deep40", "diff_nest"])
+def test_device_code_gives_the_same_bits_with_either_list_placement(host_kernels, name):
+    """The lists in global memory against shared memory, residual rows on,
+    screen-tap and ray-input: the same code on the same lanes.  The long
+    nest also through the build whose is_inside keeps 2 levels in a
+    register and the rest in the lists."""
+    tp, ts = _packed(name)
+    lay = R.layout(ts, W, H, want_hit=True, want_vis=True)
+    prm = lay.pack(tp, (0.3, 0.6))
+    orig, dir = _rays(name, W * H)
+    for rays in ((), (orig, dir)):
+        shared = _run(host_kernels["kernel"], lay, prm, *rays)
+        builds = [("kernel", "global")] + ([("stack2", "shared"), ("stack2", "global")] if "diff" in name else [])
+        for build, placement in builds:
+            other = _run(host_kernels[build], lay, prm, *rays, placement=placement)
+            for k in shared:
+                assert torch.equal(other[k], shared[k]), (build, placement, k)
+    _assert_close(shared, R.round0_reference(lay, prm, orig, dir), lay.names)
 
 
 @pytest.mark.parametrize("stage", K3.STAGES)

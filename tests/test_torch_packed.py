@@ -140,20 +140,27 @@ def test_scene_program_encodes_the_structure(case):
 
 
 def test_scene_program_refuses_lists_beyond_max_hits():
-    """Nine spheres under one union make 18 hits: more than the kernel's
-    fixed per-thread list holds."""
+    """Nothing is refused for its list length now that K1's lists are sized
+    per scene (they held 16 slots once): twenty spheres under one union make
+    40 hits, and the program encodes them, its list capacity 40, its
+    instruction indices inside the hit tags' field, in shared memory."""
     from chess2rt_tpu_torch.models import types as TT
     from chess2rt_tpu_torch.models.packed import pack_scene
 
     sc = TT.Scene()
     geom = TT.Sphere(name="s0", center=(0.0, 0.0, 5.0), R=1.0)
-    for k in range(1, 9):
+    for k in range(1, 20):
         geom = TT.CsgUnion(name=f"u{k}", op="union", left=geom,
                            right=TT.Sphere(name=f"s{k}", center=(float(k), 0.0, 5.0), R=1.0))
     sc.nodes = [TT.Node(name="n", geometry=geom, shader=TT.Lambert(name="l"))]
     _, st = pack_scene(sc, device="cpu")
-    with pytest.raises(ValueError, match="MAX_HITS"):
-        R.layout(st, 8, 8)
+    lay = R.layout(st, 8, 8)
+    prog = lay.program
+    assert _decode(prog, 1) == list(lay.expr_tables)
+    assert prog[R.H_LIST_CAP] == 40 and prog[prog[R.H_NODE_TAB] + 8] == 39 < R.TAG_KEPT
+    assert R.list_placement(prog, lay.n_prm) == "shared"
+    out = R.round0(lay, lay.pack(*pack_scene(sc, device="cpu")[:1]))
+    assert set(out["win"].tolist()) <= {-1, 0}
 
 
 def test_port_never_imports_jax():
@@ -167,7 +174,7 @@ def test_port_never_imports_jax():
         "import chess2rt_tpu_torch.ops.round0, chess2rt_tpu_torch.ops.shade\n"
         "import chess2rt_tpu_torch.ops.flagship, chess2rt_tpu_torch.render.pipeline\n"
         "import chess2rt_tpu_torch.utils.color, chess2rt_tpu_torch.utils.vec\n"
-        "import chess2rt_tpu_torch.exceptions\n"
+        "import chess2rt_tpu_torch.exceptions, chess2rt_tpu_torch.ops.prng\n"
         "import chess2rt_tpu_torch.ops.geometry, chess2rt_tpu_torch.app, chess2rt_tpu_torch.native\n"
         "import chess2rt_tpu_torch.scene, chess2rt_tpu_torch.scene.loader, chess2rt_tpu_torch.scene.sdlang\n"
         "import chess2rt_tpu_torch.oracle, chess2rt_tpu_torch.oracle.renderer\n"
@@ -232,11 +239,13 @@ def test_render_frame_raises_for_unported_modes():
     from chess2rt_tpu_torch.render.pipeline import render_frame
 
     _, _, tp, ts = packed_pair("standin")
-    for change in ({"dof": True}, {"stereo": True}, {"gi_enabled": True}):
+    bumped = (dataclasses.replace(ts.nodes[0], bump_idx=0),) + tuple(ts.nodes[1:])
+    for change in ({"gi_enabled": True}, {"nodes": bumped}, {"has_env": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_frame(tp, dataclasses.replace(ts, **change))
-    # adaptive AA and chunk_pixels are ported: they render
-    for change in ({"aa_adaptive": True}, {"chunk_pixels": 256, "aa_enabled": False}):
+    # adaptive AA, chunk_pixels, DoF and stereo are ported: they render
+    for change in ({"aa_adaptive": True}, {"chunk_pixels": 256, "aa_enabled": False},
+                   {"dof": True, "dof_samples": 2, "aa_enabled": False}, {"stereo": True, "aa_enabled": False}):
         assert render_frame(tp, dataclasses.replace(ts, **change)).shape == (H, W, 3)
     for change in ({"has_env": True}, {"compensated_raygen": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -146,10 +146,23 @@ def test_empty_scene_renders_black():
         assert not img.any()
 
 
+def _chain_scene(T):
+    """Random scene 1000 plus nine overlapping spheres in one union: 18 hits
+    per ray."""
+    sc = scene(T, 1000)
+    geom = T.Sphere(name="s0", center=(0.0, 1.0, 0.0), R=1.0)
+    for k in range(1, 9):
+        geom = T.CsgUnion(name=f"u{k}", op="union", left=geom,
+                          right=T.Sphere(name=f"s{k}", center=(0.3 * k - 1.2, 1.0, 0.0), R=1.0))
+    sc.nodes.append(T.Node(name="chain", geometry=geom, shader=T.Lambert(name="chain", color=(1, 1, 1))))
+    return sc
+
+
 def test_render_frame_dispatch():
     """f32 scenes K1 covers take the fused path and f64 frames the twin.  A
-    covered f32 scene beyond K1's hit list raises (``round0.MAX_HITS``) and
-    does not fall back to the twin; in f64 the twin renders it."""
+    scene with more CSG hits per ray than K1's lists once held (16) is no
+    exception: its f32 frame goes through K1 and meets the JAX XLA frame at
+    the frame limits; in f64 the twin renders it."""
     taken = []
     real_fused, real_twin = F.build_flagship_renderer, P.render_frame_wavefront
 
@@ -166,20 +179,17 @@ def test_render_frame_dispatch():
         for dtype in (torch.float32, torch.float64):
             tp, ts = torch_pack_scene(_scene(TT, 1000), dtype=dtype, device="cpu")
             P.render_frame(tp, ts)
-        # nine overlapping spheres in one union: 18 hits, beyond K1's 16
-        sc = scene(TT, 1000)
-        geom = TT.Sphere(name="s0", center=(0.0, 1.0, 0.0), R=1.0)
-        for k in range(1, 9):
-            geom = TT.CsgUnion(name=f"u{k}", op="union", left=geom,
-                               right=TT.Sphere(name=f"s{k}", center=(0.3 * k - 1.2, 1.0, 0.0), R=1.0))
-        sc.nodes.append(TT.Node(name="chain", geometry=geom, shader=TT.Lambert(name="chain", color=(1, 1, 1))))
-        tp, ts = torch_pack_scene(sc, device="cpu")
+        tp, ts = torch_pack_scene(_chain_scene(TT), device="cpu")
         assert supports(ts)
-        with pytest.raises(ValueError, match="MAX_HITS"):
-            P.render_frame(tp, ts)
+        out = P.render_frame(tp, ts).numpy()
+        sc = _chain_scene(TT)
         tp, ts = torch_pack_scene(sc, dtype=torch.float64, device="cpu")
         img = P.render_frame(tp, ts)
     finally:
         F.build_flagship_renderer, P.render_frame_wavefront = real_fused, real_twin
     assert taken == ["fused", "twin", "fused", "twin"]
+    # eager: XLA takes minutes to compile the 18-slot networks inlined in every round
+    jp, js = jax_pack_scene(_chain_scene(JT), dtype=jnp.float32)
+    with jax.disable_jit():
+        assert_frame_close(out, np.asarray(jax_render_frame(jp, js)))
     assert (u8(img.numpy()) == u8(OracleRenderer(sc).render())).all(-1).mean() > 0.99

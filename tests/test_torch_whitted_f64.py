@@ -95,3 +95,51 @@ def test_f64_frame_renders_with_adaptive_aa_and_slabs():
     gold = OracleRenderer(sc_j).render()
     assert np.abs(img - gold).max() < 1e-6
     np.testing.assert_array_equal(u8(img), u8(gold))
+
+
+def _bitmap_scene(T):
+    """A bitmap-textured floor and sphere under one light, AA off: the texel
+    gradient's scene at 32x24."""
+    from chess2rt_tpu_torch.scenes import _bitmap
+
+    rng = np.random.default_rng(3)
+    sc = T.Scene(name="bitmaps")
+    sc.settings.frameWidth, sc.settings.frameHeight = W, H
+    sc.settings.AAEnabled = False
+    sc.camera = T.Camera(pos=(0.0, 165.0, 0.0), yaw=0.0, pitch=-20.0, roll=0.0, fov=90.0)
+    sc.camera.set_frame_size(W, H)
+    sc.lights = [T.PointLight(name="key", pos=(-160.0, 420.0, 120.0), color=(1.0, 0.95, 0.9), power=150000.0)]
+    floor_tex = T.BitmapTexture(name="floor_tex", scaling=1.0 / 180.0, data=_bitmap(rng, 16, 16))
+    ball_tex = T.BitmapTexture(name="ball_tex", scaling=1.0, data=_bitmap(rng, 8, 8))
+    sc.textures = [floor_tex, ball_tex]
+    for name, geom, tex in (("floor", T.Plane(name="floor", y=0.0), floor_tex),
+                            ("ball", T.Sphere(name="ball", center=(-40.0, 50.0, 220.0), R=50.0), ball_tex)):
+        sh = T.Lambert(name=name, color=(1.0, 1.0, 1.0), texture=tex)
+        sc.shaders.append(sh)
+        sc.geometries.append(geom)
+        sc.nodes.append(T.Node(name=name, geometry=geom, shader=sh))
+    return sc
+
+
+def test_f64_texel_gradient_matches_jax_grad():
+    """The texel VJP in float64: the twin's frame differentiated in
+    ``bitmap_atlas`` (``train_textures`` on) against ``jax.grad`` of the JAX
+    XLA frame in x64, |a - b| <= 1e-9 + 1e-6 max|b|.  K2 is f32 only; the
+    f64 cotangents take the plain sorted segment sum."""
+    target = np.random.default_rng(4).uniform(size=(H, W, 3))
+    with x64():
+        jp, js = jax_pack_scene(_bitmap_scene(JT), dtype=jnp.float64)
+        assert js.train_textures
+
+        def loss(p):
+            return ((jax_render_frame(p, js) - jnp.asarray(target)) ** 2).mean()
+
+        want = np.asarray(jax.jit(jax.grad(loss))(jp).bitmap_atlas)
+    tp, ts = torch_pack_scene(_bitmap_scene(TT), dtype=torch.float64, device="cpu")
+    atlas = tp.bitmap_atlas.detach().clone().requires_grad_()
+    tp = dataclasses.replace(tp, bitmap_atlas=atlas)
+    ((P.render_frame(tp, ts) - torch.from_numpy(target)) ** 2).mean().backward()
+    have = atlas.grad.numpy()
+    assert have.dtype == np.float64 and have.shape == want.shape
+    assert np.abs(want).max() > 0 and (np.abs(want) > 0).mean() > 0.05
+    assert np.abs(have - want).max() <= 1e-9 + 1e-6 * np.abs(want).max()
