@@ -18,15 +18,18 @@ Layout:
     ops/         camera, geometry (all-hits CSG, the scene scan, shadow
                  rays), texturing and direct shading, the round-0 kernel
                  wrapper + its plain version, its differentiable form, the
-                 texel-gradient histogram, the flagship renderer
-    render/      render_frame dispatch: the fused path (K1) or the eager
-                 Whitted twin of the JAX package's XLA wavefront
+                 texel-gradient histogram, the flagship renderer, the
+                 GI renderer, the threefry random numbers
+    render/      render_frame dispatch: the fused paths (K1; Whitted or
+                 GI) or the eager twin of the JAX package's XLA wavefront
+                 and path tracer
     parallel/    pixel slices over a mesh of devices, in one process
     grad/        inverse rendering (fit) and its checkpoints
     csrc/        hand-written CUDA kernels (sm_90a)
     cuda_build.py  nvcc build + ctypes binding of csrc/
     scenes.py    scenes built in code (the flagship stand-in, fuzz and CSG
-                 stress scenes, a CSG-free scene) and the stand-in as SDL
+                 stress scenes, a CSG-free scene, the GI stand-in) and the
+                 two stand-ins as SDL
     app.py       the command line: python -m chess2rt_tpu_torch --file
                  scene.sdl -o out.bmp (on the card; --device cpu elsewhere)
 """

@@ -1,0 +1,203 @@
+"""The fused GI renderer: K1's want_hit ray-input form per bounce + torch glue.
+
+Counterpart of chess2rt_tpu/ops/pallas_trace.py:2144-2434 (``supports_gi``,
+here ``ops/round0.supports_gi``; ``build_gi_tracer``; ``build_gi_renderer``):
+the global-illumination path tracer of all-Lambert scenes, mirroring the
+twin ``render/pipeline.trace_path`` op for op with the same random streams,
+so the two agree to the kernel's float differences.
+
+    per path:    jittered camera rays (screen_rays)  ->  per bounce:
+                 round0 (ray-input, want_hit: win, t, raw normal, diffuse,
+                 light sum)  ->  deferred bitmap texels, the NEE term
+                 diffuse / pi * (L - ambient), the hemisphere sample and the
+                 path's next ray in torch
+
+* ``build_gi_tracer``: the kernel-backed ``trace_path`` for a batch of rays
+  with one key: each bounce one K1 call (``round0``, the CUDA kernel for
+  CUDA tensors), then ``trace_path``'s key chain (split in three, two
+  draws).  K1's light sum L includes the ambient term (``shade_direct``'s
+  base) and uses the same faceforward normal and shadow origin as the
+  twin's NEE, so the NEE term is diffuse / pi * (L - ambient).
+* ``build_gi_renderer``: the Monte-Carlo loop over ``paths_per_pixel``
+  paths (each ``split(key, 4)``: the x and y jitter and the path), quirk AA
+  (5 taps everywhere) or adaptive AA (the 4 extra taps at full width, the
+  ``aa_detect`` mask selecting), un-chunked or in ``chunk_pixels`` slabs
+  with the JAX package's per-slab key splits (slabs of exactly
+  ``chunk_pixels`` lanes, pad lanes rendering pixel (0, 0), since a draw's
+  values depend on its width).
+
+Where JAX skipped an all-dead bounce with ``lax.cond``, the port reads the
+alive mask on the host: one ``.any()`` per bounce after the first.  When a
+gradient is recorded, each K1 call goes through ``round0_grad.diff_round0``
+(K1's residual form forward, the leaf-pinned re-shade backward, which also
+recomputes the hit rows), and ``gi_remat_paths`` wraps each path in
+``torch.utils.checkpoint`` (recomputed in the backward instead of keeping
+every bounce's rows; keys are host values and every decision is
+deterministic, so the recompute takes the same branches and draws the same
+bits).  ``gi_path_batch`` (K paths per launch, a measured loss on the TPU)
+is not ported: with it set the renderer still runs one path per launch,
+whose frame the JAX package's own test holds value-equal to the batched one
+within 1e-5 (tests/test_gi.py:153-169).  ``bounce_rounds`` counts the
+bounce rounds run (one K1 call each).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..models.packed import TEX_BITMAP, ScenePacked, SceneStatic
+from . import prng
+from . import shade as S
+from .camera import begin_frame, screen_rays
+from .round0 import layout, round0, supports_gi
+from .round0_grad import diff_round0
+
+# GI bounce rounds run (each is one round-0 call); callers zero and read it
+bounce_rounds = 0
+
+
+def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, uniform=None):
+    """The kernel-backed ``trace_path``: ``tracer(packed, orig, dir, key,
+    prm=None) -> [N, 3]`` for N rays of one path each, ``key`` the paths'
+    threefry key, ``prm`` the scene's packed parameters
+    (``tracer.layout.pack(packed)``, packed on each call when None).
+    ``trace`` is K1's call (``round0``, or its plain version
+    ``round0_reference``), ``uniform`` the draw (None: ``prng.uniform``; its
+    plain version ``prng.uniform_reference``)."""
+    from ..render.pipeline import env_miss_term, hemisphere_bounce
+
+    if not supports_gi(static):
+        raise ValueError("build_gi_tracer: all-Lambert GI scenes without DoF only (see supports_gi())")
+    lay = layout(static, width, height, want_hit=True)
+    has_bitmap = TEX_BITMAP in static.tex_kinds_present
+
+    def hit_of(packed, o):
+        """Kernel rows -> (win, raw normal, diffuse albedo, light sum); the
+        bitmap texels are gathered here (K1 defers them)."""
+        win = o["win"]
+        normal = torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1)
+        diffuse = torch.stack([o["dr"], o["dg"], o["db"]], dim=-1)
+        if has_bitmap:
+            winc = torch.clamp_min(win, 0)
+            tex = S.bitmap_color(packed, static, winc, o["u"], o["v"], S.node_onehot(static, winc))
+            diffuse = torch.where((S.tex_kind_of(static, winc) == TEX_BITMAP)[..., None], tex, diffuse)
+        return win, normal, diffuse, torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1)
+
+    def tracer(packed: ScenePacked, orig, dir, key, prm=None):
+        global bounce_rounds
+        env_miss_term(static)
+        draw = uniform or prng.uniform
+        prm = lay.pack(packed) if prm is None else prm
+        eps = S.shadow_eps(orig.dtype)
+        acc = torch.zeros_like(orig)
+        mult = torch.ones_like(orig)
+        alive = torch.ones(orig.shape[:-1], dtype=torch.bool, device=orig.device)
+        key = prng.as_key(key)
+        for r in range(static.max_trace_depth + 1):
+            if r and not bool(alive.any()):  # host sync: JAX's lax.cond predicate
+                break
+            bounce_rounds += 1
+            rays = (orig.contiguous(), dir.contiguous())
+            o = diff_round0(lay, prm, packed, *rays, trace=trace)  # the plain call when nothing requires grad
+            win, normal, diffuse, L = hit_of(packed, o)
+            hitmask = alive & (win >= 0)
+            N = S.faceforward(dir, normal)
+            mult_eff = torch.ones_like(mult) if static.gi_multiplier_quirk else mult
+            if static.gi_point_light_direct:
+                nee = diffuse * (1.0 / torch.pi) * (L - packed.ambient)
+                acc = acc + torch.where(hitmask[..., None], mult_eff * nee, 0.0)
+            key, k1, k2 = prng.split(key, 3)
+            u = draw(k1, win.shape, orig.dtype, device=orig.device)
+            v = draw(k2, win.shape, orig.dtype, device=orig.device)
+            w, mult = hemisphere_bounce(mult, N, diffuse, u, v)
+            ts = torch.where(hitmask, o["t"], 0.0)
+            p = orig + dir * ts[..., None]
+            orig = torch.where(hitmask[..., None], p + N * eps, orig)
+            dir = torch.where(hitmask[..., None], w, dir)
+            alive = hitmask
+        return acc
+
+    tracer.layout = lay
+    return tracer
+
+
+def build_gi_renderer(static: SceneStatic, width: int, height: int, trace=round0, uniform=None):
+    """The fused GI renderer: fn(packed, key=None) -> [H, W, 3], ``key`` a
+    threefry key (None is ``PRNGKey(0)``), mirroring the twin's
+    ``render_samples`` Monte-Carlo loop and AA key for key.  ``trace`` and
+    ``uniform`` as in ``build_gi_tracer``.  Callers dispatch here through
+    render/pipeline.render_frame for the scenes ``supports_gi`` covers."""
+    from ..render.pipeline import AA_KERNEL, aa_detect
+
+    tracer = build_gi_tracer(static, width, height, trace, uniform)
+    n = width * height
+    paths = static.paths_per_pixel
+    chunked = bool(static.chunk_pixels and static.chunk_pixels < n)
+    C = static.chunk_pixels if chunked else n
+    n_slabs = -(-n // C)
+
+    def render(packed: ScenePacked, key=None):
+        draw = uniform or prng.uniform
+        key = prng.as_key(key)
+        dt, dev = packed.dtype, packed.device
+        frame = begin_frame(packed.camera, width / height)
+        prm = tracer.layout.pack(packed)
+        lin = torch.arange(n, device=dev)
+        xf, yf = (lin % width).to(dt), (lin // width).to(dt)
+        offsets = torch.tensor(AA_KERNEL, dtype=dt, device=dev)
+        remat = static.gi_remat_paths and torch.is_grad_enabled()
+
+        def one_path(xx, yy, kj, kj2, kr):
+            jx = xx + draw(kj, xx.shape, dt, device=dev)
+            jy = yy + draw(kj2, yy.shape, dt, device=dev)
+            o3, d3 = screen_rays(packed.camera, frame, float(width), float(height), jx, jy, 0.0)
+            return tracer(packed, o3, d3, kr, prm)
+
+        def samples(xx, yy, k):
+            acc = torch.zeros(xx.shape + (3,), dtype=dt, device=dev)
+            for _ in range(paths):
+                k, kj, kj2, kr = prng.split(k, 4)
+                if remat:
+                    acc = acc + checkpoint(one_path, xx, yy, kj, kj2, kr, use_reentrant=False)
+                else:
+                    acc = acc + one_path(xx, yy, kj, kj2, kr)
+            return acc / paths
+
+        def padded(a):
+            return torch.cat([a, a.new_zeros(n_slabs * C - n)]).reshape(n_slabs, C)
+
+        def flat_pass(xx, yy, k):
+            """``samples`` over the frame, slab by slab with a key each."""
+            keys = prng.split(k, n_slabs)
+            xs, ys = padded(xx), padded(yy)
+            return torch.cat([samples(xs[i], ys[i], keys[i]) for i in range(n_slabs)])[:n]
+
+        def with_aa(sampler, xx, yy, k):
+            """The base sample plus the AA taps, a key each: quirk AA averages
+            all 5, adaptive AA takes them where ``aa_detect`` flags the base
+            (the mask only selects; the key stream is the quirk path's)."""
+            k, k0 = prng.split(k)
+            img = sampler(xx, yy, k0)
+            if not static.aa_enabled:
+                return img
+            acc = img
+            for off in offsets:
+                k, kk = prng.split(k)
+                acc = acc + sampler(xx + off[0], yy + off[1], kk)
+            if not static.aa_adaptive:
+                return acc / 5.0
+            mask = aa_detect(img.reshape(height, width, 3)).reshape(-1)
+            return torch.where(mask[:, None], acc / 5.0, img)
+
+        if chunked and not (static.aa_enabled and static.aa_adaptive):
+            # per slab: its base sample and AA taps (the twin's _render_pixels per slab)
+            keys = prng.split(key, n_slabs)
+            xs, ys = padded(xf), padded(yf)
+            img = torch.cat([with_aa(samples, xs[i], ys[i], keys[i]) for i in range(n_slabs)])[:n]
+        else:
+            # the whole frame's passes (adaptive AA needs the whole base frame)
+            img = with_aa(flat_pass if chunked else samples, xf, yf, key)
+        return img.reshape(height, width, 3)
+
+    return render

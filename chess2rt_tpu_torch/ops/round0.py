@@ -59,20 +59,35 @@ EPS_SHADOW = 1e-3  # f32 self-intersection offset (ops/shade.shadow_eps)
 
 # kernel launches made by ``round0`` (the CUDA path only): every launch,
 # those of them that also wrote the residual rows (want_hit / want_vis),
-# and those in the ray-input and in the lin-input form; chip_smoke.py zeroes
-# them before driving a path and reads them after
+# those with want_hit alone (the GI form), and those in the ray-input and in
+# the lin-input form; chip_smoke.py zeroes them before driving a path and
+# reads them after
 launches = 0
 resid_launches = 0
+hit_launches = 0
 ray_launches = 0
 lin_launches = 0
 
 
 def supports(static: SceneStatic) -> bool:
-    """True when the fused kernel covers this scene + sampling mode (the
-    JAX package's ``pallas_trace.supports``)."""
+    """True when the fused Whitted path (ops/flagship.py) covers this scene
+    and sampling mode (the JAX package's ``pallas_trace.supports``).  GI
+    scenes go through the fused GI renderer instead (``supports_gi``)."""
     if static.gi_enabled:
         return False
     return _supports_scene(static)
+
+
+def supports_gi(static: SceneStatic) -> bool:
+    """True when the fused GI renderer (ops/gi.py, K1's want_hit ray-input
+    form per bounce) covers this scene (the JAX package's
+    ``pallas_trace.supports_gi``): GI on without DoF (DoF dispatches
+    first), compensated ray-gen off, every shader Lambert.  A scene with a
+    Phong node takes the twin's ``trace_path``, which paints the
+    reference's red marker on the paths that hit it."""
+    if not static.gi_enabled or static.dof:
+        return False
+    return _supports_scene(static) and all(ns.shader_kind == LAMBERT for ns in static.nodes)
 
 
 def _supports_scene(static: SceneStatic) -> bool:
@@ -1206,7 +1221,7 @@ def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False, placeme
     """Check the inputs, allocate the outputs (and the hit lists' scratch
     when they go in global memory) and launch csrc/round0.cu on ``n`` lanes
     (the rays' count in the ray-input form)."""
-    global launches, resid_launches, ray_launches, lin_launches
+    global launches, resid_launches, hit_launches, ray_launches, lin_launches
     from .. import cuda_build
 
     dev = prm.device
@@ -1248,6 +1263,7 @@ def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False, placeme
         raise RuntimeError(f"round0: kernel launch failed: {cuda_build.error_string("round0", err)}")
     launches += 1
     resid_launches += lay.residual
+    hit_launches += lay.want_hit and not lay.want_vis
     ray_launches += orig is not None
     lin_launches += lin_input
     res = dict(zip(lay.names, out.unbind(0)))

@@ -8,7 +8,9 @@ Counterpart of chess2rt_tpu/ops/pallas_grad.py (``build_diff_round0`` with
   forward frame does exactly what it did before.  Under differentiation
   the forward runs K1's residual form (``want_hit`` and ``want_vis``): the
   same lanes plus the winning ``t``, the raw normal and one shadow bit per
-  light.
+  light.  A caller's layout with ``want_hit`` (the GI renderer's, without
+  the vis rows) gets its own rows back: the hit rows (t, nx, ny, nz, dr,
+  dg, db) and the light-sum and u, v rows.
 * **backward** = the vector-Jacobian product of a torch re-shade that
   recomputes K1's continuous math with its discrete decisions pinned to the
   kernel's own:
@@ -210,19 +212,22 @@ def _diffuse_nobitmap(packed, static, winc, u, v, onehot):
     return out
 
 
-def reshade(packed: ScenePacked, static: SceneStatic, orig, dir, win, vis_list, rec_pins):
+def reshade(packed: ScenePacked, static: SceneStatic, orig, dir, win, vis_list, rec_pins, want_hit=False):
     """Differentiable torch recompute of K1's float outputs given the pinned
     (win, vis) and leaf pins ``rec_pins`` = (gleaf, sel, n_pin): the same
-    keys as the plain layout, minus ``win``.  ``vis_list`` holds one bool
-    [N] mask per light."""
+    keys as the layout (plain, or ``want_hit``), minus ``win`` and the vis
+    rows.  ``vis_list`` holds one bool [N] mask per light."""
     rec = leaf_pinned_record(packed, static, orig, dir, *rec_pins)
-    return _shade_pinned(packed, static, orig, dir, win, vis_list, rec)
+    return _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit)
 
 
-def _shade_pinned(packed, static, orig, dir, win, vis_list, rec):
+def _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit=False):
     """The shading half of ``reshade``: direct light, continuation and the
-    output rows for a given winning-hit record, in K1's op order."""
+    output rows for a given winning-hit record, in K1's op order.
+    ``want_hit`` adds the light-sum, u, v and hit rows of K1's want_hit
+    form (pallas_grad._shade_pinned's)."""
     has_bitmap = TEX_BITMAP in static.tex_kinds_present
+    emit_L = has_bitmap or want_hit
     has_refr = REFRACTION in static.shader_kinds_present
     has_cont = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
     has_phong = PHONG in static.shader_kinds_present
@@ -290,7 +295,7 @@ def _shade_pinned(packed, static, orig, dir, win, vis_list, rec):
         "g": torch.where(shaded, color[..., 1], 0.0),
         "b": torch.where(shaded, color[..., 2], 0.0),
     }
-    if has_bitmap:
+    if emit_L:
         out["lr"] = torch.where(shaded, L[..., 0], 0.0)
         out["lg"] = torch.where(shaded, L[..., 1], 0.0)
         out["lb"] = torch.where(shaded, L[..., 2], 0.0)
@@ -324,6 +329,10 @@ def _shade_pinned(packed, static, orig, dir, win, vis_list, rec):
             ro = torch.where(is_refr[..., None], rfo, ro)
         out["rox"], out["roy"], out["roz"] = ro.unbind(-1)
         out["rdx"], out["rdy"], out["rdz"] = rd.unbind(-1)
+    if want_hit:
+        out["t"] = torch.where(t_ok, rec["dist"], INF)
+        out["nx"], out["ny"], out["nz"] = rec["normal"].unbind(-1)
+        out["dr"], out["dg"], out["db"] = diffuse.unbind(-1)
     return out
 
 
@@ -392,7 +401,9 @@ class _DiffRound0(torch.autograd.Function):
                 orig, dir = _gen_rays_lin(packed, lay.width, lay.height, prm[a0:a0 + 2], base, n)
             with torch.no_grad():
                 gleaf, sel = compute_leaf_pins(packed, static, orig, dir, win, t_pin)
-            out = reshade(packed, static, orig, dir, win, list(vis.unbind(0)), (gleaf, sel, n_pin))
+            # the caller's layout had the hit rows when its names hold "t"
+            out = reshade(packed, static, orig, dir, win, list(vis.unbind(0)), (gleaf, sel, n_pin),
+                          want_hit="t" in ctx.names)
             pairs = [(out[k], g) for k, g in pairs if out[k].requires_grad]
             wanted = [i for i, x in enumerate(xs) if x.requires_grad]
             if pairs:

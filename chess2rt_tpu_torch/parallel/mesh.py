@@ -79,7 +79,10 @@ def _fused_shard_setup(static: SceneStatic, mesh: Mesh, trace=round0):
     compaction stays live per shard.  Raises NotImplementedError for what
     the JAX package renders through its XLA per-shard sampler."""
     if static.gi_enabled:
-        raise NotImplementedError("sharded GI is not ported yet (ROADMAP.md queue 1 item 8)")
+        raise NotImplementedError(
+            "sharded GI frames (the JAX package's per-shard XLA sampler, a fold_in of the key per shard) are "
+            "not ported yet (ROADMAP.md queue 1 item 11)"
+        )
     if static.dof or static.stereo:
         raise NotImplementedError(
             "sharded DoF and stereo frames (the JAX package's per-shard sampler, a fold_in of the key per "

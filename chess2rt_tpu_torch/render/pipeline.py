@@ -30,13 +30,21 @@ Everything stays differentiable by autograd in every ScenePacked leaf.
 The random streams are the JAX package's: ``key`` is a threefry key of
 ops/prng.py (the default ``PRNGKey(0)``), split per sample, AA tap and
 chunk slab in the JAX order, and every draw is ``prng.uniform``, bit-equal
-to ``jax.random.uniform``, so a DoF or stereo frame matches JAX's under the
-same key.
+to ``jax.random.uniform``, so a DoF, stereo or GI frame matches JAX's under
+the same key.
+
+GI (global illumination) frames path-trace: ``trace_path`` is the eager
+twin of the JAX package's XLA path tracer (one path per ray, maxTraceDepth
++ 1 bounces, the Lambert hemisphere sample drawn from the path's key);
+``render_frame`` sends the float32 frames of all-Lambert scenes
+(``ops/round0.supports_gi``) to the fused GI renderer (ops/gi.py: K1's
+want_hit ray-input form per bounce) and every other GI frame to the twin,
+as JAX dispatches.  A GI scene with DoF renders DoF Whitted samples, as in
+JAX.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP.md
-item: GI (item 8; a GI scene with DoF renders DoF Whitted samples, as in
-JAX), bump maps (item 9), environment cubemaps and compensated ray-gen
-(item 10).
+item: bump maps (item 9), environment cubemaps (the GI miss term too) and
+compensated ray-gen (item 10).
 """
 
 from __future__ import annotations
@@ -212,6 +220,100 @@ def continue_bounces(packed, static, color, atten, alive, orig, dir, n_rounds):
 
 
 # --------------------------------------------------------------------------
+# GI path trace (renderer.d:378-463), Lambert BRDF (shader.d:107-135)
+# --------------------------------------------------------------------------
+
+
+def env_miss_term(static: SceneStatic):
+    """The GI miss term samples the environment cubemap, which is not
+    ported: raise naming its item."""
+    if static.has_env:
+        raise NotImplementedError("GI: the environment miss term (cubemaps) is not ported yet "
+                                  "(ROADMAP.md queue 1 item 10)")
+
+
+def hemisphere_bounce(mult, N, diffuse, u, v):
+    """Lambert.spawnRay (shader.d:118-135): the uniform hemisphere direction
+    ``w`` about ``N`` from the uniforms ``u``, ``v``, and the path
+    multiplier times its BRDF weight, color_eval / pdf (diffuse / pi * cos
+    over 1 / (2 pi)), in the JAX package's op order: (w, new mult)."""
+    theta = 2 * torch.pi * u
+    phi = torch.arccos(torch.clamp(2 * v - 1, -1.0, 1.0)) - torch.pi / 2
+    w = torch.stack([torch.cos(theta) * torch.cos(phi), torch.sin(phi), torch.sin(theta) * torch.cos(phi)], dim=-1)
+    w = torch.where(dot(w, N)[..., None] < 0, -w, w)
+    color_eval = diffuse * (1 / torch.pi) * torch.clamp_min(dot(w, N), 0.0)[..., None]
+    return w, mult * color_eval / (1 / (2 * torch.pi))
+
+
+def trace_path(packed: ScenePacked, static: SceneStatic, orig, dir, key):
+    """One GI path per input ray -> radiance [N, 3]: the eager twin of the
+    JAX package's XLA ``trace_path``, maxTraceDepth + 1 bounces, ``key``
+    (a threefry key) split in three per bounce for the hemisphere sample,
+    as JAX's scan does, so the paths are JAX's under the same key.  Each
+    bounce is ``scene_closest`` over every node, then:
+
+    * ``gi_multiplier_quirk`` (default on): the reference drops the path
+      multiplier at every recursion (renderer.d:356), so a bounce's terms
+      are not weighted by its throughput;
+    * ``gi_point_light_direct`` (the NEE extension): the point lights'
+      direct term through a shadow ray each; without it the reference's
+      direct term is exactly 0 (a point light's solid angle is 0,
+      light.d:72-75);
+    * a path that hits a Phong node adds solid red, unscaled, and ends: the
+      reference asserts in Phong's BRDF (shader.d:252-261), and this is its
+      bogus-BRDF marker (renderer.d:457);
+    * a path that misses would add the environment (item 10: raises).
+
+    A bounce whose paths are all dead adds nothing and changes nothing, so
+    the loop stops there (one host read of the alive mask per bounce)."""
+    for ns in static.nodes:  # Phong paints the marker below; no other shader has a BRDF to sample
+        if ns.shader_kind not in (LAMBERT, PHONG):
+            raise NotImplementedError(
+                "GI requires BRDF eval/spawnRay; only Lambert has them (extension shaders have none)"
+            )
+    env_miss_term(static)
+    has_phong_gi = any(ns.shader_kind == PHONG for ns in static.nodes)
+    eps = S.shadow_eps(orig.dtype)
+    acc = torch.zeros_like(orig)
+    mult = torch.ones_like(orig)
+    alive = torch.ones(orig.shape[:-1], dtype=torch.bool, device=orig.device)
+    key = prng.as_key(key)
+    for r in range(static.max_trace_depth + 1):
+        if r and not bool(alive.any()):  # host sync: the rest of the bounces are no-ops
+            break
+        hit, win = G.scene_closest(packed, static, orig, dir)
+        hitmask = alive & (win >= 0)
+        winc = torch.clamp_min(win, 0)
+        if has_phong_gi:
+            phong_hit = hitmask & (S.shader_kind_of(static, winc) == PHONG)
+            red = torch.tensor([1.0, 0.0, 0.0], dtype=orig.dtype, device=orig.device)
+            acc = acc + torch.where(phong_hit[..., None], red, 0.0)
+            hitmask = hitmask & ~phong_hit  # marker painted; path ends
+        N = S.faceforward(dir, hit["normal"])
+        diffuse = S.texture_color(packed, static, winc, hit["u"], hit["v"])
+        mult_eff = torch.ones_like(mult) if static.gi_multiplier_quirk else mult
+        if static.gi_point_light_direct:
+            shade_from = hit["p"] + N * eps
+            for li in range(static.n_lights):
+                lp = packed.light_pos[li]
+                lc = packed.light_color[li] * packed.light_power[li]
+                vis = G.test_visibility(packed, static, shade_from, torch.broadcast_to(lp, shade_from.shape))
+                to_light = lp - hit["p"]
+                ld = _norm(to_light)
+                brdf = diffuse * (1 / torch.pi) * torch.clamp_min(dot(ld, N), 0.0)[..., None]
+                term = lc * brdf / dot(to_light, to_light)[..., None]
+                acc = acc + torch.where((hitmask & vis)[..., None], mult_eff * term, 0.0)
+        key, k1, k2 = prng.split(key, 3)
+        u = prng.uniform(k1, hit["u"].shape, orig.dtype, device=orig.device)
+        v = prng.uniform(k2, hit["u"].shape, orig.dtype, device=orig.device)
+        w, mult = hemisphere_bounce(mult, N, diffuse, u, v)
+        orig = torch.where(hitmask[..., None], hit["p"] + N * eps, orig)
+        dir = torch.where(hitmask[..., None], w, dir)
+        alive = hitmask
+    return acc
+
+
+# --------------------------------------------------------------------------
 # Per-pixel sampling (renderer.d:254-313)
 # --------------------------------------------------------------------------
 
@@ -219,8 +321,7 @@ def continue_bounces(packed, static, color, atten, alive, orig, dir, n_rounds):
 def _check_ported(static: SceneStatic, who: str):
     """Raise for a frame whose mode is not ported yet, naming its ROADMAP item."""
     todo = (
-        "GI (ROADMAP.md queue 1 item 8)" if static.gi_enabled and not static.dof
-        else "bump maps (ROADMAP.md queue 1 item 9)" if static.has_bump
+        "bump maps (ROADMAP.md queue 1 item 9)" if static.has_bump
         else "environment cubemaps (ROADMAP.md queue 1 item 10)" if static.has_env
         else "compensated ray-gen (ROADMAP.md queue 1 item 10)" if static.compensated_raygen
         else None
@@ -235,17 +336,20 @@ def render_samples(packed: ScenePacked, static: SceneStatic, frame, x, y, key=No
     through ``trace_whitted`` (two with stereo, combined).  With DoF, the
     Monte-Carlo loop: ``dof_samples`` samples, each splitting the key in
     four for the x and y jitter (scaled by ``dx``, ``dy``) and the disc
-    sample, as JAX's ``lax.scan`` does.  Dispatch order as renderSample's:
-    DoF first (a GI scene with DoF traces Whitted DoF samples), GI (item 8,
-    raises), then stereo.  (The JAX package's ``trace_fn`` / ``gi_trace_fn``
-    hooks serve its mesh layer's XLA per-shard sampler, ROADMAP item 11.)"""
+    sample, as JAX's ``lax.scan`` does; GI runs ``paths_per_pixel`` samples
+    the same way, each one path through ``trace_path``.  Dispatch order as
+    renderSample's: DoF first (a GI scene with DoF traces Whitted DoF
+    samples), then GI (mono: stereo is ignored), then stereo.  (The JAX
+    package's ``trace_fn`` / ``gi_trace_fn`` hooks serve its mesh layer's
+    XLA per-shard sampler, ROADMAP item 11.)"""
     cam = packed.camera
     W, H = float(static.width), float(static.height)
     key = prng.as_key(key)
 
     def trace_one(xx, yy, k):
         if static.gi_enabled and not static.dof:
-            raise NotImplementedError("render_samples: GI (ROADMAP.md queue 1 item 8) is not ported yet")
+            o, d = screen_rays(cam, frame, W, H, xx, yy, 0.0)
+            return trace_path(packed, static, o, d, k)
         if static.stereo:
             ol, dl = screen_rays(cam, frame, W, H, xx, yy, -1.0, dof=static.dof, key=k)
             orr, drr = screen_rays(cam, frame, W, H, xx, yy, +1.0, dof=static.dof, key=k)
@@ -336,9 +440,9 @@ def _render_pixels(packed: ScenePacked, static: SceneStatic, frame, xf, yf, key)
 
 
 def render_frame_wavefront(packed: ScenePacked, static: SceneStatic, key=None):
-    """The eager Whitted twin of the JAX package's XLA frame (its
-    ``render_frame`` with ``use_pallas`` off) -> [H, W, 3] in the scene's
-    dtype, on its device: quirk AA (5 taps everywhere), adaptive AA (the 4
+    """The eager twin of the JAX package's XLA frame (its ``render_frame``
+    with ``use_pallas`` off; Whitted rounds, or ``trace_path`` for GI) ->
+    [H, W, 3] in the scene's dtype, on its device: quirk AA (5 taps everywhere), adaptive AA (the 4
     extra taps where ``aa_detect`` flags the base frame) and
     ``chunk_pixels`` slabs, which bound peak memory by the slab; DoF and
     stereo with the JAX key streams (``key`` None is ``PRNGKey(0)``; an
@@ -367,20 +471,26 @@ def render_frame_wavefront(packed: ScenePacked, static: SceneStatic, key=None):
 
 
 def render_frame(packed: ScenePacked, static: SceneStatic, key=None):
-    """Full-frame render -> [H, W, 3] on the scene's device: the fused path
-    (K1) for float32 frames of the scenes ``ops/round0.supports`` covers,
-    DoF and stereo included, the eager Whitted twin
-    (``render_frame_wavefront``) for every other frame it renders.  ``key``
-    (a threefry key of ops/prng.py; None is ``PRNGKey(0)``) seeds the
-    Monte-Carlo frames."""
-    from ..ops.round0 import supports
+    """Full-frame render -> [H, W, 3] on the scene's device, dispatched in
+    the JAX package's order for float32 frames: the fused Whitted path (K1)
+    for the scenes ``ops/round0.supports`` covers, DoF and stereo included,
+    then the fused GI renderer (ops/gi.py) for the GI scenes
+    ``ops/round0.supports_gi`` covers; the eager twin
+    (``render_frame_wavefront``, ``trace_path`` for GI) for every other
+    frame it renders, float64 included.  ``key`` (a threefry key of
+    ops/prng.py; None is ``PRNGKey(0)``) seeds the Monte-Carlo frames."""
+    from ..ops.round0 import supports, supports_gi
 
     _check_ported(static, "render_frame")
-    if packed.dtype != torch.float32 or not supports(static):
-        return render_frame_wavefront(packed, static, key)
-    from ..ops.flagship import build_flagship_renderer
+    if packed.dtype == torch.float32 and supports(static):
+        from ..ops.flagship import build_flagship_renderer
 
-    return build_flagship_renderer(static, static.width, static.height)(packed, key)
+        return build_flagship_renderer(static, static.width, static.height)(packed, key)
+    if packed.dtype == torch.float32 and supports_gi(static):
+        from ..ops.gi import build_gi_renderer
+
+        return build_gi_renderer(static, static.width, static.height)(packed, key)
+    return render_frame_wavefront(packed, static, key)
 
 
 def render_scene(scene, dtype=torch.float32, key=None, fix=None, device=None):

@@ -8,9 +8,12 @@ It builds from either package's ``models.types`` module, so the JAX
 package and this one render the identical scene.  ``random_scene`` makes
 the seeded fuzz scenes that hold the round-0 kernel to its references,
 ``csg_stress_scene`` the two scenes that load its CSG hit lists the most,
-and ``csg_free_scene`` the scenes a float64 frame is held u8-exact to the
-oracle on.  ``write_standin_sdl`` writes the stand-in as a scene file with
-its bitmaps, for the command line.
+``csg_free_scene`` the scenes a float64 frame is held u8-exact to the
+oracle on, and ``gi_standin`` the global-illumination configuration (the
+reference's lecture4.sdl plus the benchmark's far bounce wall, made
+all-Lambert with a bitmap and a CSG node).  ``write_standin_sdl`` and
+``write_gi_standin_sdl`` write the two stand-ins as scene files with their
+bitmaps, for the command line.
 """
 
 from __future__ import annotations
@@ -360,6 +363,70 @@ def csg_free_scene(T, seed: int, width: int = 32, height: int = 24):
     return sc
 
 
+# the GI stand-in's geometry, shared by gi_standin and write_gi_standin_sdl:
+# the far bounce wall of bench.py's build_gi, a bitmap box and a CSG node
+# (a cube with a sphere bitten out, rounded by an inter with a sphere: six
+# hits per ray, so K1 merges them in its hit lists)
+GI_LIGHT = ((-150.0, 400.0, 150.0), (1.0, 1.0, 1.0), 120000.0)
+GI_WALL = ((60.0, 80.0, 330.0), 50.0, (0.8, 0.8, 0.8))
+GI_BOX = ((1.5, 1.0, 1.2), (-130.0, 30.0, 250.0))
+GI_CSG = ((150.0, 50.0, 280.0), (0.3, 0.5, 0.8))
+
+
+def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int = 40):
+    """The GI stand-in at ``width`` x ``height``: the reference's lecture4.sdl
+    (a checkered Lambert floor, one point light, 640x480; not in the
+    repository) plus the far bounce wall of bench.py's ``build_gi`` (a
+    Lambert 0.8 sphere at (60, 80, 330), R 50), a bitmap-textured Lambert
+    box (scaled and translated) and a Lambert CSG node, every shader
+    Lambert, so that the fused GI path covers it.  GI on, ``paths`` paths
+    per pixel (``build_gi``'s 40), maxTraceDepth 5, AA off, the flagship
+    stand-in's camera.  NEE (the point-light direct term) is the SceneStatic
+    knob ``gi_point_light_direct``, not a scene setting: ``build_gi`` turns
+    it on after packing, and so do this scene's callers.  ``T`` is a
+    ``models.types`` module (either package's)."""
+    rng = np.random.default_rng(seed)
+    sc = T.Scene(name="gi_standin")
+    sc.settings.frameWidth, sc.settings.frameHeight = width, height
+    sc.settings.AAEnabled = False
+    sc.settings.GIEnabled = True
+    sc.settings.pathsPerPixel = paths
+    sc.settings.maxTraceDepth = 5
+    sc.settings.ambientLightColor = (0.1, 0.1, 0.1)
+    sc.camera = T.Camera(pos=(0.0, 165.0, 0.0), yaw=0.0, pitch=-20.0, roll=0.0, fov=90.0)
+    sc.camera.set_frame_size(width, height)
+    pos, color, power = GI_LIGHT
+    sc.lights = [T.PointLight(name="light", pos=pos, color=color, power=power)]
+    checker = T.Checker(name="checker", color1=(0.8, 0.8, 0.8), color2=(0.2, 0.2, 0.2), size=20.0)
+    bmp = T.BitmapTexture(name="box_tex", scaling=1.0 / 40.0, data=_bitmap(rng, 128, 128))
+    sc.textures = [checker, bmp]
+
+    def node(name, geom, shader, transform=None):
+        n = T.Node(name=name, geometry=geom, shader=shader)
+        if transform is not None:
+            transform(n.transform)
+        sc.nodes.append(n)
+        sc.geometries.append(geom)
+        sc.shaders.append(shader)
+
+    center, r, white = GI_WALL
+    scale, move = GI_BOX
+    at, blue = GI_CSG
+    node("floor", T.Plane(name="floor", y=0.0), T.Lambert(name="floor", color=(1.0, 1.0, 1.0), texture=checker))
+    node("wall", T.Sphere(name="w", center=center, R=r), T.Lambert(name="white", color=white))
+    node("box", T.Cube(name="box", center=(0.0, 0.0, 0.0), side=60.0),
+         T.Lambert(name="box", color=(1.0, 1.0, 1.0), texture=bmp),
+         lambda tr: (tr.scale(*scale), tr.translate(move)))
+    csg = T.CsgInter(
+        name="csg",
+        left=T.CsgDiff(name="csg_diff", left=T.Cube(name="csg_cube", center=(0.0, 0.0, 0.0), side=80.0),
+                       right=T.Sphere(name="csg_bite", center=(-25.0, 30.0, -25.0), R=30.0)),
+        right=T.Sphere(name="csg_sphere", center=(0.0, 0.0, 0.0), R=52.0),
+    )
+    node("csg", csg, T.Lambert(name="csg", color=blue), lambda tr: tr.translate(at))
+    return sc
+
+
 def _sdl_vec(v) -> str:
     return " ".join(repr(float(x)) for x in v)
 
@@ -448,6 +515,74 @@ Scene {{
         Node {{ name "box"; geometry "box"; shader "box"; scale 1.6 1.0 1.3; translate 120.0 30.0 180.0 }}
         Node {{ name "proc_ball"; geometry "proc_ball"; shader "proc" }}
         Node {{ name "mirror_ball"; geometry "mb"; shader "mirror" }}
+    }}
+}}
+"""
+    path = os.path.join(directory, name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def write_gi_standin_sdl(directory: str, width: int = 640, height: int = 480, seed: int = 5,
+                         name: str = "gi.sdl", paths: int = 40) -> str:
+    """Write ``gi_standin`` as a scene file the loaders read: an SDLang
+    ``name`` in ``directory`` and the box's bitmap beside it as a BMP file
+    (``box_tex.bmp``, 8-bit sRGB).  Returns the scene file's path.  SDL has
+    no switch for the NEE extension, so the file renders the reference's
+    GI, which is black with point lights only (their solid angle is 0)."""
+    import os
+
+    from .imageio.bmp import save_bmp_file
+
+    rng = np.random.default_rng(seed)
+    save_bmp_file(os.path.join(directory, "box_tex.bmp"), _bitmap(rng, 128, 128))
+    (lpos, lcol, lpow), (wc, wr, wcol), (bscale, bmove), (cat, ccol) = GI_LIGHT, GI_WALL, GI_BOX, GI_CSG
+    text = f"""// the GI stand-in (chess2rt_tpu_torch/scenes.py), as a scene file
+Scene {{
+    Name "gi_standin"
+    GlobalSettings {{
+        frameWidth {width}
+        frameHeight {height}
+        AAEnabled false
+        GIEnabled true
+        pathsPerPixel {paths}
+        maxTraceDepth 5
+        ambientLightColor 0.1 0.1 0.1
+    }}
+    Camera {{
+        pos 0.0 165.0 0.0
+        pitch -20.0
+        fov 90.0
+    }}
+    Lights {{
+        PointLight {{ name "light"; pos {_sdl_vec(lpos)}; color {_sdl_vec(lcol)}; power {lpow!r} }}
+    }}
+    Geometries {{
+        Plane {{ name "floor"; y 0.0 }}
+        Sphere {{ name "w"; center {_sdl_vec(wc)}; R {wr!r} }}
+        Cube {{ name "box"; center 0.0 0.0 0.0; side 60.0 }}
+        Cube {{ name "csg_cube"; center 0.0 0.0 0.0; side 80.0 }}
+        Sphere {{ name "csg_bite"; center -25.0 30.0 -25.0; R 30.0 }}
+        CsgDiff {{ name "csg_diff"; left "csg_cube"; right "csg_bite" }}
+        Sphere {{ name "csg_sphere"; center 0.0 0.0 0.0; R 52.0 }}
+        CsgInter {{ name "csg"; left "csg_diff"; right "csg_sphere" }}
+    }}
+    Textures {{
+        Checker {{ name "checker"; color1 0.8 0.8 0.8; color2 0.2 0.2 0.2; size 20.0 }}
+        BitmapTexture {{ name "box_tex"; file "box_tex.bmp"; scaling {1.0 / 40.0!r} }}
+    }}
+    Shaders {{
+        Lambert {{ name "floor"; color 1.0 1.0 1.0; texture "checker" }}
+        Lambert {{ name "white"; color {_sdl_vec(wcol)} }}
+        Lambert {{ name "box"; color 1.0 1.0 1.0; texture "box_tex" }}
+        Lambert {{ name "csg"; color {_sdl_vec(ccol)} }}
+    }}
+    Nodes {{
+        Node {{ name "floor"; geometry "floor"; shader "floor" }}
+        Node {{ name "wall"; geometry "w"; shader "white" }}
+        Node {{ name "box"; geometry "box"; shader "box"; scale {_sdl_vec(bscale)}; translate {_sdl_vec(bmove)} }}
+        Node {{ name "csg"; geometry "csg"; shader "csg"; translate {_sdl_vec(cat)} }}
     }}
 }}
 """

@@ -30,7 +30,12 @@ read just after:
   float64 frames through ``render_frame``, which sends them to the twin;
 * the command line, ``python -m chess2rt_tpu_torch --file scene.sdl -o
   out.bmp``, on a scene file with the stand-in's features: its f32 frame
-  goes through K1 (screen-tap and ray-input forms).
+  goes through K1 (screen-tap and ray-input forms);
+* the Monte-Carlo frames: depth of field, stereo, and GI: the GI stand-in
+  (``scenes.gi_standin``, NEE on) at 640x480 with 40 paths per pixel and
+  maxTraceDepth 5 through ``render_frame`` (ops/gi.py: K1's want_hit
+  ray-input form per bounce, the threefry draw, the texels), and its
+  gradient step (K1's residual form and K2 in the backward).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -119,7 +124,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 22. the adaptive DoF frame at 1080p (4 samples): the flagged pixels, the
     capacity, the lane-compacted taps against the full-width ones; the
     chunked DoF frame (``chunk_pixels`` 262,144) against the un-chunked
-    frame.
+    frame;
+23. K1's want_hit form without the vis rows (GI's) against its plain
+    version at 640x480: on the GI stand-in's jittered camera rays and on
+    one bounce of its hemisphere rays, the light rows of unshaded lanes
+    zero; its times per call and queued, and its bound;
+24. the GI frame at 640x480: the kernel path against the plain path (plain
+    K1, plain draws) and against the twin at 4 paths, the 40-path frame's
+    ms (median of 3 after 1 warm-up), K1's, the draw's and the bounce
+    rounds' counts and peak memory; the chunked (``chunk_pixels`` 65,536)
+    and the adaptive-AA GI frames against the twin;
+25. the GI gradient step at 640x480: the kernel path against the plain path
+    at 4 paths (the phase 8 rule on the pixels whose frames agree), then
+    the 40-path step's ms and peak memory with ``gi_remat_paths`` off and
+    on (one timed step after the warm-up when a step takes over 20 s).
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -232,9 +250,22 @@ OPS_THREEFRY = 83
 # (the reference's default), the adaptive and chunked DoF frames' samples
 MC_LANES = WIDTH * HEIGHT
 MC_SMALL_SAMPLES, MC_SAMPLES, MC_ADAPTIVE_SAMPLES = 4, 25, 4
+# the GI phases (23-25): bench.py's build_gi configuration (640x480, 40
+# paths per pixel, maxTraceDepth 5, NEE, AA off), 4 paths against the plain
+# path and the twin, the chunked frame's slab; a 40-path step longer than
+# GI_LONG_STEP_S seconds is timed once after its warm-up
+GI_SIZE, GI_PATHS, GI_SMALL_PATHS, GI_CHUNK, GI_LONG_STEP_S = (640, 480), 40, 4, 65536, 20.0
+# Hopper's 32-bit integer rate (NVIDIA H100 SXM: half the f32 rate), the
+# rate the threefry draw's work runs at; its bound is stated against both
+PEAK_INT32 = 33.5e12
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        msg += f" [{time.perf_counter() - T0:.1f} s into the script]"
     print(msg, flush=True)
 
 
@@ -321,12 +352,15 @@ def _node_ops(static, expr_tables):
     return out
 
 
-def k1_ops(lay, n, lit, stage="full", ray_input=False):
+def k1_ops(lay, n, lit, stage="full", ray_input=False, scanned=1.0):
     """Arithmetic of one K1 launch on ``n`` lanes, as this run's data needs
-    it.  Every lane scans every node for its closest hit and shades (missed
-    lanes shade from t = 0).  A shadow scan stops at the first occluder:
-    ``lit[l]`` is the share of lanes light l reaches (all nodes scanned),
-    the others count one node, the least an occluded lane can need."""
+    it.  Every lane scans every node for its closest hit.  ``scanned`` is
+    the share of lanes that shade (with the vis rows every lane does, missed
+    lanes from t = 0; without them only the lanes whose light sum is kept).
+    A shadow scan stops at the first occluder: ``lit[l]`` is the share of
+    all lanes that shade and that light l reaches (all nodes scanned), the
+    other shading lanes count one node, the least an occluded lane can
+    need."""
     nodes = _node_ops(lay.static, lay.expr_tables)
     if stage == "empty":
         return 2.0 * n
@@ -340,11 +374,11 @@ def k1_ops(lay, n, lit, stage="full", ray_input=False):
     scan_all = sum(d for _, d in nodes)
     scan_one = min(d for _, d in nodes)
     for share in lit:
-        per += OPS_SHADOW_RAY + share * scan_all + (1.0 - share) * scan_one
+        per += scanned * OPS_SHADOW_RAY + share * scan_all + (scanned - share) * scan_one
         if stage == "shadow":
             per += 1
         else:
-            per += OPS_LIGHT + (OPS_PHONG if 1 in lay.static.shader_kinds_present else 0)  # 1: PHONG
+            per += scanned * (OPS_LIGHT + (OPS_PHONG if 1 in lay.static.shader_kinds_present else 0))  # 1: PHONG
     if stage == "full":
         per += OPS_OUT + (OPS_CONT if lay.has_cont else 0)
     return per * n
@@ -357,12 +391,12 @@ def bound(n_bytes, ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops
 
 
-def k1_bound(lay, n, lit, stage="full", ray_input=False):
+def k1_bound(lay, n, lit, stage="full", ray_input=False, scanned=1.0):
     """``bound`` of one K1 launch (or one K3 stage): the parameter vector,
     the scene program and the rays read once, every output row written once."""
     rows = 2 if stage != "full" else len(lay.names) + 1
     n_bytes = 4 * lay.n_prm + 4 * lay.program.size + (24 * n if ray_input else 0) + 4 * rows * n
-    return bound(n_bytes, k1_ops(lay, n, lit, stage, ray_input))
+    return bound(n_bytes, k1_ops(lay, n, lit, stage, ray_input, scanned))
 
 
 def lit_shares(out, n_lights):
@@ -562,6 +596,23 @@ def bounce_rays(tp, ts, tap):
     o3 = ro.reshape(-1, R.BOUNCE_BLOCK, 3)[blk].reshape(-1, 3).contiguous()
     d3 = rd.reshape(-1, R.BOUNCE_BLOCK, 3)[blk].reshape(-1, 3).contiguous()
     return o3, d3, blk.numel()
+
+
+def gi_camera_rays(tp, w, h, prng_key_seed):
+    """One path's jittered camera rays of a GI frame (the uniforms of
+    ``split(PRNGKey(seed), 4)``'s first two keys), as the GI renderer makes
+    them, on the scene's device."""
+    import torch
+    from chess2rt_tpu_torch.ops import prng
+    from chess2rt_tpu_torch.ops.camera import begin_frame, screen_rays
+
+    n, dev = w * h, tp.device
+    lin = torch.arange(n, device=dev)
+    kj, kj2, _, _ = prng.split(prng.PRNGKey(prng_key_seed), 4)
+    jx = (lin % w).float() + prng.uniform(kj, (n,), device=dev)
+    jy = (lin // w).float() + prng.uniform(kj2, (n,), device=dev)
+    frame = begin_frame(tp.camera, w / h)
+    return tuple(x.contiguous() for x in screen_rays(tp.camera, frame, float(w), float(h), jx, jy, 0.0))
 
 
 def grad_step(render, packed, target, weight=None):
@@ -779,6 +830,7 @@ def main(argv) -> int:
     twin_phases(argv, card, dev, fused_frame, kernel_ms)
     del fused_frame
     kernels += mc_phases(argv, card, dev, kernel_ms)
+    kernels += gi_phases(argv, card, dev)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -1543,7 +1595,8 @@ def mc_phases(argv, card, dev, phase5_frame_ms):
         if card_vs_plain or plain_vs_cpu or not (0.0 <= lo and hi < 1.0):
             raise AssertionError(f"threefry {name}: {card_vs_plain} values differ from the plain draw, "
                                  f"{plain_vs_cpu} between the card and the CPU, range [{lo}, {hi}]")
-        draw[name] = (ms, q_ms, plain_ms, draw_err, *bound(n * out.element_size(), n * OPS_THREEFRY))
+        draw[name] = (ms, q_ms, plain_ms, draw_err, *bound(n * out.element_size(), n * OPS_THREEFRY),
+                      1e3 * n * OPS_THREEFRY / PEAK_INT32)
     del out, plain, cpu
 
     # ---- 20. the DoF frame --------------------------------------------------------------------
@@ -1675,6 +1728,7 @@ def mc_phases(argv, card, dev, phase5_frame_ms):
 
     log(json.dumps({
         "draw_ms": {k: v[:3] for k, v in draw.items()}, "draw_bound_ms": {k: v[4] for k, v in draw.items()},
+        "draw_int32_ops_ms": {k: v[8] for k, v in draw.items()},
         "dof_small_max_abs_err": dof_small_err,
         "dof_frame_ms": dof_ms, "dof_frame_all_ms": dof_all, "dof_draws": dof_draws, "dof_k1_launches": dof_rays,
         "dof_bounce_rounds": dof_rounds, "dof_peak_gib": dof_peak, "dof_draws_ms": draws_ms,
@@ -1687,10 +1741,226 @@ def mc_phases(argv, card, dev, phase5_frame_ms):
     return [
         {**kernel_entry("threefry uniform draw, f32 (2,073,600 lanes; no TPU kernel: XLA's threefry2x32)",
                         "chess2rt_tpu_torch/csrc/threefry.cu", "none: XLA's threefry2x32 (jax.random.uniform)",
-                        dof_draws, f32[3], f32[0], f32[2], *f32[4:]), "queued_ms": f32[1]},
+                        dof_draws, f32[3], f32[0], f32[2], *f32[4:8]), "queued_ms": f32[1],
+         "bound_int32_ops_ms": f32[8]},
         {**kernel_entry(f"round0 ray-input form (K1, one DoF pass of {MC_LANES} rays)", K1_SOURCE, K1_REPLACES,
                         dof_rays, mc_err, mc_ms, mc_plain_ms, *mc_bound), "queued_ms": mc_q},
     ]
+
+
+
+def gi_phases(argv, card, dev):
+    """Phases 23-25: K1's want_hit form, the GI frame and the GI gradient
+    step.  Returns the kernels-line entry of K1's want_hit ray-input form."""
+    import torch
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import gi, prng
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.ops import shade as S
+    from chess2rt_tpu_torch.ops import texel_hist as K2
+    from chess2rt_tpu_torch.render.pipeline import hemisphere_bounce, render_frame, render_frame_wavefront
+    from chess2rt_tpu_torch.scenes import gi_standin
+
+    w, h = GI_SIZE
+    n = w * h
+    busy = torch.ones((8192, 8192), dtype=torch.float32, device=dev)
+    key = prng.PRNGKey(23)
+
+    def zero_counts():
+        R.launches = R.resid_launches = R.hit_launches = R.ray_launches = R.lin_launches = 0
+        prng.launches = gi.bounce_rounds = K2.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"k1": R.launches, "k1_hit": R.hit_launches, "k1_resid": R.resid_launches, "k1_ray": R.ray_launches,
+                "draws": prng.launches, "bounce_rounds": gi.bounce_rounds, "k2": K2.launches}
+
+    def gi_scene(paths, **knobs):
+        tp, ts = pack_scene(gi_standin(T, w, h, paths=paths), device=dev)
+        return tp, dataclasses.replace(ts, gi_point_light_direct=True, **knobs)
+
+    def check_frame_counts(label, c, ts, passes, step=False):
+        """One K1 launch per bounce round, the want_hit form alone (with the
+        vis rows under a gradient), two draws per path pass and per bounce
+        round, at most maxTraceDepth + 1 rounds per pass; a step's backward
+        runs K2 once per bounce round (each gathers the box's texels)."""
+        rounds = c["bounce_rounds"]
+        form = c["k1_resid"] if step else c["k1_hit"]
+        ok = (c["k1"] == c["k1_ray"] == form == rounds and passes <= rounds <= passes * (ts.max_trace_depth + 1)
+              and c["draws"] == 2 * passes + 2 * rounds and c["k2"] == (rounds if step else 0))
+        log(f"  {label}: K1 launches {c['k1']} (want_hit alone {c['k1_hit']}, residual {c['k1_resid']}, "
+            f"ray-input {c['k1_ray']}), bounce rounds {rounds}, draws {c['draws']}, K2 {c['k2']}")
+        if not ok:
+            raise AssertionError(f"{label}: launch counts {c} for {passes} path passes")
+
+    def plain_gi(ts):
+        return gi.build_gi_renderer(ts, w, h, trace=R.round0_reference, uniform=prng.uniform_reference)
+
+    # ---- 23. K1's want_hit form --------------------------------------------------------------
+    tp, ts = gi_scene(GI_PATHS)
+    lay = R.layout(ts, w, h, want_hit=True)
+    log(f"phase 23 K1 want_hit form without the vis rows (GI's) vs plain at {w}x{h} on the GI stand-in "
+        f"(list capacity {int(lay.program[R.H_LIST_CAP])}, {R.list_placement(lay.program, lay.n_prm)} lists)")
+    prm = lay.pack(tp)
+    cam_o, cam_d = gi_camera_rays(tp, w, h, 23)
+    _, _, ku, kv = prng.split(key, 4)
+    out_k, out_p = R.round0(lay, prm, cam_o, cam_d), R.round0_reference(lay, prm, cam_o, cam_d)
+    hit_err = compare_round0(f"{n} jittered camera rays", out_k, out_p, lay.names)
+    # one bounce: the plain rows' hit points and faceforward normals, a hemisphere sample each
+    hitmask = out_p["win"] >= 0
+    N = S.faceforward(cam_d, torch.stack([out_p["nx"], out_p["ny"], out_p["nz"]], -1))
+    diffuse = torch.stack([out_p["dr"], out_p["dg"], out_p["db"]], -1)
+    wdir, _ = hemisphere_bounce(torch.ones_like(diffuse), N, diffuse, prng.uniform(ku, (n,), device=dev),
+                                prng.uniform(kv, (n,), device=dev))
+    p = cam_o + cam_d * torch.where(hitmask, out_p["t"], 0.0)[:, None]
+    b_o = torch.where(hitmask[:, None], p + N * 1e-3, cam_o).contiguous()
+    b_d = torch.where(hitmask[:, None], wdir, cam_d).contiguous()
+    b_k, b_p = R.round0(lay, prm, b_o, b_d), R.round0_reference(lay, prm, b_o, b_d)
+    hit_err = max(hit_err, compare_round0(f"{n} hemisphere bounce rays", b_k, b_p, lay.names))
+    for label, o in (("camera rays", out_k), ("bounce rays", b_k)):
+        if bool(torch.stack([o["lr"], o["lg"], o["lb"]])[:, o["win"] < 0].any()):
+            raise AssertionError(f"K1's want_hit form wrote light sums on missed lanes of the {label}")
+    # the bound of this run's data: the lanes that shade (every hit: all Lambert) scan the light
+    vis = R.round0(lay, prm, cam_o, cam_d, want_vis=True)
+    shaded = (vis["win"] >= 0).float()
+    lit = [(vis[f"vis{li}"] * shaded).mean().item() for li in range(ts.n_lights)]
+    hit_bound = k1_bound(lay, n, lit, ray_input=True, scanned=shaded.mean().item())
+    hit_ms, _ = time_events(lambda i: R.round0(lay, prm, cam_o, cam_d), 20, 3)
+    hit_q = queued_ms(lambda: R.round0(lay, prm, cam_o, cam_d), 20, busy)
+    hit_plain_ms, _ = time_events(lambda i: R.round0_reference(lay, prm, cam_o, cam_d), 3, 1)
+    log(f"  K1 want_hit ray-input on {n} camera rays: {hit_ms:.4f} ms per call, {hit_q:.4f} ms queued, plain "
+        f"{hit_plain_ms:.3f} ms; bound {hit_bound[0]:.4f} ms ({hit_bound[1]}; bytes {hit_bound[2]:.4f}, operations "
+        f"{hit_bound[3]:.4f}); lanes that shade {shaded.mean().item():.4f}, lit {['%.4f' % x for x in lit]}")
+    del out_k, out_p, b_k, b_p, vis
+
+    # ---- 24. the GI frame ------------------------------------------------------------------------
+    tp, ts = gi_scene(GI_SMALL_PATHS)
+    log(f"phase 24 GI stand-in {w}x{h}, maxTraceDepth {ts.max_trace_depth}, NEE, AA off: kernel path vs plain "
+        f"path and vs the twin at {GI_SMALL_PATHS} paths")
+    zero_counts()
+    img = render_frame(tp, ts, key)
+    check_frame_counts(f"{GI_SMALL_PATHS}-path frame", counts(), ts, GI_SMALL_PATHS)
+    if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"GI frame {tuple(img.shape)} is not a finite {h}x{w}x3 image")
+    lit_px = (img.amax(-1) > 0).double().mean().item()
+    log(f"  lit pixels {lit_px:.4f}, mean {img.mean().item():.6f}")
+    if lit_px <= 0.5:
+        raise AssertionError(f"only {lit_px:.2%} of the GI frame's pixels are lit")
+    zero_counts()
+    plain = plain_gi(ts)(tp, key)
+    if any(v for k, v in counts().items() if k != "bounce_rounds"):
+        raise AssertionError("the plain GI path launched a kernel")
+    gi_err = compare_frames(f"GI {GI_SMALL_PATHS} paths kernel frame vs plain frame", img, plain)
+    twin_err = compare_frames(f"GI {GI_SMALL_PATHS} paths kernel frame vs the twin", img,
+                              render_frame_wavefront(tp, ts, key))
+    del plain
+
+    tp, ts = gi_scene(GI_PATHS)
+    log(f"  GI {w}x{h}, {GI_PATHS} paths per pixel")
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    img = render_frame(tp, ts, key)
+    frame_counts = counts()
+    gi_peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    check_frame_counts(f"{GI_PATHS}-path frame", frame_counts, ts, GI_PATHS)
+    if not bool(torch.isfinite(img).all()) or (img.amax(-1) > 0).double().mean().item() <= 0.5:
+        raise AssertionError("the 40-path GI frame is not finite or mostly black")
+    gi_ms, gi_all = time_events(lambda i: render_frame(jittered(tp, i), ts, prng.fold_in(key, i)), 3, 1)
+    log(f"  GI frame {gi_ms:.3f} ms {['%.3f' % t for t in gi_all]} on {card}; peak device memory above the scene "
+        f"{gi_peak:.3f} GiB; {frame_counts['bounce_rounds']} bounce rounds, each a host read of the alive mask")
+    if "--profile" in argv:
+        profile_run("GI frame", lambda: render_frame(jittered(tp, 94), ts, key))
+    del img
+
+    variants = {}
+    for label, knobs in (("chunked", {"chunk_pixels": GI_CHUNK}), ("adaptive", {"aa_enabled": True, "aa_adaptive": True})):
+        tpv, tsv = gi_scene(GI_SMALL_PATHS, **knobs)
+        passes = GI_SMALL_PATHS * (-(-n // GI_CHUNK) if label == "chunked" else 5)
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = render_frame(tpv, tsv, key)
+        c = counts()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        check_frame_counts(f"{label} GI frame", c, tsv, passes)
+        err = compare_frames(f"{label} GI frame ({GI_SMALL_PATHS} paths) fused vs the twin", out,
+                             render_frame_wavefront(tpv, tsv, key))
+        variants[label] = {"max_abs_err": err, "ms": ms, "peak_gib": peak}
+        log(f"  {label}: {ms:.3f} ms on the host clock (one run), peak {peak:.3f} GiB")
+        del out
+
+    # ---- 25. the GI gradient step -------------------------------------------------------------------
+    tp, ts = gi_scene(GI_SMALL_PATHS)
+    target = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    log(f"phase 25 GI gradient step {w}x{h}, {GI_SMALL_PATHS} paths, every leaf: kernel path vs plain path")
+    zero_counts()
+    loss_k, grads_k, img_k = grad_step(lambda p: render_frame(p, ts, key), tp, target)
+    check_frame_counts(f"{GI_SMALL_PATHS}-path step", counts(), ts, GI_SMALL_PATHS, step=True)
+    with plain_texel_vjp():
+        loss_p, grads_p, img_p = grad_step(lambda p: plain_gi(ts)(p, key), tp, target)
+    log(f"  loss kernel path {loss_k.item():.9g}, plain path {loss_p.item():.9g}")
+    if not abs(loss_k.item() - loss_p.item()) <= LOSS_RTOL * abs(loss_p.item()):
+        raise AssertionError(f"the two GI paths' losses differ by more than {LOSS_RTOL} of the loss")
+    compare_grads("GI whole frame", grads_k, grads_p, enforce=False)
+    agree = ((img_k - img_p).abs().amax(-1) <= GRAD_AGREE)[..., None].float()
+    log(f"  pixels whose frames differ by more than {GRAD_AGREE}: {1 - agree.mean().item():.3e}")
+    _, grads_k, _ = grad_step(lambda p: render_frame(p, ts, key), tp, target, agree)
+    with plain_texel_vjp():
+        _, grads_p, _ = grad_step(lambda p: plain_gi(ts)(p, key), tp, target, agree)
+    gi_grad_err = compare_grads("GI agreeing pixels", grads_k, grads_p)
+    del grads_k, grads_p, img_k, img_p, agree
+    if "--profile" in argv:  # at 4 paths: the profiler's own work grows with the ~10^5 kernels per path
+        profile_run(f"GI step, {GI_SMALL_PATHS} paths", lambda: grad_step(lambda p: render_frame(p, ts, key),
+                                                                            jittered(tp, 93), target))
+
+    tp, ts = gi_scene(GI_PATHS)
+    steps = {}
+    for remat in (False, True):
+        st = dataclasses.replace(ts, gi_remat_paths=remat)
+        label = f"{GI_PATHS}-path step, gi_remat_paths {'on' if remat else 'off'}"
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            grad_step(lambda p: render_frame(p, st, key), tp, target)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"  {label}: out of device memory ({str(e).splitlines()[0][:160]})")
+            steps[label] = {"oom": True, "peak_gib": (torch.cuda.max_memory_allocated() - base_mem) / 2**30}
+            torch.cuda.empty_cache()
+            continue
+        warm_s = time.perf_counter() - t0
+        c = counts()
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        if c["k1_resid"] != c["k1"] or c["bounce_rounds"] < GI_PATHS * (2 if remat else 1) or not c["k2"]:
+            raise AssertionError(f"{label}: launch counts {c}")
+        reps = 3 if warm_s < GI_LONG_STEP_S else 1
+        ms, all_ms = time_events(lambda i: grad_step(lambda p: render_frame(p, st, prng.fold_in(key, i)),
+                                                     jittered(tp, i), target), reps, 0)
+        steps[label] = {"ms": ms, "all_ms": all_ms, "warm_s": warm_s, "peak_gib": peak, "counts": c}
+        log(f"  {label}: {ms:.3f} ms (median of {reps} after 1 warm-up of {warm_s:.1f} s) {['%.3f' % t for t in all_ms]} "
+            f"on {card}; peak device memory above the scene {peak:.3f} GiB; K1 {c['k1']} (residual form), "
+            f"K2 {c['k2']}, draws {c['draws']}, bounce rounds {c['bounce_rounds']}")
+        torch.cuda.empty_cache()
+    if all(v.get("oom") for v in steps.values()):
+        raise AssertionError("no 40-path GI step fit in device memory")
+
+    log(json.dumps({
+        "gi_hit_max_abs_err": hit_err, "gi_small_max_abs_err": gi_err, "gi_twin_max_abs_err": twin_err,
+        "gi_frame_ms": gi_ms, "gi_frame_all_ms": gi_all, "gi_frame_peak_gib": gi_peak, "gi_frame_counts": frame_counts,
+        "gi_variants": variants, "gi_grad_max_rel_err": gi_grad_err, "gi_steps": steps,
+    }))
+    return [{**kernel_entry(f"round0 want_hit ray-input form (K1 without the vis rows, one GI bounce of {n} rays)",
+                            K1_SOURCE, K1_REPLACES, frame_counts["k1_hit"], hit_err, hit_ms, hit_plain_ms,
+                            *hit_bound), "queued_ms": hit_q}]
 
 
 if __name__ == "__main__":

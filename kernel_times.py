@@ -6,10 +6,12 @@
 from the repository root, on a machine with an NVIDIA card and nvcc.  A tool
 beside chip_smoke.py, whose helpers it uses; not part of the package.
 
-K1 (chess2rt_tpu_torch/csrc/round0.cu) is timed on the four shapes the main
+K1 (chess2rt_tpu_torch/csrc/round0.cu) is timed on the five shapes the main
 paths give it (the 1080p screen tap, the bounce round of that tap's
 block-compacted rays, the 640x480 residual tap with want_hit and want_vis,
-one lin-input shard tap of a quarter of the 1080p frame) and on 1080p taps
+one lin-input shard tap of a quarter of the 1080p frame, and the want_hit
+ray-input form without the vis rows on the 640x480 GI stand-in's jittered
+camera rays, the GI frame's bounce) and on 1080p taps
 of the two CSG stress scenes, whose hit lists live in shared memory (the
 stand-in's four-hit nodes merge in registers).  K2 (csrc/texel_hist.cu) is
 timed on the 640x480 gradient step's own sorted texel cotangents, the tap's
@@ -46,9 +48,9 @@ THIS, PARENT = "chess2rt_tpu_torch", "c2rt_parent"
 
 
 def k1_runs(pkg, dev, rays=None):
-    """({shape: closure that launches ``pkg``'s K1 on it}, the bounce
-    round's (orig, dir)).  Without ``rays`` they are made from this
-    package's 1080p tap."""
+    """({shape: closure that launches ``pkg``'s K1 on it}, {"bounce": the
+    bounce round's (orig, dir), "gi": the GI camera rays}).  Without
+    ``rays`` they are made from this package's 1080p tap and GI stand-in."""
     T = importlib.import_module(f"{pkg}.models.types")
     pack_scene = importlib.import_module(f"{pkg}.models.packed").pack_scene
     R = importlib.import_module(f"{pkg}.ops.round0")
@@ -58,7 +60,8 @@ def k1_runs(pkg, dev, rays=None):
     tp, ts = pack_scene(scenes.flagship_standin(T, w, h), device=dev)
     lay = R.layout(ts, w, h)
     prm = lay.pack(tp, chip_smoke.AA)
-    o3, d3 = rays or chip_smoke.bounce_rays(tp, ts, R.round0(lay, prm))[:2]
+    rays = rays or {"bounce": chip_smoke.bounce_rays(tp, ts, R.round0(lay, prm))[:2]}
+    o3, d3 = rays["bounce"]
     lanes = w * h // chip_smoke.MESH_ENTRIES
     prm_lin = lay.pack(tp, chip_smoke.AA, lanes)
     gw, gh = chip_smoke.GRAD_SIZE
@@ -71,6 +74,14 @@ def k1_runs(pkg, dev, rays=None):
         f"{gw}x{gh} residual tap": lambda: R.round0(glay, gprm),
         f"shard tap, {lanes} lanes": lambda: R.round0(lay, prm_lin, lin_input=True, n_lanes=lanes),
     }
+    if hasattr(scenes, "gi_standin"):  # an earlier commit may not have it
+        iw, ih = chip_smoke.GI_SIZE
+        ip, its = pack_scene(scenes.gi_standin(T, iw, ih), device=dev)
+        ilay = R.layout(its, iw, ih, want_hit=True)
+        rays.setdefault("gi", chip_smoke.gi_camera_rays(ip, iw, ih, 23))
+        gi_o, gi_d = rays["gi"]
+        iprm = ilay.pack(ip)
+        runs[f"{iw}x{ih} GI want_hit rays"] = lambda: R.round0(ilay, iprm, gi_o, gi_d)
     placements = ("shared", "global") if "placement" in inspect.signature(R.round0).parameters else (None,)
     for kind in ("deep16", "nested_diff", "deep40", "diff_nest") if hasattr(scenes, "csg_stress_scene") else ():
         try:
@@ -82,7 +93,7 @@ def k1_runs(pkg, dev, rays=None):
             label = f"{kind} {w}x{h} tap" + (f" ({pl} lists)" if pl and pl != "shared" else "")
             kw = {"placement": pl} if pl else {}
             runs[label] = lambda slay=slay, sprm=slay.pack(sp), kw=kw: R.round0(slay, sprm, **kw)
-    return runs, (o3, d3)
+    return runs, rays
 
 
 def median_rounds(runs_by_label, rounds, reps, busy):

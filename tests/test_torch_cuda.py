@@ -1,13 +1,13 @@
 """The hand-written kernels against their plain PyTorch versions, on the
 card: K1 (csrc/round0.cu) in its screen-tap, ray-input, residual and
-lin-input forms on the stand-in, the seeded fuzz scenes and the four CSG
-stress scenes (16- and 40-hit lists, nested CsgDiffs, a 33-instruction
+lin-input forms (and want_hit alone, the GI form) on the stand-in, the
+GI stand-in, the seeded fuzz scenes and the four CSG stress scenes (16- and 40-hit lists, nested CsgDiffs, a 33-instruction
 CsgDiff nest), with its hit lists in shared and in global memory, K2
 (csrc/texel_hist.cu) on the shapes a row-parallel segmented sum can get
 wrong, K3's four stages (round0.cu built with -DC2RT_STAGE=k), the round-0
 gradient through each form, the threefry draw (csrc/threefry.cu) bit for
-bit, and the sharded, chunked, adaptive, DoF and stereo frames at small
-sizes.
+bit, and the sharded, chunked, adaptive, DoF, stereo and GI frames and
+the GI gradient step at small sizes.
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -32,7 +32,7 @@ from chess2rt_tpu_torch.ops import prng
 from chess2rt_tpu_torch.ops import round0 as R
 from chess2rt_tpu_torch.ops import texel_hist as K2
 from chess2rt_tpu_torch.ops.round0_grad import diff_round0
-from chess2rt_tpu_torch.scenes import csg_stress_scene, flagship_standin, random_scene
+from chess2rt_tpu_torch.scenes import csg_stress_scene, flagship_standin, gi_standin, random_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -69,6 +69,8 @@ SCENES = {
     "nested_diff": lambda: csg_stress_scene(T, "nested_diff", 96, 72),
     "deep40": lambda: csg_stress_scene(T, "deep40", 96, 72),
     "diff_nest": lambda: csg_stress_scene(T, "diff_nest", 96, 72),
+    # the GI stand-in: all Lambert, a bitmap, a six-hit CSG node in the lists
+    "gi": lambda: gi_standin(T, 96, 72),
 }
 
 
@@ -478,6 +480,87 @@ def test_list_placements_give_the_same_bits(cuda, name):
         for k in shared:
             assert torch.equal(shared[k], glob[k]), k
         _assert_close(shared, R.round0_reference(lay, prm, *rays), [k for k in lay.names if not k.startswith("vis")])
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_hit_rows_match_plain(cuda, name):
+    """want_hit without want_vis (the GI form): every row at the limits
+    above, screen-tap and ray-input; the light rows of unshaded lanes are
+    the zeros the plain version writes."""
+    tp, ts = pack_scene(SCENES[name](), device=cuda)
+    lay = R.layout(ts, ts.width, ts.height, want_hit=True)
+    prm = lay.pack(tp, (0.3, 0.6))
+    before = R.hit_launches
+    for rays in ((), _rays(name, ts.width * ts.height, cuda)):
+        out, ref = R.round0(lay, prm, *rays), R.round0_reference(lay, prm, *rays)
+        _assert_close(out, ref, lay.names)
+        direct = torch.tensor([ns.shader_kind in (0, 1) for ns in ts.nodes], device=cuda)  # LAMBERT, PHONG
+        unlit = (out["win"] < 0) | ~direct[out["win"].clamp_min(0).long()]
+        for k in ("lr", "lg", "lb"):
+            assert not bool(out[k][unlit].any()), k
+    assert R.hit_launches == before + 2
+
+
+def _gi_scene(w, h, paths):
+    import dataclasses
+
+    tp, ts = pack_scene(gi_standin(T, w, h, paths=paths), device=torch.device("cuda", 0))
+    return tp, dataclasses.replace(ts, gi_point_light_direct=True)
+
+
+@pytest.mark.parametrize("mode", ["plain", "chunked", "adaptive"])
+def test_gi_frame_matches_plain_frame(cuda, mode):
+    """The fused GI frame through K1's want_hit ray-input form and the
+    threefry draw against the plain path (plain K1, plain draws): the frame
+    limits; one K1 launch per bounce round, two draws per bounce round and
+    per path."""
+    import dataclasses
+
+    from chess2rt_tpu_torch.ops import gi
+
+    tp, ts = _gi_scene(96, 72, 3)
+    if mode == "chunked":
+        ts = dataclasses.replace(ts, chunk_pixels=2048)
+    if mode == "adaptive":
+        ts = dataclasses.replace(ts, aa_enabled=True, aa_adaptive=True)
+    key = prng.PRNGKey(5)
+    R.launches = R.ray_launches = R.hit_launches = prng.launches = gi.bounce_rounds = 0
+    img = gi.build_gi_renderer(ts, 96, 72)(tp, key)
+    assert R.launches == R.ray_launches == R.hit_launches == gi.bounce_rounds > 0
+    passes = (5 if mode == "adaptive" else 1) * (-(-96 * 72 // 2048) if mode == "chunked" else 1) * ts.paths_per_pixel
+    assert prng.launches == 2 * passes + 2 * gi.bounce_rounds
+    ref = gi.build_gi_renderer(ts, 96, 72, trace=R.round0_reference, uniform=prng.uniform_reference)(tp, key)
+    _frame_close(img, ref)
+    assert img.max().item() > 0.01
+
+
+def test_gi_step_matches_plain_step(cuda):
+    """The GI gradient step through K1's residual form (the want_hit rows and
+    the shadow bits) and K2 against the plain path: the loss within 1e-3,
+    every leaf finite and nonzero on both paths or on neither, the nonzero
+    leaves at rtol 5e-3 of the leaf's largest (the camera's 0.1)."""
+    from chess2rt_tpu_torch.ops import gi
+
+    tp, ts = _gi_scene(64, 48, 2)
+    key = prng.PRNGKey(6)
+    out = []
+    for trace, draw in ((R.round0, None), (R.round0_reference, prng.uniform_reference)):
+        xs = [x.detach().clone().requires_grad_() for x in leaves(tp)]
+        loss = (gi.build_gi_renderer(ts, 64, 48, trace=trace, uniform=draw)(from_leaves(xs), key) ** 2).mean()
+        loss.backward()
+        out.append((loss.item(), {k: x.grad for k, x in zip(LEAF_NAMES, xs)}))
+    assert out[0][0] == pytest.approx(out[1][0], rel=1e-3)
+    nonzero = 0
+    for k, b in out[1][1].items():
+        a = out[0][1][k]
+        if b is None or not b.numel():
+            continue
+        assert bool(torch.isfinite(a).all()), k
+        assert bool(a.any()) == bool(b.any()), k
+        rtol = 0.1 if k.startswith("camera.") else 5e-3
+        torch.testing.assert_close(a, b, rtol=rtol, atol=2e-6 + rtol * b.abs().max().item(), msg=k)
+        nonzero += bool(b.any())
+    assert nonzero >= 10
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -35,7 +35,7 @@ from chess2rt_tpu_torch.models.packed import pack_scene
 from chess2rt_tpu_torch.ops import round0 as R
 from chess2rt_tpu_torch.ops import round0_probe as K3
 from chess2rt_tpu_torch.ops import texel_hist as K2
-from chess2rt_tpu_torch.scenes import csg_stress_scene, flagship_standin, random_scene
+from chess2rt_tpu_torch.scenes import csg_stress_scene, flagship_standin, gi_standin, random_scene
 
 torch.set_num_threads(2)
 
@@ -107,6 +107,8 @@ SCENES = {
     "nested_diff": lambda: csg_stress_scene(TT, "nested_diff", W, H),
     "deep40": lambda: csg_stress_scene(TT, "deep40", W, H),
     "diff_nest": lambda: csg_stress_scene(TT, "diff_nest", W, H),
+    # the GI stand-in: all Lambert, a bitmap, a six-hit CSG node in the lists
+    "gi": lambda: gi_standin(TT, W, H),
     **{f"random{s}": (lambda s=s: random_scene(TT, s, width=W, height=H)) for s in range(1000, 1008)},
 }
 
@@ -415,13 +417,16 @@ def _assert_close(out, ref, names):
         assert d.median().item() < 2e-4, k
 
 
-@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("residual", [(False, False), (True, False), (True, True)], ids=["plain", "hit", "residual"])
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_device_code_matches_plain_version(host_kernels, name, residual):
-    """Screen-tap, ray-input and lin-input forms; with the residual rows the
-    vis bits hold on every lane, also where the light sum is thrown away."""
+    """Screen-tap, ray-input and lin-input forms, with the plain rows, with
+    want_hit alone (GI's form: without F_VIS the kernel skips the shadow
+    scans of unshaded lanes and writes zeros to their light rows, as the
+    plain version does) and with both residual flags; with the vis rows the
+    bits hold on every lane, also where the light sum is thrown away."""
     tp, ts = _packed(name)
-    lay = R.layout(ts, W, H, want_hit=residual, want_vis=residual)
+    lay = R.layout(ts, W, H, want_hit=residual[0], want_vis=residual[1])
     prm = lay.pack(tp, (0.3, 0.6))
     tap = _run(host_kernels["kernel"], lay, prm)
     _assert_close(tap, R.round0_reference(lay, prm), lay.names)

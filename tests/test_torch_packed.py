@@ -240,9 +240,13 @@ def test_render_frame_raises_for_unported_modes():
 
     _, _, tp, ts = packed_pair("standin")
     bumped = (dataclasses.replace(ts.nodes[0], bump_idx=0),) + tuple(ts.nodes[1:])
-    for change in ({"gi_enabled": True}, {"nodes": bumped}, {"has_env": True}):
+    for change in ({"nodes": bumped}, {"has_env": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_frame(tp, dataclasses.replace(ts, **change))
+    # GI is ported; the stand-in's mirror has no BRDF to sample, which the
+    # JAX package refuses too
+    with pytest.raises(NotImplementedError, match="only Lambert"):
+        render_frame(tp, dataclasses.replace(ts, gi_enabled=True))
     # adaptive AA, chunk_pixels, DoF and stereo are ported: they render
     for change in ({"aa_adaptive": True}, {"chunk_pixels": 256, "aa_enabled": False},
                    {"dof": True, "dof_samples": 2, "aa_enabled": False}, {"stereo": True, "aa_enabled": False}):
