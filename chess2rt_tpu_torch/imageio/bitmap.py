@@ -6,8 +6,8 @@ the reference's explicit not-implemented stubs (bitmap.d:170-178 throw
 NotImplementedException).  `differentiate` is the finite-difference
 height->(dx, dy) map intended for bump mapping (bitmap.d:139-154) — the
 reference ships no concrete bump texture (its modifyNormal hook is a
-no-op, texture.d:10-12), so this utility is the building block a future
-bump extension consumes.
+no-op, texture.d:10-12); the BumpTexture extension packs its output as the
+bump atlas (models/packed.py).
 """
 
 from __future__ import annotations

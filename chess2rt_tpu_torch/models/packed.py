@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..imageio.bitmap import differentiate
 from . import types as T
 
 # shader kinds
@@ -105,7 +106,7 @@ class ScenePacked:
     bitmap_hw: torch.Tensor  # [Tb, 2] float (h, w)
 
     # bump-map extension: derivative maps [Tp, Hmax, Wmax, 3] + per-node
-    # scaling/strength (packed empty: bump is not ported yet)
+    # scaling/strength
     bump_atlas: torch.Tensor
     bump_scaling: torch.Tensor  # [Nn]
     bump_strength: torch.Tensor  # [Nn]
@@ -312,6 +313,8 @@ def pack_scene(
 
     bitmaps = []  # unique BitmapTexture.data arrays
     bitmap_ids = {}
+    bumps = []  # unique differentiated BumpTexture derivative maps
+    bump_ids = {}
 
     for i, node in enumerate(scene.nodes):
         expr = _geom_expr(node.geometry, tables)
@@ -352,10 +355,18 @@ def pack_scene(
             bidx = bitmap_ids[key]
             bitmap_scaling[i] = tex.scaling
 
+        # bump-map extension: only the BumpTexture subclass perturbs
+        # normals (the reference's modifyNormal hook is a no-op for every
+        # other texture kind, texture.d:10-12)
+        pidx = -1
         if isinstance(node.bumpmap, T.BumpTexture):
-            raise NotImplementedError(
-                "bump maps are not ported yet (ROADMAP.md queue 1 item 9: Bump)"
-            )
+            key = id(node.bumpmap)
+            if key not in bump_ids:
+                bump_ids[key] = len(bumps)
+                bumps.append(differentiate(np.asarray(node.bumpmap.data, dtype=np.float32)))
+            pidx = bump_ids[key]
+            bump_scaling[i] = node.bumpmap.scaling
+            bump_strength[i] = node.bumpmap.strength
 
         node_static.append(
             NodeStatic(
@@ -365,6 +376,7 @@ def pack_scene(
                 bitmap_idx=bidx,
                 identity_transform=ident,
                 offset_only=offset_only,
+                bump_idx=pidx,
             )
         )
 
@@ -380,6 +392,15 @@ def pack_scene(
     else:
         atlas = np.zeros((0, 1, 1, 3), dtype=np.float32)
         hw = np.zeros((0, 2), dtype=np.float32)
+
+    if bumps:
+        phmax = max(b.shape[0] for b in bumps)
+        pwmax = max(b.shape[1] for b in bumps)
+        bump_atlas = np.zeros((len(bumps), phmax, pwmax, 3), dtype=np.float32)
+        for j, b in enumerate(bumps):
+            bump_atlas[j, : b.shape[0], : b.shape[1]] = b
+    else:
+        bump_atlas = np.zeros((0, 1, 1, 3), dtype=np.float32)
 
     lights = scene.lights
     cam = scene.camera
@@ -416,7 +437,7 @@ def pack_scene(
         bitmap_scaling=f(bitmap_scaling),
         bitmap_atlas=f(atlas),
         bitmap_hw=f(hw),
-        bump_atlas=f(np.zeros((0, 1, 1, 3), dtype=np.float32)),
+        bump_atlas=f(bump_atlas),
         bump_scaling=f(bump_scaling),
         bump_strength=f(bump_strength),
         env_cubemap=f(
@@ -444,6 +465,7 @@ def pack_scene(
         height=s.frameHeight,
         has_env=scene.environment.cubemap is not None,
         bitmap_sizes=tuple((b.shape[0], b.shape[1]) for b in bitmaps),
+        bump_sizes=tuple((b.shape[0], b.shape[1]) for b in bumps),
         max_trace_depth=s.maxTraceDepth,
         aa_enabled=s.AAEnabled,
         aa_adaptive=getattr(s, "adaptiveAA", False),
@@ -532,4 +554,6 @@ def from_numpy(
             raise ValueError(f"from_numpy: {name} has shape {tuple(getattr(packed, name).shape)}, want {shape}")
     if packed.bitmap_atlas.shape[0] != len(static.bitmap_sizes):
         raise ValueError("from_numpy: bitmap_atlas rows do not match static.bitmap_sizes")
+    if packed.bump_atlas.shape[0] != len(static.bump_sizes):
+        raise ValueError("from_numpy: bump_atlas rows do not match static.bump_sizes")
     return packed

@@ -2,8 +2,8 @@
 (camera.d:77-147).
 
 Counterpart of chess2rt_tpu/ops/camera.py: the pinhole rays with the
-stereo eye offset and the depth-of-field disc sample (the df32
-``compensated_raygen`` opt-in is ROADMAP.md queue 1 item 10).  The op order
+stereo eye offset, the depth-of-field disc sample and the df32
+``compensated_raygen`` opt-in (``_begin_frame_df``, ops/df32.py).  The op order
 is the JAX package's: the round-0 kernel's camera slot is built from these
 corners, and a reordered product moves knife-edge pixels and camera
 gradients.
@@ -21,12 +21,72 @@ from ..utils import vec
 from . import prng
 
 
-def begin_frame(cam: CameraPacked, aspect: float):
+def _begin_frame_df(cam: CameraPacked, aspect: float):
+    """Screen corners in df32 (two-float) precision: beginFrame's f64
+    corner math (camera.d:77-117) in emulated double-float arithmetic
+    (ops/df32.py), so the per-ray direction rounded back to f32 is
+    correctly rounded.
+
+    Returns {"ul": [(hi, lo)] * 3, "dx": ..., "dy": ...}, with dx = ur - ul
+    and dy = dl - ul the interpolation deltas, each component a df32 pair
+    of f32 scalars."""
+    from . import df32 as df
+
+    dev = cam.pos.device
+
+    def c(x):
+        return df.const(x, device=dev)
+
+    rad = np.pi / 180.0  # host f64, split exactly into df32
+    fov_half = df.mul_f32(c(rad / 2.0), cam.fov)
+    wanted = df.tan(fov_half)
+    # x = -aspect, y = 1 (camera.d:88-93); aspect is a host f64
+    aspect_d = c(float(aspect))
+    len_xy = df.sqrt(df.add(df.mul(aspect_d, aspect_d), c(1.0)))
+    scaling = df.div(wanted, len_xy)
+    xs = df.neg(df.mul(aspect_d, scaling))
+    ys = scaling
+    one = c(1.0)
+
+    def rot_axis(i, j, angle):
+        s, co = df.sincos(df.mul_f32(c(rad), angle))
+        zero, uno = c(0.0), c(1.0)
+        m = [[uno if r == col else zero for col in range(3)] for r in range(3)]
+        m[i][i] = co
+        m[i][j] = df.neg(s)
+        m[j][i] = s
+        m[j][j] = co
+        return m
+
+    def matmul(a, b):
+        return [
+            [df.add(df.add(df.mul(a[r][0], b[0][col]), df.mul(a[r][1], b[1][col])), df.mul(a[r][2], b[2][col]))
+             for col in range(3)]
+            for r in range(3)
+        ]
+
+    # rotZ(roll) @ rotX(pitch) @ rotY(yaw), row-vector convention
+    rot = matmul(matmul(rot_axis(0, 1, cam.roll), rot_axis(1, 2, cam.pitch)), rot_axis(2, 0, cam.yaw))
+
+    def mulr(v):  # row vector times matrix: out_j = sum_i v_i rot[i][j]
+        return [df.add(df.add(df.mul(v[0], rot[0][j]), df.mul(v[1], rot[1][j])), df.mul(v[2], rot[2][j]))
+                for j in range(3)]
+
+    ul = mulr([xs, ys, one])
+    ur = mulr([df.neg(xs), ys, one])
+    dl = mulr([xs, df.neg(ys), one])
+    return {"ul": ul, "dx": [df.sub(ur[j], ul[j]) for j in range(3)], "dy": [df.sub(dl[j], ul[j]) for j in range(3)]}
+
+
+def begin_frame(cam: CameraPacked, aspect: float, compensated: bool = False):
     """Screen corners + basis from camera params (camera.d:77-117).
 
     The ``*_rel`` corners are pos-FREE: the reference adds camera.pos and
     subtracts it again per ray, which in f32 cancels catastrophically near
-    pos.y ~ 1e2 (see chess2rt_tpu/ops/camera.py)."""
+    pos.y ~ 1e2 (see chess2rt_tpu/ops/camera.py).  ``compensated=True``
+    also attaches the df32 corner pairs under "df" (``_begin_frame_df``);
+    ``screen_rays`` then interpolates those and rounds the direction to
+    f32 last."""
     dt = cam.pos.dtype
     dev = cam.pos.device
 
@@ -55,7 +115,8 @@ def begin_frame(cam: CameraPacked, aspect: float):
     ul = mulr([xs, ys, one])
     ur = mulr([-xs, ys, one])
     dl = mulr([xs, -ys, one])
-    return {
+    out = {"df": _begin_frame_df(cam, aspect)} if compensated else {}
+    out.update({
         "up_left_rel": ul,
         "up_right_rel": ur,
         "down_left_rel": dl,
@@ -68,7 +129,8 @@ def begin_frame(cam: CameraPacked, aspect: float):
         "up_dir": rot[1],
         "front_dir": rot[2],
         "pos": cam.pos,
-    }
+    })
+    return out
 
 
 def _norm(v):
@@ -91,12 +153,27 @@ def screen_rays(cam: CameraPacked, frame, width: float, height: float, x, y, ste
     since the draw is positional."""
     fx = (x / width)[..., None]
     fy = (y / height)[..., None]
-    target_rel = (
-        frame["up_left_rel"]
-        + (frame["up_right_rel"] - frame["up_left_rel"]) * fx
-        + (frame["down_left_rel"] - frame["up_left_rel"]) * fy
-    )
-    dir = _norm(target_rel)
+    if "df" in frame and not dof:
+        # the compensated (df32) interpolation: corners, pixel fractions and
+        # the normalize carry ~48-bit significands, and dir is rounded to f32
+        # last, so each component is correctly rounded
+        from . import df32 as dfm
+
+        c = frame["df"]
+        fx_d = dfm.div((x, torch.zeros_like(x)), dfm.const(float(width), like=x))
+        fy_d = dfm.div((y, torch.zeros_like(y)), dfm.const(float(height), like=y))
+        t = [dfm.add(c["ul"][j], dfm.add(dfm.mul(c["dx"][j], fx_d), dfm.mul(c["dy"][j], fy_d))) for j in range(3)]
+        n2 = dfm.add(dfm.add(dfm.mul(t[0], t[0]), dfm.mul(t[1], t[1])), dfm.mul(t[2], t[2]))
+        ln = dfm.sqrt(n2)
+        dir = torch.stack([dfm.to_f32(dfm.div(t[j], ln)) for j in range(3)], dim=-1)
+        target_rel = torch.stack([dfm.to_f32(t[j]) for j in range(3)], dim=-1)
+    else:
+        target_rel = (
+            frame["up_left_rel"]
+            + (frame["up_right_rel"] - frame["up_left_rel"]) * fx
+            + (frame["down_left_rel"] - frame["up_left_rel"]) * fy
+        )
+        dir = _norm(target_rel)
     stereo_off = frame["right_dir"] * (stereo_offset * cam.stereo_separation) if stereo_offset else 0.0
     if not dof:
         orig = torch.broadcast_to(frame["pos"], target_rel.shape)

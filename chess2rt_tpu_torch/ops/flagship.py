@@ -53,31 +53,54 @@ from ..models.packed import REFLECTION, REFRACTION, TEX_BITMAP, ScenePacked, Sce
 from . import prng
 from . import shade as S
 from .camera import begin_frame, screen_rays
+from .env import cubemap_plan, cubemap_quads, sample_cubemap
 from .round0 import BOUNCE_BLOCK, TILE_N, exact_lane_base, layout, round0, supports
-from .round0_grad import diff_round0
+from .bump_round0 import bump_round0
+from .round0_grad import _gen_rays_lin, diff_round0
 
 # bounce rounds run (each is one round-0 call); callers zero and read it
 bounce_rounds = 0
 
 
 def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=None):
-    """Kernel outputs -> (direct color incl. deferred bitmap texels,
-    continuation mask, attenuation factor, refl orig, refl dir)."""
+    """Kernel outputs -> (direct color incl. deferred bitmap texels and the
+    environment, continuation mask, attenuation factor, refl orig, refl
+    dir).  ``dirs_or_none``: the rays' directions, for the cubemap sample of
+    the lanes that missed (a scene with ``has_env``; None leaves misses
+    black).
+
+    With both bitmaps and a cubemap the two gathers merge into one: the
+    bitmap quad table and the cubemap's concatenated, one key per lane (a
+    hit's texel, or a miss's cubemap texel past the bitmap rows), one
+    ``quad_gather_flat``, so one texel VJP (K2) covers both tables."""
     has_bitmap = TEX_BITMAP in static.tex_kinds_present
     has_refl = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
-    if static.has_env and dirs_or_none is not None:
-        raise NotImplementedError(
-            "combine_outputs: environment cubemaps are not ported yet (ROADMAP.md queue 1 item 10)"
-        )
+    use_env = static.has_env and dirs_or_none is not None
     win = o["win"]
     color = torch.stack([o["r"], o["g"], o["b"]], dim=-1)
     winc = torch.clamp_min(win, 0)
     onehot = S.node_onehot(static, winc) if (has_bitmap or has_refl) else None
-    if has_bitmap:
+    if has_bitmap and use_env:
+        quads_t, key_t, p_t, q_t = S.bitmap_plan(packed, static, winc, o["u"], o["v"], onehot)
+        quads_e = cubemap_quads(packed.env_cubemap)
+        key_e, p_e, q_e = cubemap_plan(packed.env_cubemap, dirs_or_none)
+        miss = win < 0
+        missc = miss[..., None]
+        key = torch.where(miss, quads_t.shape[0] + key_e, key_t)
+        g = S.quad_gather_flat(torch.cat([quads_t, quads_e]), key)
+        out3 = S.bilerp_quad(g, torch.where(missc, p_e, p_t), torch.where(missc, q_e, q_t))
+        L = torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1)
+        is_bmp = (S.tex_kind_of(static, winc) == TEX_BITMAP) & (win >= 0)
+        w3 = torch.where(is_bmp[..., None], L, 0.0) + torch.where(missc, 1.0, 0.0)
+        color = color + out3 * w3
+    elif has_bitmap:
         tex = S.bitmap_color(packed, static, winc, o["u"], o["v"], onehot)
         L = torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1)
         is_bmp = (S.tex_kind_of(static, winc) == TEX_BITMAP) & (win >= 0)
         color = color + torch.where(is_bmp[..., None], tex * L, 0.0)
+    elif use_env:
+        env = sample_cubemap(packed.env_cubemap, dirs_or_none)
+        color = color + torch.where((win < 0)[..., None], env, 0.0)
     if not has_refl:
         return color, None, None, None, None
     skind = S.shader_kind_of(static, winc)
@@ -94,10 +117,16 @@ def round0_call(packed: ScenePacked, trace=round0):
     of ``packed`` requires grad.  ``lin=(lin_base, n_lanes)`` selects the
     lin-input form, with ``prm`` packed at that base.  Decided once per
     frame, so a forward frame pays nothing per call for the gradient
-    machinery."""
+    machinery.  A bump scene's calls all go to the bump hybrid
+    (ops/bump_round0.py), forward frame and gradient alike (the JAX
+    package's ``build_trace_round0``)."""
     diff = torch.is_grad_enabled() and any(x.requires_grad for x in leaves(packed))
 
     def call(lay, prm, *rays, lin=None):
+        if lay.static.has_bump:
+            if lin is not None:
+                return bump_round0(lay, prm, packed, trace=trace, lin_input=True, lin_base=lin[0], n_lanes=lin[1])
+            return bump_round0(lay, prm, packed, *rays, trace=trace)
         if lin is not None:
             if diff:
                 return diff_round0(lay, prm, packed, trace=trace, lin_input=True, lin_base=lin[0], n_lanes=lin[1])
@@ -109,13 +138,19 @@ def round0_call(packed: ScenePacked, trace=round0):
     return call
 
 
+def _env_dirs(static: SceneStatic, dirs):
+    """The directions ``combine_outputs`` samples the cubemap by: ``dirs``
+    for a scene with an environment, else None."""
+    return dirs if static.has_env else None
+
+
 def _round(packed, static, lay, prm, carry, call):
     """One bounce round through the ray-input kernel."""
     global bounce_rounds
     bounce_rounds += 1
     color, at, a, o3, d3 = carry
     o = call(lay, prm, o3.contiguous(), d3.contiguous())
-    c, cont, mult, ro, rd = combine_outputs(packed, static, o)
+    c, cont, mult, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
     color = color + torch.where(a[..., None], at * c, 0.0)
     cont = cont & a
     at = at * torch.where(cont[..., None], mult, 1.0)
@@ -238,7 +273,7 @@ def _ray_tap(packed, static, lay, prm0, finish, lin, aa, call):
     ys = (lin // W).to(dt) + aa[1]
     o3, d3 = screen_rays(packed.camera, frame, float(W), float(H), xs, ys)
     o = call(lay, prm0, o3.contiguous(), d3.contiguous())
-    color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+    color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
     return finish(packed, prm0, color, cont, atten, ro, rd, call)
 
 
@@ -296,7 +331,12 @@ def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=
 
         def render_tap(packed: ScenePacked, prm0, prm_tap, call):
             o = call(lay, prm_tap)
-            color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+            # the miss rays' directions for the environment term, recomputed
+            # in torch (the JAX package's ``_tap_dirs``)
+            dirs = None
+            if static.has_env:
+                dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), 0, n)[1]
+            color, cont, atten, ro, rd = combine_outputs(packed, static, o, dirs)
             return finish(packed, prm0, color, cont, atten, ro, rd, call)
 
     else:
@@ -378,7 +418,7 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
 
         def trace_rays(packed, prm0, orig, dir, call):
             o = call(lay, prm0, orig.contiguous(), dir.contiguous())
-            color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+            color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, dir))
             return finish_mc(packed, prm0, color, cont, atten, ro, rd, call)
 
     else:
@@ -392,8 +432,9 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
                 dir = torch.cat([dir, dir[-1:].expand(pad, 3)])
             out = []
             for s in range(n_slabs):
-                o = call(lay, prm0, orig[s * C:(s + 1) * C].contiguous(), dir[s * C:(s + 1) * C].contiguous())
-                color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+                d3 = dir[s * C:(s + 1) * C]
+                o = call(lay, prm0, orig[s * C:(s + 1) * C].contiguous(), d3.contiguous())
+                color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
                 out.append(finish_slab(packed, prm0, color, cont, atten, ro, rd, call))
             return torch.cat(out)[:n]
 
@@ -466,7 +507,7 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
 
         def trace_c(o3, d3):
             o = call(lay, prm0, o3.contiguous(), d3.contiguous())
-            color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+            color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
             return finish_aa_mc(packed, prm0, color, cont, atten, ro, rd, call)
 
         def samples_c(xx, yy, k):
@@ -532,7 +573,10 @@ def build_rows_renderer(static: SceneStatic, width: int, height: int, n_lanes: i
         prm = prm_tap.clone()
         prm[l0] = float(exact_lane_base(base))
         o = call(lay, prm, lin=(base, lanes))
-        color, cont, atten, ro, rd = combine_outputs(packed, static, o)
+        dirs = None
+        if static.has_env:  # the JAX package's ``_lin_dirs``
+            dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), base, lanes)[1]
+        color, cont, atten, ro, rd = combine_outputs(packed, static, o, dirs)
         return finish(packed, prm0, color, cont, atten, ro, rd, call)
 
     if slabs is None:

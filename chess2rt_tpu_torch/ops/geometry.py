@@ -17,7 +17,8 @@ op order and its NaN-free dead-lane guards:
 
 The eager Whitted twin (render/pipeline.py) runs all of it; the gradient's
 backward (ops/round0_grad.py) reuses the leaf closed forms.  ``tangents=True``
-(the bump extension's dNdx/dNdy frame) is ROADMAP.md queue 1 item 9.
+adds the bump extension's dNdx/dNdy frame to every record
+(intersectable.d:24-25); hot paths leave it off.
 
 Hit sets are dicts of tensors: dist [N,K], p [N,K,3], normal [N,K,3],
 u [N,K], v [N,K], sorted ascending by dist with +INF padding.
@@ -100,8 +101,13 @@ def _safe_arctan2(y, x):
     return _SafeArctan2.apply(y, x)
 
 
-def plane_closest(y, limit, orig, dir):
-    """Plane candidate: a hit dict with dist = INF on a miss."""
+def _const_vec(like, xyz):
+    return torch.tensor(xyz, dtype=like.dtype, device=like.device).expand(like.shape)
+
+
+def plane_closest(y, limit, orig, dir, tangents=False):
+    """Plane candidate: a hit dict with dist = INF on a miss.  ``tangents``
+    adds the constant frame dNdx = x, dNdy = z (geometry.d:52-53)."""
     oy, dy = orig[..., 1], dir[..., 1]
     miss = ((oy > y) & (dy > -1e-9)) | ((oy < y) & (dy < 1e-9))
     # guarded reciprocal: dy == 0 lanes are all misses
@@ -112,18 +118,30 @@ def plane_closest(y, limit, orig, dir):
     dist = torch.where(ok, mult, INF)
     n = torch.zeros_like(p)
     n[..., 1] = 1.0
-    return {"dist": dist, "p": p, "normal": n, "u": p[..., 0], "v": p[..., 2]}
+    rec = {"dist": dist, "p": p, "normal": n, "u": p[..., 0], "v": p[..., 2]}
+    if tangents:
+        rec["dndx"] = _const_vec(p, (1.0, 0.0, 0.0))
+        rec["dndy"] = _const_vec(p, (0.0, 0.0, 1.0))
+    return rec
 
 
-def _sphere_record(center, r, orig, dir, t):
-    """Position, normal and spherical UVs of the hit at ``t``."""
+def _sphere_record(center, r, orig, dir, t, tangents=False):
+    """Position, normal and spherical UVs of the hit at ``t``; ``tangents``:
+    dNdx from the azimuth, dNdy = dNdx x normal (geometry.d:121-122)."""
     p = orig + dir * t[..., None]
     rel = p - center
     normal = _norm(rel)
     angle = _safe_arctan2(rel[..., 2], rel[..., 0])
     u = (torch.pi + angle) / (2 * torch.pi)
     v = 1.0 - (torch.pi / 2 + _safe_arcsin(torch.clamp(rel[..., 1] / r, -1.0, 1.0))) / torch.pi
-    return {"p": p, "normal": normal, "u": u, "v": v}
+    rec = {"p": p, "normal": normal, "u": u, "v": v}
+    if tangents:
+        dndx = torch.stack(
+            [torch.cos(angle + torch.pi / 2), torch.zeros_like(angle), torch.sin(angle + torch.pi / 2)], dim=-1
+        )
+        rec["dndx"] = dndx
+        rec["dndy"] = torch.linalg.cross(dndx, normal, dim=-1)
+    return rec
 
 
 def _sphere_roots(center, r, orig, dir):
@@ -151,10 +169,15 @@ _CUBE_FACES = (
 )
 
 
-def _cube_face_candidates(center, side, orig, dir):
-    """Per-face candidate (dist, normal, u, v, p) for all 6 faces -> [N, 6, ...]."""
+def _cube_face_candidates(center, side, orig, dir, tangents=False):
+    """Per-face candidate (dist, normal, u, v, p) for all 6 faces -> [N, 6, ...].
+
+    The reference's tangent-frame quirk is kept (geometry.d:178-191,
+    :227-228): it unprojects normal and p after the axis-permuted side tests
+    but not dNdx/dNdy, so every face keeps the projected-space literals
+    dNdx = (1, 0, 0), dNdy = (0, 0, face_sign)."""
     half = side * 0.5
-    dists, normals, us, vs, ps = [], [], [], [], []
+    dists, normals, us, vs, ps, dndys = [], [], [], [], [], []
     for axis, s, ua, va in _CUBE_FACES:
         d_k = dir[..., axis]
         o_k = orig[..., axis]
@@ -177,44 +200,42 @@ def _cube_face_candidates(center, side, orig, dir):
         us.append(p[..., ua] - center[..., ua])
         vs.append(p[..., va] - center[..., va])
         ps.append(p)
-    return {
+        if tangents:
+            dndys.append(_const_vec(p, (0.0, 0.0, s)))
+    out = {
         "dist": torch.stack(dists, -1),  # [N, 6]
         "normal": torch.stack(normals, -2),  # [N, 6, 3]
         "u": torch.stack(us, -1),
         "v": torch.stack(vs, -1),
         "p": torch.stack(ps, -2),
     }
-
-
-def _no_tangents(tangents):
     if tangents:
-        raise NotImplementedError(
-            "geometry: the dNdx/dNdy tangent frame (bump maps) is not ported yet (ROADMAP.md queue 1 item 9: Bump)"
-        )
+        out["dndx"] = _const_vec(out["normal"], (1.0, 0.0, 0.0))
+        out["dndy"] = torch.stack(dndys, -2)
+    return out
 
 
 def sphere_closest(center, r, orig, dir, tangents=False):
     """Nearer root unless it is behind the origin (geometry.d:104-108)."""
-    _no_tangents(tangents)
     has, x1, x2 = _sphere_roots(center, r, orig, dir)
     sol = torch.where(x2 < 0, x1, x2)
     ok = has & (sol >= 0)
-    rec = _sphere_record(center, r, orig, dir, torch.where(ok, sol, 0.0))
+    rec = _sphere_record(center, r, orig, dir, torch.where(ok, sol, 0.0), tangents)
     rec["dist"] = torch.where(ok, sol, INF)
     return rec
 
 
 def cube_closest(center, side, orig, dir, tangents=False):
     """Running-min select over the 6 faces, first face winning ties."""
-    _no_tangents(tangents)
-    faces = _cube_face_candidates(center, side, orig, dir)
+    faces = _cube_face_candidates(center, side, orig, dir, tangents)
+    vec_keys = ("normal", "p", "dndx", "dndy") if tangents else ("normal", "p")
     best = {k: faces[k][..., 0] for k in ("dist", "u", "v")}
-    best.update({k: faces[k][..., 0, :] for k in ("normal", "p")})
+    best.update({k: faces[k][..., 0, :] for k in vec_keys})
     for i in range(1, 6):
         better = faces["dist"][..., i] < best["dist"]
         for k in ("dist", "u", "v"):
             best[k] = torch.where(better, faces[k][..., i], best[k])
-        for k in ("normal", "p"):
+        for k in vec_keys:
             best[k] = torch.where(better[..., None], faces[k][..., i, :], best[k])
     return best
 
@@ -284,12 +305,11 @@ def _sort_hits(hits, extra=None):
 
 def _vec_keys(hits):
     """Hit-set fields carrying [..., 3] vectors (vs per-hit scalars)."""
-    return tuple(k for k in hits if k in ("p", "normal"))
+    return tuple(k for k in hits if k in ("p", "normal", "dndx", "dndy"))
 
 
 def plane_all_hits(y, limit, orig, dir, tangents=False):
-    _no_tangents(tangents)
-    c = plane_closest(y, limit, orig, dir)
+    c = plane_closest(y, limit, orig, dir, tangents)
     vk = _vec_keys(c)
     return {k: v[..., None, :] if k in vk else v[..., None] for k, v in c.items()}
 
@@ -297,20 +317,19 @@ def plane_all_hits(y, limit, orig, dir, tangents=False):
 def sphere_all_hits(center, r, orig, dir, tangents=False):
     """Both quadratic roots with t >= 0, ascending (what the reference's
     re-cast loop enumerates, geometry.d:271-290)."""
-    _no_tangents(tangents)
     has, x1, x2 = _sphere_roots(center, r, orig, dir)  # x2 <= x1
     d = torch.stack([torch.where(has & (x2 >= 0), x2, INF), torch.where(has & (x1 >= 0), x1, INF)], dim=-1)
-    recs = [_sphere_record(center, r, orig, dir, t) for t in (x2, x1)]
+    recs = [_sphere_record(center, r, orig, dir, t, tangents) for t in (x2, x1)]
     out = {"dist": d}
+    vk = _vec_keys(recs[0])
     for k in recs[0]:
-        out[k] = torch.stack([rc[k] for rc in recs], dim=-2 if k in ("p", "normal") else -1)
+        out[k] = torch.stack([rc[k] for rc in recs], dim=-2 if k in vk else -1)
     return out
 
 
 def cube_all_hits(center, side, orig, dir, tangents=False):
     """The (<= 2) valid face crossings, ascending."""
-    _no_tangents(tangents)
-    sorted_faces, _ = _sort_hits(_cube_face_candidates(center, side, orig, dir))
+    sorted_faces, _ = _sort_hits(_cube_face_candidates(center, side, orig, dir, tangents))
     vk = _vec_keys(sorted_faces)
     return {k: (v[..., :2, :] if k in vk else v[..., :2]) for k, v in sorted_faces.items()}
 
@@ -375,18 +394,17 @@ def all_hits_expr(packed: ScenePacked, expr, orig, dir, tangents=False):
     """All boundary crossings of the solid ``expr`` along the ray, as a
     sorted fixed-capacity hit set.  For a CSG node: the child hits at which
     boolOp(inL, inR) holds after the flip (geometry.d:292-332)."""
-    _no_tangents(tangents)
     kind = expr[0]
     if kind == "plane":
-        return plane_all_hits(packed.plane_y[expr[1]], packed.plane_limit[expr[1]], orig, dir)
+        return plane_all_hits(packed.plane_y[expr[1]], packed.plane_limit[expr[1]], orig, dir, tangents)
     if kind == "sphere":
-        return sphere_all_hits(packed.sphere_center[expr[1]], packed.sphere_r[expr[1]], orig, dir)
+        return sphere_all_hits(packed.sphere_center[expr[1]], packed.sphere_r[expr[1]], orig, dir, tangents)
     if kind == "cube":
-        return cube_all_hits(packed.cube_center[expr[1]], packed.cube_side[expr[1]], orig, dir)
+        return cube_all_hits(packed.cube_center[expr[1]], packed.cube_side[expr[1]], orig, dir, tangents)
 
     _, op, left, right = expr
-    lh = all_hits_expr(packed, left, orig, dir)
-    rh = all_hits_expr(packed, right, orig, dir)
+    lh = all_hits_expr(packed, left, orig, dir, tangents)
+    rh = all_hits_expr(packed, right, orig, dir, tangents)
     vk = _vec_keys(lh)
     merged = {k: torch.cat([lh[k], rh[k]], dim=-2 if k in vk else -1) for k in lh}
     side_flag = torch.cat([torch.zeros_like(lh["dist"]), torch.ones_like(rh["dist"])], dim=-1)
@@ -399,7 +417,8 @@ def all_hits_expr(packed: ScenePacked, expr, orig, dir, tangents=False):
     # inside test just before and after the hit.  The probe step is the
     # reference's 1e-6 in f64; in f32 that is below one ulp at the scenes'
     # coordinate scale (~1e2) and the flip would never fire, so 1e-3 (the
-    # dtype split of ops/shade.shadow_eps)
+    # dtype split of ops/shade.shadow_eps).  The flip turns the normal only,
+    # never the tangent frame.
     if op == "diff":
         eps = 1e-6 if shits["p"].dtype == torch.float64 else 1e-3
         before = is_inside_expr(packed, right, shits["p"] - dir[..., None, :] * eps)
@@ -415,15 +434,14 @@ def all_hits_expr(packed: ScenePacked, expr, orig, dir, tangents=False):
 
 def closest_hit_expr(packed: ScenePacked, expr, orig, dir, tangents=False):
     """Closest-hit candidate of a geometry expression (dist = INF on miss)."""
-    _no_tangents(tangents)
     kind = expr[0]
     if kind == "plane":
-        return plane_closest(packed.plane_y[expr[1]], packed.plane_limit[expr[1]], orig, dir)
+        return plane_closest(packed.plane_y[expr[1]], packed.plane_limit[expr[1]], orig, dir, tangents)
     if kind == "sphere":
-        return sphere_closest(packed.sphere_center[expr[1]], packed.sphere_r[expr[1]], orig, dir)
+        return sphere_closest(packed.sphere_center[expr[1]], packed.sphere_r[expr[1]], orig, dir, tangents)
     if kind == "cube":
-        return cube_closest(packed.cube_center[expr[1]], packed.cube_side[expr[1]], orig, dir)
-    hits = all_hits_expr(packed, expr, orig, dir)
+        return cube_closest(packed.cube_center[expr[1]], packed.cube_side[expr[1]], orig, dir, tangents)
+    hits = all_hits_expr(packed, expr, orig, dir, tangents)
     vk = _vec_keys(hits)
     return {k: (v[..., 0, :] if k in vk else v[..., 0]) for k, v in hits.items()}
 
@@ -456,25 +474,29 @@ def node_closest(packed: ScenePacked, node_static, node_idx, orig, dir, tangents
     """Closest-hit candidate for one scene node, in world space: the
     canonic-space round trip with the |dir| distance rescale (node.d:51-67);
     identity and offset-only transforms take cheaper paths.  ``m_inv``:
-    optional ``node_inverses(packed)``, shared by a whole scan."""
-    _no_tangents(tangents)
+    optional ``node_inverses(packed)``, shared by a whole scan.  Tangents
+    transform by the forward matrix, then normalize (node.d:45-46)."""
     if node_static.identity_transform:
-        return closest_hit_expr(packed, node_static.geom, orig, dir)
+        return closest_hit_expr(packed, node_static.geom, orig, dir, tangents)
     if node_static.offset_only:
         offset = packed.node_offset[node_idx]
-        cand = closest_hit_expr(packed, node_static.geom, orig - offset, dir)
+        cand = closest_hit_expr(packed, node_static.geom, orig - offset, dir, tangents)
         cand["p"] = cand["p"] + offset
         return cand
     offset, m_inv, co, cdn, dlen = _to_canonic(packed, node_idx, orig, dir, m_inv)
     m = packed.node_matrix[node_idx]
-    cand = closest_hit_expr(packed, node_static.geom, co, cdn)
-    return {
+    cand = closest_hit_expr(packed, node_static.geom, co, cdn, tangents)
+    out = {
         "dist": torch.where(cand["dist"] >= INF, INF, cand["dist"] / dlen),
         "p": cand["p"] @ m + offset,
         "normal": _norm(cand["normal"] @ m_inv.T),
         "u": cand["u"],
         "v": cand["v"],
     }
+    if tangents:
+        out["dndx"] = _norm(cand["dndx"] @ m)
+        out["dndy"] = _norm(cand["dndy"] @ m)
+    return out
 
 
 def _needs_inverses(static) -> bool:
@@ -484,13 +506,13 @@ def _needs_inverses(static) -> bool:
 def scene_closest(packed: ScenePacked, static, orig, dir, tangents=False):
     """The node-scan hot loop (renderer.d:336-338): every node in turn, the
     last improving node wins (ties included); returns (hit, win) with
-    win == -1 for misses.  An empty scene misses every ray."""
-    _no_tangents(tangents)
+    win == -1 for misses.  An empty scene misses every ray.  ``tangents``
+    carries the dNdx/dNdy frame through the records (the bump extension)."""
     m_inv = node_inverses(packed) if _needs_inverses(static) else None
     best = None
     win = torch.full(orig.shape[:-1], -1, dtype=torch.int32, device=orig.device)
     for i, ns in enumerate(static.nodes):
-        cand = node_closest(packed, ns, i, orig, dir, m_inv=m_inv)
+        cand = node_closest(packed, ns, i, orig, dir, tangents, m_inv=m_inv)
         if best is None:
             best = cand
             win = torch.where(cand["dist"] < INF, i, win)
@@ -502,6 +524,9 @@ def scene_closest(packed: ScenePacked, static, orig, dir, tangents=False):
     if best is None:  # empty scene
         z = torch.zeros(orig.shape[:-1], dtype=orig.dtype, device=orig.device)
         best = {"dist": torch.full_like(z, INF), "p": orig, "normal": dir, "u": z, "v": z}
+        if tangents:
+            best["dndx"] = torch.zeros_like(orig)
+            best["dndy"] = torch.zeros_like(orig)
     return best, win
 
 

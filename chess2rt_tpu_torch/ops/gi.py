@@ -8,9 +8,9 @@ so the two agree to the kernel's float differences.
 
     per path:    jittered camera rays (screen_rays)  ->  per bounce:
                  round0 (ray-input, want_hit: win, t, raw normal, diffuse,
-                 light sum)  ->  deferred bitmap texels, the NEE term
-                 diffuse / pi * (L - ambient), the hemisphere sample and the
-                 path's next ray in torch
+                 light sum)  ->  deferred bitmap texels, the environment's
+                 miss term, the NEE term diffuse / pi * (L - ambient), the
+                 hemisphere sample and the path's next ray in torch
 
 * ``build_gi_tracer``: the kernel-backed ``trace_path`` for a batch of rays
   with one key: each bounce one K1 call (``round0``, the CUDA kernel for
@@ -86,7 +86,6 @@ def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, 
 
     def tracer(packed: ScenePacked, orig, dir, key, prm=None):
         global bounce_rounds
-        env_miss_term(static)
         draw = uniform or prng.uniform
         prm = lay.pack(packed) if prm is None else prm
         eps = S.shadow_eps(orig.dtype)
@@ -104,6 +103,8 @@ def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, 
             hitmask = alive & (win >= 0)
             N = S.faceforward(dir, normal)
             mult_eff = torch.ones_like(mult) if static.gi_multiplier_quirk else mult
+            if static.has_env:
+                acc = acc + env_miss_term(packed, static, alive, win, dir, mult_eff)
             if static.gi_point_light_direct:
                 nee = diffuse * (1.0 / torch.pi) * (L - packed.ambient)
                 acc = acc + torch.where(hitmask[..., None], mult_eff * nee, 0.0)

@@ -25,9 +25,12 @@ Counterpart of chess2rt_tpu/ops/pallas_grad.py (``build_diff_round0`` with
   bounce chain is differentiated.
 
 ``diff_round0`` is the entry point; its autograd Function takes the
-ScenePacked leaves in models/packed.LEAF_NAMES order.  The full-scan
-``pin_mode="node"`` and the bump hybrid (``build_bump_round0``) are not
-ported (ROADMAP.md queue 1 items 5, 9).
+ScenePacked leaves in models/packed.LEAF_NAMES order.  Bump scenes take
+the bump hybrid (ops/bump_round0.py) instead, which reuses this module's
+re-shade with ``bump=True``: tangent-carrying leaf-pinned records
+(``leaf_pinned_record(..., tangents=True)``) and the bump perturbation
+before the lighting sums.  The full-scan ``pin_mode="node"`` is not ported
+(ROADMAP.md queue 1 item 5).
 
 Discrete-pin caveat (as in the JAX package): on knife-edge lanes where the
 kernel's float decisions and the recompute's would differ, the gradient
@@ -123,28 +126,50 @@ def compute_leaf_pins(packed, static, orig, dir, win, t_pin):
     return gleaf, sel
 
 
-def leaf_pinned_record(packed, static, orig, dir, gleaf, sel, n_pin):
+def _tangent_row(packed, static, i, local3):
+    """World-space tangent of a constant local tangent ``local3`` of node
+    ``i``: ``_norm(local3 @ m_fwd)`` on a [3] vector (node.d:45-46); the
+    local constant itself for identity and offset-only nodes."""
+    ns = static.nodes[i]
+    v = torch.tensor(local3, dtype=packed.node_offset.dtype, device=packed.node_offset.device)
+    if ns.identity_transform or ns.offset_only:
+        return v
+    w = v @ packed.node_matrix[i]
+    return w * torch.rsqrt(torch.clamp_min((w * w).sum(), 1e-30))
+
+
+def leaf_pinned_record(packed, static, orig, dir, gleaf, sel, n_pin, tangents=False):
     """Differentiable winning-hit record (dist, normal, u, v) rebuilt from
     the pinned (leaf, solution) ids: one primitive's closed form per ray,
     selected across the static leaf list.  The CsgDiff eaten-surface normal
     flip (geometry.d:377-397) is recovered by sign-matching against the
-    kernel's saved raw normal ``n_pin`` (on stop-gradient values)."""
+    kernel's saved raw normal ``n_pin`` (on stop-gradient values).
+
+    ``tangents`` adds the dNdx/dNdy frame of the bump extension, per pinned
+    leaf a closed form too: plane and cube take node constants (the cube
+    keeps the projected-space literals, dNdy = (0, 0, face sign),
+    geometry.d:227-228), the sphere its azimuth frame (geometry.d:110-122),
+    all through the forward matrix (node.d:45-46).  The CsgDiff flip turns
+    the normal only, never the tangents, as in ``all_hits_expr``."""
     lvs, _ = leaf_table(static)
     rec = None
     space = {}
-    keys = ("dist", "normal", "u", "v")
+    keys = ("dist", "normal", "u", "v") + (("dndx", "dndy") if tangents else ())
     for g, (i, kind, k) in enumerate(lvs):
         if i not in space:
             space[i] = _node_space(packed, static, i, orig, dir)
         o_l, d_l, inv_dl, m_inv = space[i]
         if kind == "plane":
             cand = G.plane_closest(packed.plane_y[k], packed.plane_limit[k], o_l, d_l)
+            if tangents:
+                cand["dndx"] = _tangent_row(packed, static, i, (1.0, 0.0, 0.0)).expand(o_l.shape)
+                cand["dndy"] = _tangent_row(packed, static, i, (0.0, 0.0, 1.0)).expand(o_l.shape)
         elif kind == "sphere":
             c, r = packed.sphere_center[k], packed.sphere_r[k]
             has, x1, x2 = G._sphere_roots(c, r, o_l, d_l)
             t = torch.where(sel == 1, x1, x2)
             ok = has & (t >= 0)
-            cand = G._sphere_record(c, r, o_l, d_l, torch.where(ok, t, 0.0))
+            cand = G._sphere_record(c, r, o_l, d_l, torch.where(ok, t, 0.0), tangents)
             cand["dist"] = torch.where(ok, t, INF)
         else:  # cube: the pinned face
             faces = G._cube_face_candidates(packed.cube_center[k], packed.cube_side[k], o_l, d_l)
@@ -162,10 +187,24 @@ def leaf_pinned_record(packed, static, orig, dir, gleaf, sel, n_pin):
                     "u": torch.where(m, faces["u"][..., fi], cand["u"]),
                     "v": torch.where(m, faces["v"][..., fi], cand["v"]),
                 }
+            if tangents:
+                # the face sign by the pinned face id, multiplied after the
+                # normalize (a sign commutes with it)
+                s = torch.full(sel.shape, G._CUBE_FACES[0][1], dtype=o_l.dtype, device=o_l.device)
+                for fi in range(1, 6):
+                    s = torch.where(sel == fi, G._CUBE_FACES[fi][1], s)
+                cand["dndx"] = _tangent_row(packed, static, i, (1.0, 0.0, 0.0)).expand(o_l.shape)
+                cand["dndy"] = s[..., None] * _tangent_row(packed, static, i, (0.0, 0.0, 1.0))
         if inv_dl is not None:
             miss = cand["dist"] >= INF
             cand["dist"] = torch.where(miss, INF, cand["dist"] * inv_dl)
             cand["normal"] = _norm(cand["normal"] @ m_inv.T)
+            if tangents and kind == "sphere":
+                # per-lane sphere frames through the forward matrix; plane
+                # and cube frames are the node constants above
+                m_fwd = packed.node_matrix[i]
+                cand["dndx"] = _norm(cand["dndx"] @ m_fwd)
+                cand["dndy"] = _norm(cand["dndy"] @ m_fwd)
         m = gleaf == g
         if rec is None:
             rec = {key: cand[key] for key in keys}
@@ -212,20 +251,27 @@ def _diffuse_nobitmap(packed, static, winc, u, v, onehot):
     return out
 
 
-def reshade(packed: ScenePacked, static: SceneStatic, orig, dir, win, vis_list, rec_pins, want_hit=False):
+def reshade(packed: ScenePacked, static: SceneStatic, orig, dir, win, vis_list, rec_pins, want_hit=False,
+            bump=False):
     """Differentiable torch recompute of K1's float outputs given the pinned
     (win, vis) and leaf pins ``rec_pins`` = (gleaf, sel, n_pin): the same
     keys as the layout (plain, or ``want_hit``), minus ``win`` and the vis
-    rows.  ``vis_list`` holds one bool [N] mask per light."""
-    rec = leaf_pinned_record(packed, static, orig, dir, *rec_pins)
-    return _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit)
+    rows.  ``vis_list`` holds one bool [N] mask per light.  ``bump``: the
+    record carries tangents and the winning normal is bump-perturbed before
+    the lighting (the bump hybrid's shading, ops/bump_round0.py)."""
+    rec = leaf_pinned_record(packed, static, orig, dir, *rec_pins, tangents=bump)
+    return _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit, bump)
 
 
-def _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit=False):
+def _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit=False, bump=False, diffuse=None):
     """The shading half of ``reshade``: direct light, continuation and the
     output rows for a given winning-hit record, in K1's op order.
     ``want_hit`` adds the light-sum, u, v and hit rows of K1's want_hit
-    form (pallas_grad._shade_pinned's)."""
+    form (pallas_grad._shade_pinned's).  ``bump`` perturbs the raw normal
+    by ``shade.apply_bump`` before faceforward, the lighting sums and the
+    continuation (the hook order of render/pipeline._whitted_round);
+    ``diffuse`` overrides the ``_diffuse_nobitmap`` recompute (the bump fast
+    forward passes K1's own dr, dg, db rows)."""
     has_bitmap = TEX_BITMAP in static.tex_kinds_present
     emit_L = has_bitmap or want_hit
     has_refr = REFRACTION in static.shader_kinds_present
@@ -235,6 +281,8 @@ def _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit=False)
     hitmask = win >= 0
     winc = torch.clamp_min(win, 0)
     onehot = S.node_onehot(static, winc)
+    if bump:
+        rec = dict(rec, normal=S.apply_bump(packed, static, winc, rec, onehot))
 
     # world hit point from the winning t.  Dead lanes, and knife-edge lanes
     # where the kernel hit what the recompute just misses (dist == INF), are
@@ -250,7 +298,8 @@ def _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit=False)
     N = rec["normal"] * sgn[..., None]
     sfrom = hp + N * EPS_SHADOW
 
-    diffuse = _diffuse_nobitmap(packed, static, winc, rec["u"], rec["v"], onehot)
+    if diffuse is None:
+        diffuse = _diffuse_nobitmap(packed, static, winc, rec["u"], rec["v"], onehot)
 
     # direct light; the shadow scans are replaced by the pinned bits
     L = torch.broadcast_to(packed.ambient, hp.shape)
@@ -358,24 +407,46 @@ def _gen_rays_lin(packed, width, height, aa, lin_base: int, n: int):
 # --------------------------------------------------------------------------
 
 
+def kernel_pins(o, n_lights: int):
+    """(win, vis_list, t_pin, n_pin) from K1's residual rows: the winner,
+    one bool [N] shadow bit per light, the winning t and raw normal."""
+    vis = [o[f"vis{li}"] > 0.5 for li in range(n_lights)]
+    return o["win"], vis, o["t"], torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1)
+
+
+def form_rays(packed, lay: Round0Layout, prm, form, tensors):
+    """The rays a round-0 call of ``form`` traced: the caller's (ray-input
+    form, the first two of ``tensors``) or the ray-gen twin's at ``prm``'s
+    aa offset (screen-tap form: the frame; lin-input form: its slice),
+    differentiable in ``packed``'s camera."""
+    if form == "rays":
+        return tensors[0], tensors[1]
+    a0 = lay.off["aa"]
+    base, n = form or (0, lay.width * lay.height)
+    return _gen_rays_lin(packed, lay.width, lay.height, prm[a0:a0 + 2], base, n)
+
+
 class _DiffRound0(torch.autograd.Function):
     """Inputs: (residual layout, primal row names, trace, prm, form,
-    [orig, dir,] *leaves in LEAF_NAMES order), with ``form`` None for the
-    screen-tap form, "rays" for the ray-input form, or (lin_base, n_lanes)
-    for the lin-input form.  Outputs: the primal rows in ``names`` order,
-    then ``win``."""
+    primal, [orig, dir,] *leaves in LEAF_NAMES order), with ``form`` None
+    for the screen-tap form, "rays" for the ray-input form, or (lin_base,
+    n_lanes) for the lin-input form.  ``primal`` None returns K1's rows;
+    the bump fast forward passes ``primal(packed, orig, dir, o)``, its
+    shading of K1's record, and the backward then re-shades with bump.
+    Outputs: the primal rows in ``names`` order, then ``win``."""
 
     @staticmethod
-    def forward(ctx, lay_r: Round0Layout, names, trace, prm, form, *tensors):
+    def forward(ctx, lay_r: Round0Layout, names, trace, prm, form, primal, *tensors):
         ray_input = form == "rays"
         rays = tensors[:2] if ray_input else ()
         lin = {} if form is None or ray_input else {"lin_input": True, "n_lanes": form[1]}
         o = trace(lay_r, prm, *rays, **lin)
-        win = o["win"]
-        vis = torch.stack([o[f"vis{li}"] for li in range(lay_r.static.n_lights)]) > 0.5
-        n_pin = torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1)
-        ctx.lay, ctx.names, ctx.ray_input, ctx.form = lay_r, names, ray_input, form
-        ctx.save_for_backward(prm, win, vis, o["t"], n_pin, *tensors)
+        win, vis, t_pin, n_pin = kernel_pins(o, lay_r.static.n_lights)
+        if primal is not None:
+            packed = from_leaves(tensors[2 if ray_input else 0:])
+            o = primal(packed, *form_rays(packed, lay_r, prm, form, tensors), o)
+        ctx.lay, ctx.names, ctx.ray_input, ctx.form, ctx.bump = lay_r, names, ray_input, form, primal is not None
+        ctx.save_for_backward(prm, win, torch.stack(vis), t_pin, n_pin, *tensors)
         ctx.mark_non_differentiable(win)
         ctx.set_materialize_grads(False)
         return tuple(o[k] for k in names) + (win,)
@@ -384,26 +455,20 @@ class _DiffRound0(torch.autograd.Function):
     def backward(ctx, *grads):
         prm, win, vis, t_pin, n_pin, *tensors = ctx.saved_tensors
         lay, static = ctx.lay, ctx.lay.static
-        need = ctx.needs_input_grad[5:]
+        need = ctx.needs_input_grad[6:]
         pairs = [(k, g) for k, g in zip(ctx.names, grads[:-1]) if g is not None]
         result = [None] * len(tensors)
         if not pairs or not any(need):
-            return (None,) * 5 + tuple(result)
+            return (None,) * 6 + tuple(result)
         with torch.enable_grad():
             xs = [t.detach().requires_grad_(nd) for t, nd in zip(tensors, need)]
-            nr = 2 if ctx.ray_input else 0
-            packed = from_leaves(xs[nr:])
-            if ctx.ray_input:
-                orig, dir = xs[0], xs[1]
-            else:
-                a0 = lay.off["aa"]
-                base, n = ctx.form or (0, lay.width * lay.height)
-                orig, dir = _gen_rays_lin(packed, lay.width, lay.height, prm[a0:a0 + 2], base, n)
+            packed = from_leaves(xs[2 if ctx.ray_input else 0:])
+            orig, dir = form_rays(packed, lay, prm, ctx.form, xs)
             with torch.no_grad():
                 gleaf, sel = compute_leaf_pins(packed, static, orig, dir, win, t_pin)
             # the caller's layout had the hit rows when its names hold "t"
             out = reshade(packed, static, orig, dir, win, list(vis.unbind(0)), (gleaf, sel, n_pin),
-                          want_hit="t" in ctx.names)
+                          want_hit="t" in ctx.names, bump=ctx.bump)
             pairs = [(out[k], g) for k, g in pairs if out[k].requires_grad]
             wanted = [i for i, x in enumerate(xs) if x.requires_grad]
             if pairs:
@@ -412,7 +477,7 @@ class _DiffRound0(torch.autograd.Function):
                 )
                 for i, g in zip(wanted, got):
                     result[i] = g
-        return (None,) * 5 + tuple(result)
+        return (None,) * 6 + tuple(result)
 
 
 def diff_round0(lay: Round0Layout, prm, packed: ScenePacked, orig=None, dir=None, *, trace=round0,
@@ -435,17 +500,17 @@ def diff_round0(lay: Round0Layout, prm, packed: ScenePacked, orig=None, dir=None
         )
     if lin_input and (orig is not None or n_lanes is None):
         raise ValueError("diff_round0: the lin-input form takes n_lanes and no rays")
-    if static.has_bump:
-        raise NotImplementedError(
-            "diff_round0: bump scenes take the bump hybrid (build_bump_round0), not ported (ROADMAP.md queue 1 item 9)"
-        )
+    # bump scenes take the bump hybrid (ops/bump_round0.py, dispatched by
+    # ops/flagship.round0_call); only want_hit callers (GI, which ignores
+    # bump) come here with one
+    assert lay.want_hit or not static.has_bump, "diff_round0: a bump scene's call belongs to bump_round0"
     rays = () if orig is None else (orig, dir)
     tensors = (*rays, *leaves(packed))
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
         return trace(lay, prm, *rays, **({"lin_input": True, "n_lanes": n_lanes} if lin_input else {}))
     lay_r = layout(static, lay.width, lay.height, want_hit=True, want_vis=True)
     form = "rays" if rays else ((int(lin_base), int(n_lanes)) if lin_input else None)
-    outs = _DiffRound0.apply(lay_r, lay.names, trace, prm.detach(), form, *tensors)
+    outs = _DiffRound0.apply(lay_r, lay.names, trace, prm.detach(), form, None, *tensors)
     res = dict(zip(lay.names, outs[:-1]))
     res["win"] = outs[-1]
     return res

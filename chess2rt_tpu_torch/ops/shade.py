@@ -18,8 +18,9 @@ so a whole wavefront shades in one pass:
   (ops/texel_hist.py).  The fused path defers exactly this gather from K1
   (``bitmap_color``).
 
-``apply_bump`` (the bump extension) is ROADMAP.md queue 1 item 9; the JAX
-package's ``checkpoint_name`` tag on the shadow bits has no counterpart.
+``apply_bump`` perturbs hit normals by the winning node's bump map (the
+BumpTexture extension).  The JAX package's ``checkpoint_name`` tag on the
+shadow bits has no counterpart.
 """
 
 from __future__ import annotations
@@ -213,6 +214,60 @@ def _quad_atlas_flat(atlas, sizes):
 
 
 # --------------------------------------------------------------------------
+# Bump mapping (extension; oracle/renderer.modify_normal is the ground truth)
+# --------------------------------------------------------------------------
+
+
+def apply_bump(packed: ScenePacked, static: SceneStatic, winc, hit, onehot=None):
+    """Perturb hit normals by the winning node's bump map (the
+    renderer.d:370-372 hook, completed by the BumpTexture extension):
+
+        (dx, dy) = bilinear wrap sample of the differentiated map
+        normal'  = normalize(normal + (dNdx*dx + dNdy*dy) * strength)
+
+    Nodes without a bump map keep their normal.  The hit records carry
+    dndx/dndy (``scene_closest(..., tangents=True)``).  The bump atlas is
+    not trainable (detached): the sample is one [rows, 8] quad-row gather
+    of the dx/dy channels (differentiate's blue is always 0)."""
+    if not static.has_bump:
+        return hit["normal"]
+    if onehot is None:
+        onehot = node_onehot(static, winc)
+    dt = packed.bump_atlas.dtype
+    b = static_select(winc, [max(n.bump_idx, 0) for n in static.nodes])
+    h = static_select(b, [s[0] for s in static.bump_sizes], dt)
+    w = static_select(b, [s[1] for s in static.bump_sizes], dt)
+    scaling = node_gather(onehot, packed.bump_scaling)
+    uu = hit["u"] * scaling
+    vv = hit["v"] * scaling
+    uu = uu - torch.floor(uu)
+    vv = vv - torch.floor(vv)
+    tx = uu * w
+    ty = vv * h
+    ix = torch.minimum(torch.clamp_min(torch.floor(tx), 0), w - 1)
+    iy = torch.minimum(torch.clamp_min(torch.floor(ty), 0), h - 1)
+    p = (tx - ix)[..., None]
+    q = (ty - iy)[..., None]
+    quads = _quad_atlas_flat(packed.bump_atlas.detach()[..., :2], static.bump_sizes)  # [R, 8]
+    # non-finite u/v on masked lanes: pin them to texel 0, as bitmap_plan does
+    ixi = torch.nan_to_num(ix, nan=0.0).to(torch.int32)
+    iyi = torch.nan_to_num(iy, nan=0.0).to(torch.int32)
+    key = _quad_row_key(static.bump_sizes, b, list(range(len(static.bump_sizes))), ixi, iyi)
+    g = quad_gather_flat(quads, key)
+    d = (
+        g[..., 0:2] * (1 - p) * (1 - q)
+        + g[..., 2:4] * p * (1 - q)
+        + g[..., 4:6] * (1 - p) * q
+        + g[..., 6:8] * p * q
+    )
+    strength = node_gather(onehot, packed.bump_strength)
+    dn = (hit["dndx"] * d[..., 0:1] + hit["dndy"] * d[..., 1:2]) * strength[..., None]
+    bumped = G._norm(hit["normal"] + dn)  # guarded: dead lanes stay NaN-free
+    has = static_select(winc, [1 if n.bump_idx >= 0 else 0 for n in static.nodes]).to(torch.bool)
+    return torch.where(has[..., None], bumped, hit["normal"])
+
+
+# --------------------------------------------------------------------------
 # Textures (texture.d:20-162, bitmap.d:48-63)
 # --------------------------------------------------------------------------
 
@@ -262,14 +317,15 @@ def texture_color(packed: ScenePacked, static: SceneStatic, winc, u, v, onehot=N
 # --------------------------------------------------------------------------
 
 
-def shade_direct(packed: ScenePacked, static: SceneStatic, ray_dir, hit, winc):
+def shade_direct(packed: ScenePacked, static: SceneStatic, ray_dir, hit, winc, geom_normal=None):
     """Direct light for the whole wavefront in one pass.
 
     Lambert: diffuse * (ambient + sum over lights of visible *
     lightColor / d^2 * cos); Phong adds the untinted cos^n specular
-    (shader.d:246-249), masked to Phong nodes.  (The JAX function's
-    ``geom_normal``, the shadow-origin normal under a bump map, comes with
-    bump, ROADMAP.md item 9.)"""
+    (shader.d:246-249), masked to Phong nodes.  ``geom_normal``: the
+    pre-bump geometric normal, along which the shadow origin is offset
+    when a bump map perturbed ``hit["normal"]`` (bump is a shading-normal
+    trick; the oracle and the fused kernel offset along the surface)."""
     onehot = node_onehot(static, winc)
     N = faceforward(ray_dir, hit["normal"])
     diffuse = texture_color(packed, static, winc, hit["u"], hit["v"], onehot)
@@ -277,7 +333,8 @@ def shade_direct(packed: ScenePacked, static: SceneStatic, ray_dir, hit, winc):
     has_phong = PHONG in static.shader_kinds_present
     lam = torch.zeros_like(hit["p"])
     spec = torch.zeros_like(hit["p"]) if has_phong else None
-    shade_from = hit["p"] + N * shadow_eps(ray_dir.dtype)
+    Ng = N if geom_normal is None else faceforward(ray_dir, geom_normal)
+    shade_from = hit["p"] + Ng * shadow_eps(ray_dir.dtype)
     if has_phong:
         exponent = node_gather(onehot, packed.mat_exponent)
         strength = node_gather(onehot, packed.mat_strength)

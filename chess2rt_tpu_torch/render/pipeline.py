@@ -42,9 +42,13 @@ want_hit ray-input form per bounce) and every other GI frame to the twin,
 as JAX dispatches.  A GI scene with DoF renders DoF Whitted samples, as in
 JAX.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP.md
-item: bump maps (item 9), environment cubemaps (the GI miss term too) and
-compensated ray-gen (item 10).
+The extensions: bump maps (``_whitted_round`` perturbs the winning normal
+by ``ops/shade.apply_bump`` before shading and the continuation; GI ignores
+bump, like the oracle's path tracer), the environment cubemap (a miss
+samples ``ops/env.sample_cubemap``, in the Whitted rounds and as GI's miss
+term) and the compensated ray-gen (``compensated_raygen``: df32 screen
+corners, ops/df32.py, an opt-in of this path only: the fused paths refuse
+it in ``supports``).
 """
 
 from __future__ import annotations
@@ -57,8 +61,13 @@ from ..ops import geometry as G
 from ..ops import prng
 from ..ops import shade as S
 from ..ops.camera import begin_frame, screen_rays
+from ..ops.env import sample_cubemap
 
 INF = G.INF
+
+# frames rendered by the eager twin (``render_frame_wavefront``); callers
+# zero and read it, to tell that a frame took the fused path
+wavefront_frames = 0
 
 # AA kernel offsets (renderer.d:235-242); sample 0 is the pass-2 sample.
 AA_KERNEL = ((0.3, 0.3), (0.6, 0.0), (0.0, 0.6), (0.6, 0.6))
@@ -81,21 +90,27 @@ def _whitted_round(packed, static, color, atten, alive, orig, dir, recursive):
     """One wavefront round: closest hit, direct shade, spawn the
     continuation.  Returns the updated carry (color, atten, alive, orig,
     dir)."""
-    if static.has_bump:
-        raise NotImplementedError("bump maps are not ported yet (ROADMAP.md queue 1 item 9: Bump)")
     eps = S.shadow_eps(orig.dtype)
-    hit, win = G.scene_closest(packed, static, orig, dir)
+    hit, win = G.scene_closest(packed, static, orig, dir, tangents=static.has_bump)
     hitmask = alive & (win >= 0)
     winc = torch.clamp_min(win, 0)
+    geom_normal = None
+    if static.has_bump:
+        # the bump hook (renderer.d:370-372): the winning normal is perturbed
+        # before shading and before the continuation below; the geometric
+        # normal stays the shadow origin's offset
+        geom_normal = hit["normal"]
+        hit = dict(hit, normal=S.apply_bump(packed, static, winc, hit))
     skind = S.shader_kind_of(static, winc)
 
-    direct = S.shade_direct(packed, static, dir, hit, winc)
+    direct = S.shade_direct(packed, static, dir, hit, winc, geom_normal)
     is_direct = (skind == LAMBERT) | (skind == PHONG)
     color = color + atten * torch.where((hitmask & is_direct)[..., None], direct, 0.0)
-    # a miss is black (environment.d:5-15); the cubemap skybox is the env
+    # a miss is black (environment.d:5-15), or the cubemap skybox of the env
     # extension
     if static.has_env:
-        raise NotImplementedError("environment cubemaps are not ported yet (ROADMAP.md queue 1 item 10)")
+        env = sample_cubemap(packed.env_cubemap, dir)
+        color = color + atten * torch.where((alive & (win < 0))[..., None], env, 0.0)
 
     if not recursive:
         return color, atten, torch.zeros_like(alive), orig, dir
@@ -224,12 +239,12 @@ def continue_bounces(packed, static, color, atten, alive, orig, dir, n_rounds):
 # --------------------------------------------------------------------------
 
 
-def env_miss_term(static: SceneStatic):
-    """The GI miss term samples the environment cubemap, which is not
-    ported: raise naming its item."""
-    if static.has_env:
-        raise NotImplementedError("GI: the environment miss term (cubemaps) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 10)")
+def env_miss_term(packed: ScenePacked, static: SceneStatic, alive, win, dir, mult_eff):
+    """GI's miss term: a live path that misses adds the environment cubemap
+    in its direction, weighted by ``mult_eff`` (renderer.d:396-397; black,
+    so nothing, without a cubemap).  Shared by ``trace_path`` and the fused
+    GI tracer (ops/gi.py)."""
+    return torch.where((alive & (win < 0))[..., None], mult_eff * sample_cubemap(packed.env_cubemap, dir), 0.0)
 
 
 def hemisphere_bounce(mult, N, diffuse, u, v):
@@ -262,7 +277,9 @@ def trace_path(packed: ScenePacked, static: SceneStatic, orig, dir, key):
     * a path that hits a Phong node adds solid red, unscaled, and ends: the
       reference asserts in Phong's BRDF (shader.d:252-261), and this is its
       bogus-BRDF marker (renderer.d:457);
-    * a path that misses would add the environment (item 10: raises).
+    * a path that misses adds the environment cubemap (``env_miss_term``).
+
+    Bump maps are ignored, as in the oracle's path tracer.
 
     A bounce whose paths are all dead adds nothing and changes nothing, so
     the loop stops there (one host read of the alive mask per bounce)."""
@@ -271,7 +288,6 @@ def trace_path(packed: ScenePacked, static: SceneStatic, orig, dir, key):
             raise NotImplementedError(
                 "GI requires BRDF eval/spawnRay; only Lambert has them (extension shaders have none)"
             )
-    env_miss_term(static)
     has_phong_gi = any(ns.shader_kind == PHONG for ns in static.nodes)
     eps = S.shadow_eps(orig.dtype)
     acc = torch.zeros_like(orig)
@@ -292,6 +308,8 @@ def trace_path(packed: ScenePacked, static: SceneStatic, orig, dir, key):
         N = S.faceforward(dir, hit["normal"])
         diffuse = S.texture_color(packed, static, winc, hit["u"], hit["v"])
         mult_eff = torch.ones_like(mult) if static.gi_multiplier_quirk else mult
+        if static.has_env:
+            acc = acc + env_miss_term(packed, static, alive, win, dir, mult_eff)
         if static.gi_point_light_direct:
             shade_from = hit["p"] + N * eps
             for li in range(static.n_lights):
@@ -316,18 +334,6 @@ def trace_path(packed: ScenePacked, static: SceneStatic, orig, dir, key):
 # --------------------------------------------------------------------------
 # Per-pixel sampling (renderer.d:254-313)
 # --------------------------------------------------------------------------
-
-
-def _check_ported(static: SceneStatic, who: str):
-    """Raise for a frame whose mode is not ported yet, naming its ROADMAP item."""
-    todo = (
-        "bump maps (ROADMAP.md queue 1 item 9)" if static.has_bump
-        else "environment cubemaps (ROADMAP.md queue 1 item 10)" if static.has_env
-        else "compensated ray-gen (ROADMAP.md queue 1 item 10)" if static.compensated_raygen
-        else None
-    )
-    if todo is not None:
-        raise NotImplementedError(f"{who}: {todo} is not ported yet")
 
 
 def render_samples(packed: ScenePacked, static: SceneStatic, frame, x, y, key=None, dx=1.0, dy=1.0):
@@ -448,7 +454,8 @@ def render_frame_wavefront(packed: ScenePacked, static: SceneStatic, key=None):
     stereo with the JAX key streams (``key`` None is ``PRNGKey(0)``; an
     un-chunked adaptive frame splits as ``_render_pixels`` does, so its
     flagged pixels take the quirk path's values)."""
-    _check_ported(static, "render_frame_wavefront")
+    global wavefront_frames
+    wavefront_frames += 1
     key = prng.as_key(key)
     dt = packed.dtype
     W, H = static.width, static.height
@@ -456,7 +463,7 @@ def render_frame_wavefront(packed: ScenePacked, static: SceneStatic, key=None):
                             torch.arange(W, dtype=dt, device=packed.device), indexing="ij")
     xf = xs.reshape(-1)
     yf = ys.reshape(-1)
-    frame = begin_frame(packed.camera, W / H)
+    frame = begin_frame(packed.camera, W / H, compensated=static.compensated_raygen)
 
     if static.aa_enabled and static.aa_adaptive:
         key, k0 = prng.split(key)
@@ -481,7 +488,6 @@ def render_frame(packed: ScenePacked, static: SceneStatic, key=None):
     ops/prng.py; None is ``PRNGKey(0)``) seeds the Monte-Carlo frames."""
     from ..ops.round0 import supports, supports_gi
 
-    _check_ported(static, "render_frame")
     if packed.dtype == torch.float32 and supports(static):
         from ..ops.flagship import build_flagship_renderer
 

@@ -11,9 +11,12 @@ the seeded fuzz scenes that hold the round-0 kernel to its references,
 ``csg_free_scene`` the scenes a float64 frame is held u8-exact to the
 oracle on, and ``gi_standin`` the global-illumination configuration (the
 reference's lecture4.sdl plus the benchmark's far bounce wall, made
-all-Lambert with a bitmap and a CSG node).  ``write_standin_sdl`` and
-``write_gi_standin_sdl`` write the two stand-ins as scene files with their
-bitmaps, for the command line.
+all-Lambert with a bitmap and a CSG node).  ``bump_scene`` is the bump-map
+configuration (every tangent case the reference computes) and
+``sky_cubemap`` the gradient sky that ``flagship_standin(env=True)`` and
+``gi_standin(env=True)`` put around the stand-ins.  ``write_standin_sdl``
+and ``write_gi_standin_sdl`` write the two stand-ins as scene files with
+their bitmaps, for the command line.
 """
 
 from __future__ import annotations
@@ -35,6 +38,28 @@ def _bitmap(rng, h, w):
     return np.clip(np.stack(chans, axis=-1) + noise, 0.0, 1.0).astype(np.float32)
 
 
+def sky_cubemap(size: int = 64) -> np.ndarray:
+    """[6, size, size, 3] gradient sky (linear texels): the +Y face zenith
+    blue, the side faces blending from zenith blue at their top row to a
+    warm horizon at their bottom row, the -Y face ground haze."""
+    zenith = np.array([0.20, 0.45, 0.85], np.float32)
+    horizon = np.array([0.85, 0.80, 0.70], np.float32)
+    ground = np.array([0.25, 0.22, 0.20], np.float32)
+    t = np.linspace(0, 1, size, dtype=np.float32)[:, None, None]
+    faces = np.zeros((6, size, size, 3), np.float32)
+    side = horizon * t + zenith * (1 - t)
+    for f in (0, 1, 4, 5):
+        faces[f] = side
+    faces[2] = zenith
+    faces[3] = ground
+    return faces
+
+
+# the pitch of the stand-in's camera under the sky: the horizon moves down
+# the frame, so about a fifth of the 1080p pixels miss every node
+ENV_PITCH = -15.0
+
+
 # the Monte-Carlo variants of the stand-in's camera: the focal plane at the
 # CSG pieces' depth along the view (the diff 349, the inter 321 units), and
 # fNumber 2 (a disc of radius 10 / 2 = 5 units, camera.d:252), which blurs
@@ -44,7 +69,7 @@ DOF_FOCAL_PLANE, DOF_F_NUMBER, STEREO_SEPARATION = 335.0, 2.0, 6.0
 
 
 def flagship_standin(T, width: int = 1920, height: int = 1080, seed: int = 5, glass: bool = False,
-                     dof: bool = False, stereo: bool = False, samples: int = 25):
+                     dof: bool = False, stereo: bool = False, samples: int = 25, env: bool = False):
     """The flagship stand-in scene at ``width`` x ``height``: AA on,
     maxTraceDepth 5, two point lights, and
 
@@ -59,16 +84,19 @@ def flagship_standin(T, width: int = 1920, height: int = 1080, seed: int = 5, gl
     ``dof``: the camera's depth of field on, ``samples`` per pixel (the
     reference's default 25), focused on the CSG pieces; ``stereo``: the
     anaglyph stereo pair (DOF_FOCAL_PLANE, DOF_F_NUMBER,
-    STEREO_SEPARATION).  ``T`` is a ``models.types`` module (either
-    package's)."""
+    STEREO_SEPARATION).  ``env``: a 64x64 ``sky_cubemap`` environment,
+    with the camera pitched to ENV_PITCH so that more of the frame shows
+    it.  ``T`` is a ``models.types`` module (either package's)."""
     rng = np.random.default_rng(seed)
     sc = T.Scene(name="flagship_standin")
     sc.settings.frameWidth, sc.settings.frameHeight = width, height
     sc.settings.AAEnabled = True
     sc.settings.maxTraceDepth = 5
     sc.settings.ambientLightColor = (0.12, 0.12, 0.14)
-    sc.camera = T.Camera(pos=(0.0, 165.0, 0.0), yaw=0.0, pitch=-20.0, roll=0.0, fov=90.0)
+    sc.camera = T.Camera(pos=(0.0, 165.0, 0.0), yaw=0.0, pitch=ENV_PITCH if env else -20.0, roll=0.0, fov=90.0)
     sc.camera.set_frame_size(width, height)
+    if env:
+        sc.environment.cubemap = sky_cubemap(64)
     if dof:
         sc.camera.dof, sc.camera.numSamples = True, samples
         sc.camera.focalPlaneDist, sc.camera.fNumber = DOF_FOCAL_PLANE, DOF_F_NUMBER
@@ -373,7 +401,7 @@ GI_BOX = ((1.5, 1.0, 1.2), (-130.0, 30.0, 250.0))
 GI_CSG = ((150.0, 50.0, 280.0), (0.3, 0.5, 0.8))
 
 
-def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int = 40):
+def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int = 40, env: bool = False):
     """The GI stand-in at ``width`` x ``height``: the reference's lecture4.sdl
     (a checkered Lambert floor, one point light, 640x480; not in the
     repository) plus the far bounce wall of bench.py's ``build_gi`` (a
@@ -383,7 +411,8 @@ def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int
     per pixel (``build_gi``'s 40), maxTraceDepth 5, AA off, the flagship
     stand-in's camera.  NEE (the point-light direct term) is the SceneStatic
     knob ``gi_point_light_direct``, not a scene setting: ``build_gi`` turns
-    it on after packing, and so do this scene's callers.  ``T`` is a
+    it on after packing, and so do this scene's callers.  ``env``: a 64x64
+    ``sky_cubemap`` environment, the paths' miss term.  ``T`` is a
     ``models.types`` module (either package's)."""
     rng = np.random.default_rng(seed)
     sc = T.Scene(name="gi_standin")
@@ -395,6 +424,8 @@ def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int
     sc.settings.ambientLightColor = (0.1, 0.1, 0.1)
     sc.camera = T.Camera(pos=(0.0, 165.0, 0.0), yaw=0.0, pitch=-20.0, roll=0.0, fov=90.0)
     sc.camera.set_frame_size(width, height)
+    if env:
+        sc.environment.cubemap = sky_cubemap(64)
     pos, color, power = GI_LIGHT
     sc.lights = [T.PointLight(name="light", pos=pos, color=color, power=power)]
     checker = T.Checker(name="checker", color1=(0.8, 0.8, 0.8), color2=(0.2, 0.2, 0.2), size=20.0)
@@ -427,13 +458,70 @@ def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int
     return sc
 
 
+def heightmap(size: int = 32) -> np.ndarray:
+    """A smooth, low-frequency [size, size, 3] height field (the bump maps'
+    source; ``differentiate`` makes the derivative map)."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    height = (0.5 + 0.5 * np.sin(xx * 0.25) * np.cos(yy * 0.2)).astype(np.float32)
+    return np.repeat(height[..., None], 3, axis=-1)
+
+
+def bump_scene(T, width: int = 1920, height: int = 1080, mirror: bool = True, bump_csg: bool = True,
+               aa: bool = True):
+    """The bump-map configuration: a plane, a sphere, a scaled and
+    translated cube and a CsgDiff of two spheres, every tangent case the
+    reference computes, all Lambert and bump-mapped by one BumpTexture
+    (``heightmap``, scaling 0.05, strength 8), one light, maxTraceDepth 2.  ``mirror``
+    adds a Reflection sphere, so bounce rounds re-shade bump-mapped
+    surfaces; ``bump_csg`` False leaves the CSG node un-bumped, which lets
+    the fused path take its fast forward (every bump-mapped node a single
+    primitive).  ``aa``: 5-tap AA.  The JAX package's bump scene
+    (tests/test_bump.py), built from either package's ``models.types``
+    module ``T``."""
+    sc = T.Scene(name="bump_scene")
+    sc.settings.frameWidth, sc.settings.frameHeight = width, height
+    sc.settings.AAEnabled = aa
+    sc.settings.maxTraceDepth = 2
+    sc.camera = T.Camera(pos=(0, 60, -120), yaw=0, pitch=-15, fov=90)
+    sc.camera.set_frame_size(width, height)
+    sc.lights.append(T.PointLight(pos=(60, 180, -60), color=(1, 1, 1), power=40000))
+    lam = T.Lambert(name="l", color=(0.7, 0.7, 0.7))
+    sc.shaders.append(lam)
+    bt = T.BumpTexture(name="bt", scaling=0.05, data=heightmap())
+    bt.strength = 8.0
+    sc.textures.append(bt)
+
+    def node(name, geom, transform=None, bumped=True):
+        sc.geometries.append(geom)
+        n = T.Node(name=name, geometry=geom, shader=lam)
+        if transform:
+            transform(n.transform)
+        if bumped:
+            n.bumpmap = bt
+        sc.nodes.append(n)
+
+    node("floor", T.Plane(name="p", y=0, limit=200))
+    node("ball", T.Sphere(name="s", center=(0, 40, 30), R=30.0))
+    node("box", T.Cube(name="c", center=(0, 0, 0), side=30.0),
+         transform=lambda tr: (tr.scale(1.5, 1.0, 1.0), tr.translate((-60, 20, 10))))
+    node("csg", T.CsgDiff(name="d", left=T.Sphere(name="ds", center=(60, 25, 0), R=25.0),
+                          right=T.Sphere(name="ds2", center=(60, 40, -15), R=20.0)), bumped=bump_csg)
+    if mirror:
+        mir = T.Reflection(name="m", color=(0.9, 0.9, 0.9))
+        sc.shaders.append(mir)
+        g = T.Sphere(name="ms", center=(-15, 30, -45), R=15.0)
+        sc.geometries.append(g)
+        sc.nodes.append(T.Node(name="mirror", geometry=g, shader=mir))
+    return sc
+
+
 def _sdl_vec(v) -> str:
     return " ".join(repr(float(x)) for x in v)
 
 
 def write_standin_sdl(directory: str, width: int = 1920, height: int = 1080, seed: int = 5,
                       name: str = "standin.sdl", aa: bool = True, dof: bool = False, stereo: bool = False,
-                      samples: int = 25) -> str:
+                      samples: int = 25, bump: bool = False, env: bool = False) -> str:
     """Write the flagship stand-in as a scene file the loaders read: an
     SDLang ``name`` in ``directory`` and its two bitmaps beside it as BMP
     files (``floor_tex.bmp``, ``box_tex.bmp``; 8-bit sRGB, so the loader's
@@ -442,7 +530,11 @@ def write_standin_sdl(directory: str, width: int = 1920, height: int = 1080, see
     CSG diff and inter, two bitmaps, a checker, a procedure2, Phong, a
     scaled and translated cube, the mirror sphere, AA5 (``aa``),
     maxTraceDepth 5, and the Monte-Carlo camera options (``dof``,
-    ``stereo``, ``samples``)."""
+    ``stereo``, ``samples``).  ``bump``: a BumpTexture of ``heightmap``
+    (``bump.bmp``, strength 8) on the floor and the procedure2 ball;
+    ``env``: the ``sky_cubemap`` environment as six BMP faces
+    (``sky_posx.bmp`` ... ``sky_negz.bmp``) and the camera at ENV_PITCH,
+    as ``flagship_standin(env=True)``."""
     import os
 
     from .imageio.bmp import save_bmp_file
@@ -457,6 +549,15 @@ def write_standin_sdl(directory: str, width: int = 1920, height: int = 1080, see
                       f"\n        fNumber {DOF_F_NUMBER!r}")
     if stereo:
         camera_mc += f"\n        stereoSeparation {STEREO_SEPARATION!r}"
+    bump_tex = bump_floor = bump_ball = environment = ""
+    if bump:
+        save_bmp_file(os.path.join(directory, "bump.bmp"), heightmap())
+        bump_tex = '\n        BumpTexture { name "bump"; file "bump.bmp"; scaling 0.05; strength 8.0 }'
+        bump_floor = bump_ball = '; bump "bump"'
+    if env:
+        for face, rgb in zip(("posx", "negx", "posy", "negy", "posz", "negz"), sky_cubemap(64)):
+            save_bmp_file(os.path.join(directory, f"sky_{face}.bmp"), rgb)
+        environment = '\n    Environment {\n        cubemap "sky_"\n    }'
     text = f"""// the flagship stand-in (chess2rt_tpu_torch/scenes.py), as a scene file
 Scene {{
     Name "flagship_standin"
@@ -469,9 +570,9 @@ Scene {{
     }}
     Camera {{
         pos 0.0 165.0 0.0
-        pitch -20.0
+        pitch {ENV_PITCH if env else -20.0!r}
         fov 90.0{camera_mc}
-    }}
+    }}{environment}
     Lights {{
         PointLight {{ name "key"; pos -160.0 420.0 120.0; color 1.0 0.95 0.9; power 150000.0 }}
         PointLight {{ name "fill"; pos 220.0 260.0 500.0; color 0.8 0.85 1.0; power 60000.0 }}
@@ -498,7 +599,7 @@ Scene {{
             colorV {{ {_sdl_vec((0.1, 0.1, 0.3))}; {_sdl_vec((0.3, 0.2, 0.05))}; {_sdl_vec((0.1, 0.3, 0.3))} }}
             freqU 3.0 7.0 13.0
             freqV 5.0 11.0 17.0
-        }}
+        }}{bump_tex}
     }}
     Shaders {{
         Lambert {{ name "floor"; color 1.0 1.0 1.0; texture "floor_tex" }}
@@ -509,11 +610,11 @@ Scene {{
         Reflection {{ name "mirror"; color 0.9 0.9 0.9 }}
     }}
     Nodes {{
-        Node {{ name "floor"; geometry "floor"; shader "floor" }}
+        Node {{ name "floor"; geometry "floor"; shader "floor"{bump_floor} }}
         Node {{ name "diff"; geometry "diff"; shader "diff" }}
         Node {{ name "inter"; geometry "inter"; shader "inter"; translate 150.0 50.0 300.0 }}
         Node {{ name "box"; geometry "box"; shader "box"; scale 1.6 1.0 1.3; translate 120.0 30.0 180.0 }}
-        Node {{ name "proc_ball"; geometry "proc_ball"; shader "proc" }}
+        Node {{ name "proc_ball"; geometry "proc_ball"; shader "proc"{bump_ball} }}
         Node {{ name "mirror_ball"; geometry "mb"; shader "mirror" }}
     }}
 }}

@@ -35,7 +35,13 @@ read just after:
   (``scenes.gi_standin``, NEE on) at 640x480 with 40 paths per pixel and
   maxTraceDepth 5 through ``render_frame`` (ops/gi.py: K1's want_hit
   ray-input form per bounce, the threefry draw, the texels), and its
-  gradient step (K1's residual form and K2 in the backward).
+  gradient step (K1's residual form and K2 in the backward);
+* the scene extensions: ``scenes.bump_scene`` at 1920x1080 AA5 (every
+  round-0 call in the bump hybrid, ops/bump_round0.py, on K1's residual
+  form, in its fast and its reshade gate), the stand-in under a sky
+  cubemap at 1920x1080 AA5 (the merged bitmap+cubemap gather), their
+  640x480 gradient steps (K2 on the merged table), GI under the sky, and
+  a frame with the compensated (df32) ray-gen through the twin.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -137,7 +143,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 25. the GI gradient step at 640x480: the kernel path against the plain path
     at 4 paths (the phase 8 rule on the pixels whose frames agree), then
     the 40-path step's ms and peak memory with ``gi_remat_paths`` off and
-    on (one timed step after the warm-up when a step takes over 20 s).
+    on (one timed step after the warm-up when a step takes over 20 s);
+26. bump: K1's residual form against its plain version on
+    ``scenes.bump_scene`` at 320x240 (screen-tap and ray-input) and on a
+    1080p tap (its ms, queued ms and bound), then the AA5 bump frame with
+    its mirror in both gates (``bump_csg`` False: the fast forward; True:
+    the reshade forward): kernel path against plain path at 640x480, ms
+    (median of 3 after 1 warm-up) and launch counts at 1080p, every
+    round-0 call through the hybrid on K1's residual form, no twin frame;
+27. the stand-in under a 64x64 sky cubemap (``flagship_standin(env=
+    True)``, pitch -15) at 1080p AA5 depth 5: its share of pixels that
+    miss, launch counts, kernel path against plain path, ms (median of 5
+    after 2 warm-ups);
+28. the 640x480 gradient steps of the mirror-free bump scene (both gates)
+    and of the env stand-in, kernel path against plain path under phase
+    8's rule, K2 on the env step's merged table (bitmap and cubemap quad
+    rows) against its plain version, ms per step, K2's ms, queued ms,
+    plain ms and one ``index_add_`` call on the merged rows;
+29. the GI stand-in under the sky (``gi_standin(env=True)``, NEE) at
+    640x480: 4 paths against the plain path and the twin, the 40-path
+    frame's ms;
+30. the compensated (df32) ray-gen: the stand-in at 640x480 AA5 through
+    the twin (no K1 launch), against the plain-ray twin frame, its ms, and
+    its rays against float64 rays beside the plain f32 rays.
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -674,12 +702,13 @@ def plain_texel_vjp():
         S.texel_histogram = kernel
 
 
-def compare_grads(label, got, want, enforce=True):
+def compare_grads(label, got, want, enforce=True, min_nonzero=None):
     """Every leaf's gradient from the kernel path against the plain path's:
     every gradient finite, each leaf zero on both paths or on neither, most
-    leaves nonzero, and (``enforce``) each nonzero leaf at the GRAD_RTOL
-    rule (CAMERA_RTOL for the camera leaves).  Logs every nonzero leaf's
-    |a - b| / max|b| and returns the largest."""
+    leaves nonzero (at least ``min_nonzero`` when given: a scene without
+    textures leaves their leaves at zero), and (``enforce``) each nonzero
+    leaf at the GRAD_RTOL rule (CAMERA_RTOL for the camera leaves).  Logs
+    every nonzero leaf's |a - b| / max|b| and returns the largest."""
     import torch
 
     nonzero, failed, report, worst = [], [], [], 0.0
@@ -702,7 +731,7 @@ def compare_grads(label, got, want, enforce=True):
             failed.append(k)
     log(f"  {label}: {len(nonzero)} of {len(want)} leaves nonzero, all finite; |a - b| / max|b| per leaf: "
         + ", ".join(report))
-    if 2 * len(nonzero) <= len(want):
+    if (2 * len(nonzero) <= len(want)) if min_nonzero is None else (len(nonzero) < min_nonzero):
         raise AssertionError(f"{label}: only {len(nonzero)} of {len(want)} leaves have a gradient")
     if failed:
         log(f"  {label}: outside the rule: {', '.join(failed)}")
@@ -831,6 +860,7 @@ def main(argv) -> int:
     del fused_frame
     kernels += mc_phases(argv, card, dev, kernel_ms)
     kernels += gi_phases(argv, card, dev)
+    kernels += feature_phases(argv, card, dev, kernel_ms)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -1961,6 +1991,302 @@ def gi_phases(argv, card, dev):
     return [{**kernel_entry(f"round0 want_hit ray-input form (K1 without the vis rows, one GI bounce of {n} rays)",
                             K1_SOURCE, K1_REPLACES, frame_counts["k1_hit"], hit_err, hit_ms, hit_plain_ms,
                             *hit_bound), "queued_ms": hit_q}]
+
+
+def feature_phases(argv, card, dev, phase5_frame_ms):
+    """Phases 26-30: bump maps (the hybrid round 0 over K1's residual form),
+    the environment cubemap (the merged gather, K2 on the merged table, GI's
+    miss term) and the compensated ray-gen.  Returns the kernels-line
+    entries of K1's residual form on a 1080p bump tap and of K2 on the
+    merged table."""
+    import torch
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import bump_round0 as B
+    from chess2rt_tpu_torch.ops import flagship as F
+    from chess2rt_tpu_torch.ops import gi, prng
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.ops import texel_hist as K2
+    from chess2rt_tpu_torch.ops.camera import begin_frame, screen_rays
+    from chess2rt_tpu_torch.render import pipeline as P
+    from chess2rt_tpu_torch.scenes import bump_scene, flagship_standin, gi_standin
+
+    busy = torch.ones((8192, 8192), dtype=torch.float32, device=dev)
+    gw, gh = GRAD_SIZE
+
+    def zero_counts():
+        R.launches = R.resid_launches = R.hit_launches = R.ray_launches = R.lin_launches = 0
+        B.calls = F.bounce_rounds = gi.bounce_rounds = P.wavefront_frames = K2.launches = prng.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"k1": R.launches, "k1_resid": R.resid_launches, "k1_hit": R.hit_launches, "k1_ray": R.ray_launches,
+                "bump_calls": B.calls, "bounce_rounds": F.bounce_rounds, "gi_rounds": gi.bounce_rounds,
+                "twin_frames": P.wavefront_frames, "k2": K2.launches, "draws": prng.launches}
+
+    def check_whitted_counts(label, c, taps, bump, step=False, mirror=True):
+        """Every round-0 call on the fused path (one per tap and bounce
+        round, at least one bounce round per tap with a mirror), none in the
+        twin; a bump scene's calls all in the hybrid on K1's residual form,
+        another scene's in the plain form unless it is a gradient step."""
+        rounds = c["bounce_rounds"]
+        resid = c["k1"] if (bump or step) else 0
+        ok = (c["k1"] == taps + rounds and c["k1_ray"] == rounds and c["k1_resid"] == resid
+              and c["bump_calls"] == (c["k1"] if bump else 0) and c["twin_frames"] == 0
+              and (rounds >= taps if mirror else rounds == 0))
+        log(f"  {label}: K1 launches {c['k1']} (residual form {c['k1_resid']}, ray-input {c['k1_ray']}), "
+            f"bump-hybrid calls {c['bump_calls']}, bounce rounds {rounds}, twin frames {c['twin_frames']}, K2 {c['k2']}")
+        if not ok:
+            raise AssertionError(f"{label}: launch counts {c} for {taps} taps")
+
+    def frame_check(label, img, h, w, min_lit=0.5):
+        if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: {tuple(img.shape)} is not a finite {h}x{w}x3 image")
+        lit = (img.amax(-1) > 0).double().mean().item()
+        log(f"  {label}: lit pixels {lit:.4f}, mean {img.mean().item():.6f}")
+        if lit <= min_lit:
+            raise AssertionError(f"{label}: only {lit:.2%} of pixels are lit")
+
+    def step_compare(label, render, plain_render, gp, target, min_nonzero=None):
+        """Phase 8's rule: the losses within LOSS_RTOL, then every leaf at the
+        GRAD_RTOL rule over the pixels whose two frames agree."""
+        loss_k, grads_k, img_k = grad_step(render, gp, target)
+        with plain_texel_vjp():
+            loss_p, grads_p, img_p = grad_step(plain_render, gp, target)
+        log(f"  {label}: loss kernel path {loss_k.item():.9g}, plain path {loss_p.item():.9g}")
+        if not abs(loss_k.item() - loss_p.item()) <= LOSS_RTOL * abs(loss_p.item()):
+            raise AssertionError(f"{label}: the two paths' losses differ by more than {LOSS_RTOL} of the loss")
+        compare_grads(f"{label} whole frame", grads_k, grads_p, enforce=False, min_nonzero=min_nonzero)
+        agree = ((img_k - img_p).abs().amax(-1) <= GRAD_AGREE)[..., None].float()
+        log(f"  {label}: pixels whose frames differ by more than {GRAD_AGREE}: {1 - agree.mean().item():.3e}")
+        _, grads_k, _ = grad_step(render, gp, target, agree)
+        with plain_texel_vjp():
+            _, grads_p, _ = grad_step(plain_render, gp, target, agree)
+        return compare_grads(f"{label} agreeing pixels", grads_k, grads_p, min_nonzero=min_nonzero), grads_k
+
+    # ---- 26. bump: K1's residual form, the 1080p AA5 frame in both gates -------------------
+    w, h = SMALL
+    log("phase 26 bump_scene: K1's residual form vs plain (the phase 3 limits), then the AA5 bump frame "
+        "(mirror, maxTraceDepth 2) in both gates: kernel vs plain at "
+        f"{gw}x{gh}, ms and launch counts at {WIDTH}x{HEIGHT}")
+    tp, ts = pack_scene(bump_scene(T, w, h), device=dev)
+    lay = R.layout(ts, w, h, want_hit=True, want_vis=True)
+    prm = lay.pack(tp, AA)
+    orig_t, dir_t = scattered_rays(26, w * h, dev, center=(0.0, 50.0, -40.0), spread=70.0)
+    bump_err = compare_round0(f"{w}x{h} screen-tap", R.round0(lay, prm), R.round0_reference(lay, prm), lay.names)
+    bump_err = max(bump_err, compare_round0(f"{w}x{h} ray-input", R.round0(lay, prm, orig_t, dir_t),
+                                            R.round0_reference(lay, prm, orig_t, dir_t), lay.names))
+    bump = {}
+    for bump_csg in (False, True):
+        gate = "reshade" if bump_csg else "fast"
+        sp, ss = pack_scene(bump_scene(T, gw, gh, bump_csg=bump_csg), device=dev)
+        if B._fast_bump_ok(ss) == bump_csg:
+            raise AssertionError(f"bump_scene(bump_csg={bump_csg}) does not take the {gate} forward")
+        zero_counts()
+        img = P.render_frame(sp, ss)
+        check_whitted_counts(f"{gate} gate {gw}x{gh} frame", counts(), 5, bump=True)
+        err = compare_frames(f"{gate} gate {gw}x{gh} kernel frame vs plain frame", img,
+                             F.build_flagship_renderer(ss, gw, gh, trace=R.round0_reference)(sp))
+        bp, bs = pack_scene(bump_scene(T, WIDTH, HEIGHT, bump_csg=bump_csg), device=dev)
+        if not bump_csg:
+            lay = R.layout(bs, WIDTH, HEIGHT, want_hit=True, want_vis=True)
+            prm0 = lay.pack(bp)
+            tap_k = R.round0(lay, prm0)
+            bump_err = max(bump_err, compare_round0(f"{WIDTH}x{HEIGHT} bump tap", tap_k, R.round0_reference(lay, prm0),
+                                                    lay.names))
+            tap_bound = k1_bound(lay, WIDTH * HEIGHT, lit_shares(tap_k, bs.n_lights))
+            tap_ms, _ = time_events(lambda k: R.round0(lay, prm0), 20, 3)
+            tap_q = queued_ms(lambda: R.round0(lay, prm0), 20, busy)
+            tap_plain_ms, _ = time_events(lambda k: R.round0_reference(lay, prm0), 3, 1)
+            log(f"  K1 residual form per {WIDTH}x{HEIGHT} bump tap: {tap_ms:.4f} ms per call, {tap_q:.4f} ms queued, "
+                f"plain {tap_plain_ms:.3f} ms; bound {tap_bound[0]:.4f} ms ({tap_bound[1]}; bytes "
+                f"{tap_bound[2]:.4f}, operations {tap_bound[3]:.4f})")
+            del tap_k
+        zero_counts()
+        img = P.render_frame(bp, bs)
+        c = counts()
+        check_whitted_counts(f"{gate} gate {WIDTH}x{HEIGHT} frame", c, 5, bump=True)
+        # the floor ends at 200 units (limit 200) and nothing lights a miss:
+        # about half the frame is lit
+        frame_check(f"{gate} gate {WIDTH}x{HEIGHT} frame", img, HEIGHT, WIDTH, min_lit=0.3)
+        ms, all_ms = time_events(lambda k: P.render_frame(jittered(bp, k), bs), 3, 1)
+        log(f"  {gate} gate {WIDTH}x{HEIGHT} AA5 bump frame {ms:.3f} ms {['%.3f' % t for t in all_ms]} on {card} "
+            f"(the flagship frame of phase 5: {phase5_frame_ms:.3f} ms)")
+        if "--profile" in argv:
+            profile_run(f"bump frame, {gate} gate", lambda: P.render_frame(jittered(bp, 97), bs))
+        bump[gate] = {"ms": ms, "all_ms": all_ms, "counts": c, "max_abs_err_small": err}
+        del img
+    fast_resid = bump["fast"]["counts"]["k1_resid"]
+
+    # ---- 27. the environment frame -----------------------------------------------------------
+    ep, es = pack_scene(flagship_standin(T, WIDTH, HEIGHT, env=True), device=dev)
+    lay = R.layout(es, WIDTH, HEIGHT)
+    miss = (R.round0(lay, lay.pack(ep))["win"] < 0).double().mean().item()
+    log(f"phase 27 the stand-in under a 64x64 sky cubemap at {WIDTH}x{HEIGHT}, AA5, maxTraceDepth "
+        f"{es.max_trace_depth}: the merged bitmap+cubemap gather in every tap and bounce round; "
+        f"pixels that miss every node {miss:.4f} ({int(round(miss * WIDTH * HEIGHT))} of {WIDTH * HEIGHT})")
+    if miss < 0.05:
+        raise AssertionError(f"only {miss:.2%} of the env frame's pixels miss")
+    zero_counts()
+    img = P.render_frame(ep, es)
+    env_counts = counts()
+    check_whitted_counts(f"env {WIDTH}x{HEIGHT} frame", env_counts, 5, bump=False)
+    frame_check(f"env {WIDTH}x{HEIGHT} frame", img, HEIGHT, WIDTH, min_lit=0.9)
+    env_err = compare_frames("env kernel frame vs plain frame", img,
+                             F.build_flagship_renderer(es, WIDTH, HEIGHT, trace=R.round0_reference)(ep))
+    env_ms, env_all = time_events(lambda k: P.render_frame(jittered(ep, k), es), 5, 2)
+    log(f"  env {WIDTH}x{HEIGHT} AA5 frame {env_ms:.3f} ms {['%.3f' % t for t in env_all]} on {card} "
+        f"(the flagship frame of phase 5: {phase5_frame_ms:.3f} ms)")
+    if "--profile" in argv:
+        profile_run("env frame", lambda: P.render_frame(jittered(ep, 96), es))
+    del img, ep
+
+    # ---- 28. the bump and env gradient steps -------------------------------------------------
+    log(f"phase 28 the bump and env gradient steps at {gw}x{gh}, AA off, every leaf: kernel path vs plain path "
+        f"(phase 8's rule); K2 on the env step's merged table vs its plain version.  The bump step's scene has no "
+        f"mirror, as the JAX package's bump gradient test (tests/test_bump.py:253-278): the mirror's curvature turns "
+        f"the two K1 builds' last bits into leaf-sized gradient differences on its pixels (the frames' bounce rounds "
+        f"are held in phase 26)")
+    target = torch.zeros((gh, gw, 3), dtype=torch.float32, device=dev)
+    steps = {}
+    for bump_csg in (False, True):
+        gate = "reshade" if bump_csg else "fast"
+        gp, gs = pack_scene(bump_scene(T, gw, gh, mirror=False, bump_csg=bump_csg, aa=False), device=dev)
+        zero_counts()
+        grad_step(lambda p: P.render_frame(p, gs), gp, target)
+        c = counts()
+        check_whitted_counts(f"bump step, {gate} gate", c, 1, bump=True, step=True, mirror=False)
+        plain_render = F.build_flagship_renderer(gs, gw, gh, trace=R.round0_reference)
+        # no texture leaves in the bump scene: 19 of the 38 leaves have a gradient
+        err, _ = step_compare(f"bump step, {gate} gate", lambda p: P.render_frame(p, gs), plain_render, gp, target,
+                              min_nonzero=19)
+        ms, all_ms = time_events(lambda k: grad_step(lambda p: P.render_frame(p, gs), jittered(gp, k), target), 3, 1)
+        log(f"  bump step, {gate} gate: {ms:.3f} ms {['%.3f' % t for t in all_ms]} on {card}")
+        steps[f"bump_{gate}"] = {"ms": ms, "all_ms": all_ms, "max_rel_err": err, "counts": c}
+
+    gp, gs = pack_scene(flagship_standin(T, gw, gh, env=True), device=dev)
+    gs = dataclasses.replace(gs, aa_enabled=False)
+    seen = step_texel_rows(lambda p: P.render_frame(p, gs), gp, target)
+    n_quads = sum(bh * bw for bh, bw in gs.bitmap_sizes) + 6 * gp.env_cubemap.shape[1] ** 2
+    keys, vals, n_texels = next(x for x in seen if x[0].numel() == gw * gh)
+    env_rows = int((keys >= n_quads - 6 * gp.env_cubemap.shape[1] ** 2).sum())
+    log(f"  K2 on the env step tap's merged table: {keys.numel()} rows ({env_rows} of them cubemap texels), "
+        f"{vals.shape[1]} channels, {n_texels} texel rows (bitmap quads and cubemap quads)")
+    if n_texels != n_quads or vals.shape[1] != 12 or not env_rows:
+        raise AssertionError(f"K2's inputs are not the sorted [N, 12] rows of the {n_quads}-row merged table")
+    merged_err = 0.0
+    for mkeys, mvals, mn in seen:
+        m_k, m_p = K2.texel_histogram(mkeys, mvals, mn), K2.texel_histogram_reference(mkeys, mvals, mn)
+        m_err, m_scale = (m_k - m_p).abs().max().item(), m_p.abs().max().item()
+        log(f"  {mkeys.numel()} rows: max |K2 - plain| {m_err:.3e}, max|plain| {m_scale:.3e}")
+        if not bool(torch.isfinite(m_k).all()) or m_err > K2_LIMIT * max(1.0, m_scale):
+            raise AssertionError(f"K2 differs from its plain version by {m_err:.3e} on the merged table")
+        merged_err = max(merged_err, m_err)
+    zero_counts()
+    grad_step(lambda p: P.render_frame(p, gs), gp, target)
+    env_step_counts = counts()
+    check_whitted_counts("env step", env_step_counts, 1, bump=False, step=True)
+    if env_step_counts["k2"] != env_step_counts["k1"]:
+        raise AssertionError(f"K2 ran {env_step_counts['k2']} times for {env_step_counts['k1']} merged gathers")
+    plain_render = F.build_flagship_renderer(gs, gw, gh, trace=R.round0_reference)
+    env_grad_err, env_grads = step_compare("env step", lambda p: P.render_frame(p, gs), plain_render, gp, target)
+    if not bool(env_grads["env_cubemap"].any()):
+        raise AssertionError("the env step gave the cubemap no gradient")
+    env_step_ms, env_step_all = time_events(
+        lambda k: grad_step(lambda p: P.render_frame(p, gs), jittered(gp, k), target), 3, 1)
+    log(f"  env step: {env_step_ms:.3f} ms {['%.3f' % t for t in env_step_all]} on {card}")
+    steps["env"] = {"ms": env_step_ms, "all_ms": env_step_all, "max_rel_err": env_grad_err, "counts": env_step_counts}
+    m_ms, _ = time_events(lambda k: K2.texel_histogram(keys, vals, n_texels), 20, 3)
+    m_q = queued_ms(lambda: K2.texel_histogram(keys, vals, n_texels), 20, busy)
+    m_plain_ms, _ = time_events(lambda k: K2.texel_histogram_reference(keys, vals, n_texels), 20, 3)
+    lib_keys = keys.long()
+    m_lib_ms, _ = time_events(
+        lambda k: torch.zeros((n_texels, vals.shape[1]), dtype=vals.dtype, device=dev).index_add_(0, lib_keys, vals),
+        20, 3)
+    merged_bound = bound(keys.numel() * 4 + vals.numel() * 4 + n_texels * vals.shape[1] * 4, vals.numel())
+    log(f"  K2 per {keys.numel()}-row merged histogram: {m_ms:.4f} ms per call, {m_q:.4f} ms queued, plain "
+        f"{m_plain_ms:.3f} ms, one index_add_ call {m_lib_ms:.3f} ms; bound {merged_bound[0]:.4f} ms "
+        f"({merged_bound[1]})")
+    del seen, env_grads
+
+    # ---- 29. GI with the environment ---------------------------------------------------------
+    gi_w, gi_h = GI_SIZE
+    key = prng.PRNGKey(29)
+
+    def gi_env_scene(paths):
+        sp, ss = pack_scene(gi_standin(T, gi_w, gi_h, paths=paths, env=True), device=dev)
+        return sp, dataclasses.replace(ss, gi_point_light_direct=True)
+
+    sp, ss = gi_env_scene(GI_SMALL_PATHS)
+    log(f"phase 29 the GI stand-in under the sky cubemap at {gi_w}x{gi_h}, NEE: the miss term; kernel path vs "
+        f"plain path and vs the twin at {GI_SMALL_PATHS} paths, then {GI_PATHS} paths timed")
+    zero_counts()
+    img = P.render_frame(sp, ss, key)
+    c = counts()
+    log(f"  {GI_SMALL_PATHS}-path frame: K1 launches {c['k1']} (want_hit alone {c['k1_hit']}), GI bounce rounds "
+        f"{c['gi_rounds']}, draws {c['draws']}, twin frames {c['twin_frames']}")
+    if not (c["k1"] == c["k1_hit"] == c["gi_rounds"] >= GI_SMALL_PATHS and c["twin_frames"] == 0):
+        raise AssertionError(f"the env GI frame's launch counts {c}")
+    frame_check(f"env GI {GI_SMALL_PATHS}-path frame", img, gi_h, gi_w)
+    gi_env_err = compare_frames(
+        f"env GI {GI_SMALL_PATHS} paths kernel frame vs plain frame", img,
+        gi.build_gi_renderer(ss, gi_w, gi_h, trace=R.round0_reference, uniform=prng.uniform_reference)(sp, key))
+    compare_frames(f"env GI {GI_SMALL_PATHS} paths kernel frame vs the twin", img,
+                   P.render_frame_wavefront(sp, ss, key))
+    dark = P.render_frame(sp, dataclasses.replace(ss, has_env=False), key)
+    log(f"  the sky's share of the frame's mean: {img.mean().item():.6f} with it, {dark.mean().item():.6f} without")
+    sp, ss = gi_env_scene(GI_PATHS)
+    gi_env_ms, gi_env_all = time_events(lambda i: P.render_frame(jittered(sp, i), ss, prng.fold_in(key, i)), 3, 1)
+    log(f"  env GI frame, {GI_PATHS} paths: {gi_env_ms:.3f} ms {['%.3f' % t for t in gi_env_all]} on {card}")
+    if "--profile" in argv:
+        profile_run("env GI frame", lambda: P.render_frame(jittered(sp, 95), ss, key))
+    del img, dark
+
+    # ---- 30. the compensated frame ----------------------------------------------------------------
+    cp, cs = pack_scene(flagship_standin(T, gw, gh), device=dev)
+    cs = dataclasses.replace(cs, compensated_raygen=True)
+    log(f"phase 30 the compensated (df32) ray-gen: the stand-in at {gw}x{gh}, AA5, through the twin")
+    if R.supports(cs):
+        raise AssertionError("the fused path claims the compensated ray-gen")
+    zero_counts()
+    img = P.render_frame(cp, cs)
+    c = counts()
+    if c["twin_frames"] != 1 or c["k1"]:
+        raise AssertionError(f"the compensated frame did not take the twin alone: {c}")
+    frame_check("compensated frame", img, gh, gw)
+    comp_err = compare_frames("compensated frame vs the plain-ray twin frame", img,
+                              P.render_frame_wavefront(cp, dataclasses.replace(cs, compensated_raygen=False)))
+    comp_ms, comp_all = time_events(lambda k: P.render_frame(jittered(cp, k), cs), 2, 1)
+    lin = torch.arange(gw * gh, device=dev)
+    x, y = (lin % gw).float() + 0.3, (lin // gw).float() + 0.6
+    d_c = screen_rays(cp.camera, begin_frame(cp.camera, gw / gh, compensated=True), float(gw), float(gh), x, y)[1]
+    d_f = screen_rays(cp.camera, begin_frame(cp.camera, gw / gh), float(gw), float(gh), x, y)[1]
+    cam64 = dataclasses.replace(cp.camera, **{f.name: getattr(cp.camera, f.name).double()
+                                              for f in dataclasses.fields(cp.camera)})
+    d_64 = screen_rays(cam64, begin_frame(cam64, gw / gh), float(gw), float(gh), x.double(), y.double())[1]
+    err_c, err_f = (d_c.double() - d_64).abs().max().item(), (d_f.double() - d_64).abs().max().item()
+    log(f"  compensated frame {comp_ms:.3f} ms {['%.3f' % t for t in comp_all]} on {card}; its rays against float64 "
+        f"rays: max |d| {err_c:.3e} (plain f32 rays {err_f:.3e})")
+    if err_c > err_f:
+        raise AssertionError("the compensated rays are further from float64 than the plain f32 rays")
+    del img
+
+    log(json.dumps({
+        "bump_frames": bump, "bump_k1_max_abs_err": bump_err, "env_miss_share": miss, "env_frame_ms": env_ms,
+        "env_frame_all_ms": env_all, "env_frame_max_abs_err": env_err, "env_frame_counts": env_counts,
+        "steps": steps, "k2_merged_max_abs_err": merged_err, "gi_env_max_abs_err": gi_env_err,
+        "gi_env_frame_ms": gi_env_ms, "gi_env_frame_all_ms": gi_env_all, "compensated_frame_ms": comp_ms,
+        "compensated_max_abs_err": comp_err, "compensated_ray_err": err_c,
+    }))
+    return [
+        {**kernel_entry(f"round0 residual form (K1 with want_hit and want_vis, one {WIDTH}x{HEIGHT} bump_scene tap "
+                        "of the bump hybrid)", K1_SOURCE, K1_REPLACES, fast_resid, bump_err, tap_ms, tap_plain_ms,
+                        *tap_bound), "queued_ms": tap_q},
+        {**kernel_entry(f"texel_hist (K2 on the merged bitmap+cubemap table, {keys.numel()} rows into "
+                        f"{n_texels} texel rows)", "chess2rt_tpu_torch/csrc/texel_hist.cu",
+                        "chess2rt_tpu/ops/texel_hist.py:41", env_step_counts["k2"], merged_err, m_ms, m_plain_ms,
+                        *merged_bound, library_ms=m_lib_ms), "queued_ms": m_q},
+    ]
 
 
 if __name__ == "__main__":

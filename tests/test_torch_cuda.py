@@ -21,6 +21,8 @@ where it agrees < 1% have d > 2e-3 and median(d) < 2e-4, with d the
 absolute difference, relative to |plain| where |plain| > 1.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -597,3 +599,84 @@ def test_mc_frame_matches_plain_frame(cuda, mode):
     assert bool(torch.isfinite(img).all())
     assert (d > 2e-3).double().mean().item() < 0.01
     assert d.median().item() < 2e-4
+
+
+@pytest.mark.parametrize("bump_csg", [True, False], ids=["reshade", "fast"])
+@pytest.mark.parametrize("form", ["screen-tap", "ray-input", "lin-input"])
+def test_bump_hybrid_matches_plain(cuda, form, bump_csg):
+    """The bump hybrid (ops/bump_round0.py) through K1's residual form
+    against the same hybrid on K1's plain version, in each form and gate:
+    every row of the caller's layout; one residual launch per call."""
+    from chess2rt_tpu_torch.ops.bump_round0 import bump_round0
+    from chess2rt_tpu_torch.scenes import bump_scene
+
+    w, h = 160, 120
+    tp, ts = pack_scene(bump_scene(T, w, h, mirror=True, bump_csg=bump_csg, aa=False), device=cuda)
+    lay = R.layout(ts, w, h)
+    rays, kw = (), {}
+    if form == "ray-input":
+        rays = _rays("standin", w * h, cuda)
+    prm = lay.pack(tp, (0.3, 0.6))
+    if form == "lin-input":
+        base, lanes = 4096, 8192
+        prm = lay.pack(tp, (0.3, 0.6), base)
+        kw = {"lin_input": True, "lin_base": base, "n_lanes": lanes}
+    before = R.resid_launches
+    out = bump_round0(lay, prm, tp, *rays, **kw)
+    assert R.resid_launches == before + 1
+    ref = bump_round0(lay, prm, tp, *rays, trace=R.round0_reference, **kw)
+    assert set(out) == set(lay.names) | {"win"}
+    _assert_close(out, ref, lay.names)
+
+
+@pytest.mark.parametrize("scene", ["bump_fast", "bump_reshade", "env"])
+def test_bump_and_env_frames_match_plain(cuda, scene):
+    """render_frame of the bump scene (each gate) and of the stand-in under
+    the sky cubemap (the merged gather) against the plain path: the frame
+    limits; every round-0 call on the fused path."""
+    from chess2rt_tpu_torch.render import pipeline as P
+    from chess2rt_tpu_torch.scenes import bump_scene
+
+    w, h = 160, 120
+    sc = (flagship_standin(T, w, h, env=True) if scene == "env"
+          else bump_scene(T, w, h, mirror=True, bump_csg=scene == "bump_reshade"))
+    tp, ts = pack_scene(sc, device=cuda)
+    R.launches = R.resid_launches = F.bounce_rounds = P.wavefront_frames = 0
+    img = P.render_frame(tp, ts)
+    assert P.wavefront_frames == 0 and R.launches == 5 + F.bounce_rounds
+    assert R.resid_launches == (0 if scene == "env" else R.launches)
+    ref = F.build_flagship_renderer(ts, w, h, trace=R.round0_reference)(tp)
+    d = (img - ref).abs().amax(-1).double()
+    assert bool(torch.isfinite(img).all())
+    assert (d > 2e-3).double().mean().item() < 0.01
+    assert d.median().item() < 2e-4
+
+
+def test_texel_hist_on_the_merged_table(cuda):
+    """K2 on the texel rows of the env step's merged gather (bitmap quads
+    and cubemap quads in one table) against its plain version, and the
+    env_cubemap gradient of the step nonzero on both paths."""
+    from chess2rt_tpu_torch.ops import shade as S
+    from chess2rt_tpu_torch.render import pipeline as P
+
+    w, h = 160, 120
+    tp, ts = pack_scene(flagship_standin(T, w, h, env=True), device=cuda)
+    ts = dataclasses.replace(ts, aa_enabled=False)
+    seen = []
+
+    def keep(keys, vals, n_texels):
+        seen.append((keys, vals, n_texels))
+        return K2.texel_histogram(keys, vals, n_texels)
+
+    S.texel_histogram = keep
+    try:
+        xs = [x.detach().clone().requires_grad_() for x in leaves(tp)]
+        (P.render_frame(from_leaves(xs), ts) ** 2).mean().backward()
+    finally:
+        S.texel_histogram = K2.texel_histogram
+    n_rows = sum(bh * bw for bh, bw in ts.bitmap_sizes) + 6 * 64 * 64
+    assert seen and all(n == n_rows for _, _, n in seen)
+    assert bool(xs[LEAF_NAMES.index("env_cubemap")].grad.any())
+    for keys, vals, n in seen:
+        out, ref = K2.texel_histogram(keys, vals, n), K2.texel_histogram_reference(keys, vals, n)
+        assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())

@@ -212,17 +212,23 @@ def test_dispatch_order_dof_gi_stereo():
 
 
 def test_what_gi_still_refuses():
-    """The environment miss term raises naming item 10; the sharded GI frame
-    (the JAX package's per-shard XLA sampler) naming item 11."""
+    """The sharded GI frame (the JAX package's per-shard XLA sampler) raises
+    naming item 11.  The environment miss term (item 10) is ported: the
+    env GI frame renders, on the fused path and in the twin, and the sky
+    lights it."""
     from chess2rt_tpu_torch.parallel import make_mesh, make_sharded_render_fn
 
     sc = _scene(TT)
     sc.environment.cubemap = np.full((6, 4, 4, 3), 0.5, dtype=np.float32)
     tp, ts = _pack(sc)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _render(tp, ts, 0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        P.trace_path(tp, ts, torch.zeros(4, 3), torch.ones(4, 3), prng.PRNGKey(0))
+    assert ts.has_env and R.supports_gi(ts)
+    lit = _render(tp, ts, 0)
+    dark = _render(tp, dataclasses.replace(ts, has_env=False), 0)
+    assert np.isfinite(lit).all() and lit.mean() > dark.mean() + 0.05
+    np.testing.assert_allclose(_render(tp, ts, 0, twin=True), lit, atol=5e-4)
+    miss = P.trace_path(tp, ts, torch.tensor([[0.0, 10.0, 0.0]] * 4), torch.tensor([[0.0, 1.0, 0.0]] * 4),
+                        prng.PRNGKey(0))
+    np.testing.assert_allclose(miss.numpy(), 0.5)  # straight up into the grey sky
     _, ts = _pack(_scene(TT))
     with pytest.raises(NotImplementedError, match="item 11"):
         make_sharded_render_fn(ts, make_mesh(["cpu", "cpu"]))

@@ -236,13 +236,13 @@ def test_unported_forms_raise_with_their_roadmap_item():
 
 
 def test_render_frame_raises_for_unported_modes():
+    """What render_frame still refuses, and the modes that are ported: bump
+    maps (both gates of the fused hybrid), the environment cubemap and the
+    compensated ray-gen (the twin) render."""
     from chess2rt_tpu_torch.render.pipeline import render_frame
+    from chess2rt_tpu_torch.scenes import bump_scene, flagship_standin
 
     _, _, tp, ts = packed_pair("standin")
-    bumped = (dataclasses.replace(ts.nodes[0], bump_idx=0),) + tuple(ts.nodes[1:])
-    for change in ({"nodes": bumped}, {"has_env": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_frame(tp, dataclasses.replace(ts, **change))
     # GI is ported; the stand-in's mirror has no BRDF to sample, which the
     # JAX package refuses too
     with pytest.raises(NotImplementedError, match="only Lambert"):
@@ -251,9 +251,19 @@ def test_render_frame_raises_for_unported_modes():
     for change in ({"aa_adaptive": True}, {"chunk_pixels": 256, "aa_enabled": False},
                    {"dof": True, "dof_samples": 2, "aa_enabled": False}, {"stereo": True, "aa_enabled": False}):
         assert render_frame(tp, dataclasses.replace(ts, **change)).shape == (H, W, 3)
-    for change in ({"has_env": True}, {"compensated_raygen": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_frame(tp, dataclasses.replace(ts, **change))
+    # bump maps (ROADMAP item 9), the environment and the compensated
+    # ray-gen (item 10) are ported: they render
+    for bump_csg in (True, False):
+        bp, bs = torch_pack_scene(bump_scene(TT, W, H, mirror=True, bump_csg=bump_csg, aa=False), device="cpu")
+        assert bs.has_bump and R.supports(bs)
+        img = render_frame(bp, bs)
+        assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+    ep, es = torch_pack_scene(flagship_standin(TT, W, H, env=True), device="cpu")
+    assert es.has_env and R.supports(es)
+    assert render_frame(ep, dataclasses.replace(es, aa_enabled=False)).shape == (H, W, 3)
+    cs = dataclasses.replace(ts, compensated_raygen=True, aa_enabled=False)
+    assert not R.supports(cs)  # the opt-in of the twin only
+    assert render_frame(tp, cs).shape == (H, W, 3)
     # float64 frames are ported: the eager Whitted twin renders them
     tp64, ts64 = torch_pack_scene(scene(TT, "standin"), dtype=torch.float64, device="cpu")
     img = render_frame(tp64, dataclasses.replace(ts64, aa_enabled=False))

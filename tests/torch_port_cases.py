@@ -368,14 +368,15 @@ CAMERA_GRAD_LEAVES = ("camera.pos", "camera.yaw", "camera.pitch", "camera.fov")
 HORIZON_LEAVES = ("plane_y", "sphere_center", "sphere_r", "bitmap_scaling", "bitmap_atlas")
 
 
-def jax_kernel_trace(jp, js):
+def jax_kernel_trace(jp, js, width=W, height=H, lanes=R.TILE_N):
     """A ``trace`` for the port's flagship renderer that runs the JAX
     package's K1 (interpret mode) on the JAX scene ``jp`` and hands its rows
     to the port: the port's glue and backward on the JAX forward's own
-    discrete decisions.  Ray-input calls are padded to one 1024-lane tile
-    (lanes are independent), so one compile serves every bounce round."""
+    discrete decisions.  Ray-input calls are padded to ``lanes`` (one
+    1024-lane tile by default; lanes are independent), so one compile
+    serves every bounce round."""
     def kernel(n_rays, want_hit, want_vis):
-        return jax_round0_kernel(js, W, H, n_rays, want_hit, want_vis)
+        return jax_round0_kernel(js, width, height, n_rays, want_hit, want_vis)
 
     def trace(lay, prm, orig=None, dir=None):
         if orig is None:
@@ -383,11 +384,11 @@ def jax_kernel_trace(jp, js):
             o = kernel(None, lay.want_hit, lay.want_vis)(jp, jnp.asarray(prm[a0:a0 + 2].detach().numpy()))
             return {k: torch.from_numpy(np.array(v)) for k, v in o.items()}
         n = orig.shape[0]
-        pad = R.TILE_N - n
+        pad = lanes - n
         assert pad >= 0
         o3 = np.concatenate([orig.detach().numpy(), np.zeros((pad, 3), np.float32)])
         d3 = np.concatenate([dir.detach().numpy(), np.tile(np.float32([0, 0, 1]), (pad, 1))])
-        o = kernel(R.TILE_N, lay.want_hit, lay.want_vis)(jp, jnp.asarray(o3), jnp.asarray(d3))
+        o = kernel(lanes, lay.want_hit, lay.want_vis)(jp, jnp.asarray(o3), jnp.asarray(d3))
         return {k: torch.from_numpy(np.array(v)[:n]) for k, v in o.items()}
 
     return trace
