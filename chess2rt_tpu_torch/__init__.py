@@ -9,7 +9,7 @@ PyTorch version when its inputs lie on the CPU.
 
 Layout:
     utils/       vec3 math, color/sRGB, structured log (host copies of the
-                 JAX package's)
+                 JAX package's), diagnostics (ray counters, NaN sweep)
     models/      typed scene object model + packed scene tensors
     scene/       SDLang and JSON scene loader (copy)
     imageio/     BMP codec and image containers (copy); native.py, its C++
@@ -23,7 +23,8 @@ Layout:
     render/      render_frame dispatch: the fused paths (K1; Whitted or
                  GI) or the eager twin of the JAX package's XLA wavefront
                  and path tracer
-    parallel/    pixel slices over a mesh of devices, in one process
+    parallel/    pixel slices over a mesh of devices, in one process or
+                 across processes (torch.distributed), and the dryruns
     grad/        inverse rendering (fit) and its checkpoints
     csrc/        hand-written CUDA kernels (sm_90a)
     cuda_build.py  nvcc build + ctypes binding of csrc/

@@ -19,9 +19,12 @@ the fused path, float64 frames and every other scene through the eager
 Whitted twin (render/pipeline.py), both on the card (it has float64).
 ``--device cpu`` runs it on the CPU instead; without a card and without
 that flag it raises, like ``pack_scene``.  ``--backend oracle`` renders
-with the float64 numpy oracle.  ``--distributed`` shards the pixels over a
-mesh of the visible cards in this process (parallel/mesh.py); several
-processes are ROADMAP.md queue 1 item 11, the interactive viewer item 12.
+with the float64 numpy oracle.  ``--distributed`` first brings up
+``torch.distributed`` from a launcher's environment (RANK, WORLD_SIZE,
+MASTER_ADDR; parallel/distributed.py; nothing without it), then shards the
+pixels over every device of every process (parallel/mesh.py), and only the
+first process writes the BMP.  The interactive viewer is ROADMAP.md queue 1
+item 12.
 ``--stats`` prints the wall time of each stage: load, device init, pack,
 render (the kernel's nvcc build included on its first use) and write.
 """
@@ -177,7 +180,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device to render on (default: the current CUDA device; cpu to run without a card)")
     ap.add_argument("--distributed", action="store_true",
-                    help="shard pixels over a mesh of the visible cards, in this process")
+                    help="shard pixels over every device of every process (torch.distributed from the "
+                         "launcher's RANK, WORLD_SIZE, MASTER_ADDR; one process without them); the first "
+                         "process writes the BMP")
     ap.add_argument("--debug-pixel", default=None, metavar="X,Y",
                     help="dump a single-pixel trace (click-to-inspect parity) and exit")
     ap.add_argument("--interactive", action="store_true",
@@ -202,6 +207,13 @@ def main(argv=None) -> int:
 
     if args.device is None and not torch.cuda.is_available():
         raise RuntimeError("chess2rt_tpu_torch: no CUDA device; pass --device cpu to run on the CPU")
+    processes = 1
+    if args.distributed:
+        # the process group comes up before any device work (the JAX CLI's
+        # order); without a launcher's environment it brings up nothing
+        from .parallel.distributed import initialize_distributed
+
+        processes = initialize_distributed(local_devices=[args.device] if args.device else None)["process_count"]
     device = torch.device(args.device) if args.device else torch.device("cuda", torch.cuda.current_device())
 
     if args.log_json:
@@ -259,7 +271,7 @@ def main(argv=None) -> int:
             if args.distributed:
                 from .parallel import make_mesh, render_frame_distributed
 
-                mesh = make_mesh() if device.type == "cuda" else make_mesh((device,))
+                mesh = make_mesh() if device.type == "cuda" or processes > 1 else make_mesh((device,))
                 img = render_frame_distributed(packed, static, mesh, key)
             else:
                 from .render.pipeline import render_frame
@@ -270,6 +282,10 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
     log.emit("frame", wall_ms=round(dt * 1e3, 3), **frame_rec)
 
+    from .parallel.distributed import is_primary
+
+    if not is_primary():  # every rank holds the frame; the first writes it
+        return 0
     t = time.perf_counter()
     out_path = args.output or screenshot_name()
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)

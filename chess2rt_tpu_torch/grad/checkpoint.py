@@ -22,7 +22,7 @@ def save_checkpoint(path: str, packed: ScenePacked, optimizer: torch.optim.Optim
         "leaves": {k: v.detach().cpu() for k, v in zip(LEAF_NAMES, leaves(packed))},
         "optimizer": optimizer.state_dict(),
     }
-    tmp = f"{path}.tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"  # processes saving to one shared path do not clash
     torch.save(state, tmp)
     os.replace(tmp, path)
 

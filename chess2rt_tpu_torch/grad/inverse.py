@@ -16,9 +16,12 @@ gradient is zero.  ``update_scales`` becomes a per-field learning rate
 from ``key`` (ops/prng.py, None is ``PRNGKey(0)``): step i renders with
 ``fold_in(key, i)`` when ``resample_keys`` is on (the default: SGD on the
 expected loss), else with ``key`` every step (the render becomes a smooth
-deterministic function of the parameters), as in JAX.  The JAX option that
-steers TPU machinery (``auto_pallas``) is not carried.  Fitting over a
-device mesh is ROADMAP.md queue 1 item 11.
+deterministic function of the parameters), as in JAX.  With
+``problem.mesh`` set, each step is ``parallel.make_sharded_value_and_grad``
+over that mesh (the shards' gradients summed, across processes too), with
+the same keys and checkpoints: every process saves its own (as in JAX), and
+across processes all must resume at the same step.  The JAX option that steers TPU machinery
+(``auto_pallas``) is not carried.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from ..models.packed import LEAF_NAMES, ScenePacked, SceneStatic, from_leaves, leaves
 from ..ops import prng
+from ..parallel import distributed as D
 from ..render.pipeline import render_frame
 from .checkpoint import load_checkpoint, save_checkpoint
 
@@ -47,7 +51,7 @@ class InverseProblem:
     steps: int = 200
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 50
-    mesh: object = None  # distributed fitting: not ported
+    mesh: object = None  # a parallel.make_mesh / make_mesh_2d mesh: fit sharded over it
     # per-field multipliers of the Adam updates (effective step size
     # learning_rate * scale), for fields on very different scales
     update_scales: Optional[dict] = None
@@ -88,8 +92,6 @@ def fit(
 ):
     """Adam on pixel L2.  Returns (packed_optimized, losses)."""
     key = prng.as_key(key)
-    if problem.mesh is not None:
-        raise NotImplementedError("fit: fitting over a device mesh is not ported yet (ROADMAP.md queue 1 item 11)")
     trained = tuple(problem.train_fields)
     unknown = set(trained) - set(LEAF_NAMES)
     if unknown:
@@ -107,13 +109,32 @@ def fit(
     if problem.checkpoint_path and os.path.exists(problem.checkpoint_path):
         start = load_checkpoint(problem.checkpoint_path, packed, opt)
 
+    if problem.mesh is not None:
+        from ..parallel.mesh import make_sharded_value_and_grad
+
+        vg = make_sharded_value_and_grad(static, problem.mesh)
+        if getattr(problem.mesh, "ranks", None) is not None:
+            # a mesh across processes: every process saved its checkpoint
+            # (shared or not), and all must resume at the same step, or
+            # each step would sum gradients of different parameters
+            starts = D.gather(start)
+            if len(set(starts)) > 1:
+                raise RuntimeError(f"fit: the processes resume at steps {starts}; each needs the same "
+                                   f"checkpoint at {problem.checkpoint_path}")
+
     losses = []
     for i in range(start, problem.steps):
         schedule(i)
         opt.zero_grad(set_to_none=True)
         step_key = prng.fold_in(key, i) if problem.resample_keys else key
-        loss = ((render_frame(packed, static, step_key) - target) ** 2).mean()
-        loss.backward()
+        if problem.mesh is None:
+            loss = ((render_frame(packed, static, step_key) - target) ** 2).mean()
+            loss.backward()
+        else:
+            loss, grads = vg(packed, target, step_key)
+            for k, g in zip(LEAF_NAMES, leaves(grads)):
+                if k in trained:
+                    xs[k].grad = g.to(xs[k].device)
         opt.step()
         losses.append(loss.item())
         if on_step:

@@ -145,7 +145,7 @@ def bump_round0(lay: Round0Layout, prm, packed: ScenePacked, orig=None, dir=None
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     if _fast_bump_ok(static):
         if grad:
-            outs = _DiffRound0.apply(lay_r, lay.names, trace, prm, form, _fast_out(static), *tensors)
+            outs = _DiffRound0.apply(lay_r, lay.names, trace, prm, form, _fast_out(static), True, *tensors)
             res = dict(zip(lay.names, outs[:-1]))
             res["win"] = outs[-1]
             return res

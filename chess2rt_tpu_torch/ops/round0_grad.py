@@ -1,7 +1,7 @@
 """The differentiable round-0 call: K1 forward, leaf-pinned re-shade backward.
 
-Counterpart of chess2rt_tpu/ops/pallas_grad.py (``build_diff_round0`` with
-``pin_mode="leaf"``, its screen-tap, ray-input and lin-input forms):
+Counterpart of chess2rt_tpu/ops/pallas_grad.py (``build_diff_round0``, its
+screen-tap, ray-input and lin-input forms, both pin modes):
 
 * **forward** = K1 itself.  With grad mode off, or no input requiring a
   gradient, it is the plain call (``round0``, no residual rows), so a
@@ -19,6 +19,12 @@ Counterpart of chess2rt_tpu/ops/pallas_grad.py (``build_diff_round0`` with
       face (``compute_leaf_pins``), so the recompute is one closed form per
       leaf (``leaf_pinned_record``): no CSG walk, no sort network;
     - the shadow bits, so no shadow scan runs (their derivative is zero).
+  ``pin_mode="node"`` (the JAX package's earlier backward, kept for A/B
+  tests) pins ``win`` and the shadow bits only: its forward runs K1's
+  residual form with the vis rows alone, and its backward re-scans every
+  node's full intersection (``_pinned_record``: ``geometry.node_closest``
+  per node, selected by the pinned ``win``).  Both differentiate the same
+  winning closed form.
   Camera cotangents flow through the ray-gen twin (``_gen_rays``, and
   ``_gen_rays_lin`` for the lin-input form's pixel slice); the
   ray-input form also returns cotangents for ``orig`` and ``dir``, so the
@@ -29,8 +35,7 @@ ScenePacked leaves in models/packed.LEAF_NAMES order.  Bump scenes take
 the bump hybrid (ops/bump_round0.py) instead, which reuses this module's
 re-shade with ``bump=True``: tangent-carrying leaf-pinned records
 (``leaf_pinned_record(..., tangents=True)``) and the bump perturbation
-before the lighting sums.  The full-scan ``pin_mode="node"`` is not ported
-(ROADMAP.md queue 1 item 5).
+before the lighting sums.
 
 Discrete-pin caveat (as in the JAX package): on knife-edge lanes where the
 kernel's float decisions and the recompute's would differ, the gradient
@@ -218,6 +223,25 @@ def leaf_pinned_record(packed, static, orig, dir, gleaf, sel, n_pin, tangents=Fa
     return rec
 
 
+def _pinned_record(packed, static, orig, dir, win, tangents=False):
+    """The winning node's hit record selected by the pinned ``win`` (the
+    node-mode backward): every node's full closest-hit recompute
+    (``geometry.node_closest``, CSG walk included), the node ``win`` names
+    taken per lane.  The select is piecewise constant, like the zero
+    gradient of the scan's argmin.  ``tangents`` carries the dNdx/dNdy
+    frames of the bump extension."""
+    keys = ("dist", "normal", "u", "v") + (("dndx", "dndy") if tangents else ())
+    rec = None
+    for i, ns in enumerate(static.nodes):
+        cand = G.node_closest(packed, ns, i, orig, dir, tangents=tangents)
+        if rec is None:
+            rec = {k: cand[k] for k in keys}
+            continue
+        m = win == i
+        rec = {k: torch.where(m if cand[k].dim() == m.dim() else m[..., None], cand[k], rec[k]) for k in keys}
+    return rec
+
+
 def _diffuse_nobitmap(packed, static, winc, u, v, onehot):
     """texture_color minus the bitmap branch: K1 defers bitmap texels to the
     combine step and emits dr = 0 for bitmap nodes, so the re-shade does
@@ -254,12 +278,16 @@ def _diffuse_nobitmap(packed, static, winc, u, v, onehot):
 def reshade(packed: ScenePacked, static: SceneStatic, orig, dir, win, vis_list, rec_pins, want_hit=False,
             bump=False):
     """Differentiable torch recompute of K1's float outputs given the pinned
-    (win, vis) and leaf pins ``rec_pins`` = (gleaf, sel, n_pin): the same
-    keys as the layout (plain, or ``want_hit``), minus ``win`` and the vis
-    rows.  ``vis_list`` holds one bool [N] mask per light.  ``bump``: the
-    record carries tangents and the winning normal is bump-perturbed before
-    the lighting (the bump hybrid's shading, ops/bump_round0.py)."""
-    rec = leaf_pinned_record(packed, static, orig, dir, *rec_pins, tangents=bump)
+    (win, vis) and leaf pins ``rec_pins`` = (gleaf, sel, n_pin), or None for
+    the node-mode full re-scan (``_pinned_record``): the same keys as the
+    layout (plain, or ``want_hit``), minus ``win`` and the vis rows.
+    ``vis_list`` holds one bool [N] mask per light.  ``bump``: the record
+    carries tangents and the winning normal is bump-perturbed before the
+    lighting (the bump hybrid's shading, ops/bump_round0.py)."""
+    if rec_pins is None:
+        rec = _pinned_record(packed, static, orig, dir, win, tangents=bump)
+    else:
+        rec = leaf_pinned_record(packed, static, orig, dir, *rec_pins, tangents=bump)
     return _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit, bump)
 
 
@@ -409,8 +437,11 @@ def _gen_rays_lin(packed, width, height, aa, lin_base: int, n: int):
 
 def kernel_pins(o, n_lights: int):
     """(win, vis_list, t_pin, n_pin) from K1's residual rows: the winner,
-    one bool [N] shadow bit per light, the winning t and raw normal."""
+    one bool [N] shadow bit per light, the winning t and raw normal (None
+    without the hit rows: node mode)."""
     vis = [o[f"vis{li}"] > 0.5 for li in range(n_lights)]
+    if "t" not in o:
+        return o["win"], vis, None, None
     return o["win"], vis, o["t"], torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1)
 
 
@@ -428,15 +459,16 @@ def form_rays(packed, lay: Round0Layout, prm, form, tensors):
 
 class _DiffRound0(torch.autograd.Function):
     """Inputs: (residual layout, primal row names, trace, prm, form,
-    primal, [orig, dir,] *leaves in LEAF_NAMES order), with ``form`` None
-    for the screen-tap form, "rays" for the ray-input form, or (lin_base,
-    n_lanes) for the lin-input form.  ``primal`` None returns K1's rows;
-    the bump fast forward passes ``primal(packed, orig, dir, o)``, its
-    shading of K1's record, and the backward then re-shades with bump.
-    Outputs: the primal rows in ``names`` order, then ``win``."""
+    primal, leaf_pins, [orig, dir,] *leaves in LEAF_NAMES order), with
+    ``form`` None for the screen-tap form, "rays" for the ray-input form, or
+    (lin_base, n_lanes) for the lin-input form.  ``primal`` None returns
+    K1's rows; the bump fast forward passes ``primal(packed, orig, dir,
+    o)``, its shading of K1's record, and the backward then re-shades with
+    bump.  ``leaf_pins`` False is node mode (``lay_r`` then needs no hit
+    rows).  Outputs: the primal rows in ``names`` order, then ``win``."""
 
     @staticmethod
-    def forward(ctx, lay_r: Round0Layout, names, trace, prm, form, primal, *tensors):
+    def forward(ctx, lay_r: Round0Layout, names, trace, prm, form, primal, leaf_pins, *tensors):
         ray_input = form == "rays"
         rays = tensors[:2] if ray_input else ()
         lin = {} if form is None or ray_input else {"lin_input": True, "n_lanes": form[1]}
@@ -446,6 +478,7 @@ class _DiffRound0(torch.autograd.Function):
             packed = from_leaves(tensors[2 if ray_input else 0:])
             o = primal(packed, *form_rays(packed, lay_r, prm, form, tensors), o)
         ctx.lay, ctx.names, ctx.ray_input, ctx.form, ctx.bump = lay_r, names, ray_input, form, primal is not None
+        ctx.leaf_pins = leaf_pins
         ctx.save_for_backward(prm, win, torch.stack(vis), t_pin, n_pin, *tensors)
         ctx.mark_non_differentiable(win)
         ctx.set_materialize_grads(False)
@@ -455,19 +488,21 @@ class _DiffRound0(torch.autograd.Function):
     def backward(ctx, *grads):
         prm, win, vis, t_pin, n_pin, *tensors = ctx.saved_tensors
         lay, static = ctx.lay, ctx.lay.static
-        need = ctx.needs_input_grad[6:]
+        need = ctx.needs_input_grad[7:]
         pairs = [(k, g) for k, g in zip(ctx.names, grads[:-1]) if g is not None]
         result = [None] * len(tensors)
         if not pairs or not any(need):
-            return (None,) * 6 + tuple(result)
+            return (None,) * 7 + tuple(result)
         with torch.enable_grad():
             xs = [t.detach().requires_grad_(nd) for t, nd in zip(tensors, need)]
             packed = from_leaves(xs[2 if ctx.ray_input else 0:])
             orig, dir = form_rays(packed, lay, prm, ctx.form, xs)
-            with torch.no_grad():
-                gleaf, sel = compute_leaf_pins(packed, static, orig, dir, win, t_pin)
+            rec_pins = None
+            if ctx.leaf_pins:
+                with torch.no_grad():
+                    rec_pins = (*compute_leaf_pins(packed, static, orig, dir, win, t_pin), n_pin)
             # the caller's layout had the hit rows when its names hold "t"
-            out = reshade(packed, static, orig, dir, win, list(vis.unbind(0)), (gleaf, sel, n_pin),
+            out = reshade(packed, static, orig, dir, win, list(vis.unbind(0)), rec_pins,
                           want_hit="t" in ctx.names, bump=ctx.bump)
             pairs = [(out[k], g) for k, g in pairs if out[k].requires_grad]
             wanted = [i for i, x in enumerate(xs) if x.requires_grad]
@@ -477,7 +512,7 @@ class _DiffRound0(torch.autograd.Function):
                 )
                 for i, g in zip(wanted, got):
                     result[i] = g
-        return (None,) * 6 + tuple(result)
+        return (None,) * 7 + tuple(result)
 
 
 def diff_round0(lay: Round0Layout, prm, packed: ScenePacked, orig=None, dir=None, *, trace=round0,
@@ -492,12 +527,13 @@ def diff_round0(lay: Round0Layout, prm, packed: ScenePacked, orig=None, dir=None
     n_lanes=n_lanes)`` with ``prm = lay.pack(packed, aa, lin_base)``: the
     backward's ray-gen twin needs the same ``lin_base`` as an integer (the
     forward reads it from ``prm``), so the caller passes it here too.
+
+    ``pin_mode`` "leaf" (the default) or "node" (see the module docstring);
+    a scene without leaves takes node mode either way, as in JAX.
     Returns the dict ``trace`` returns for ``lay``."""
     static = lay.static
-    if pin_mode != "leaf":
-        raise NotImplementedError(
-            'diff_round0: pin_mode="node" (the full-scan _pinned_record) is not ported (ROADMAP.md queue 1 item 5)'
-        )
+    if pin_mode not in ("leaf", "node"):
+        raise ValueError(f'diff_round0: pin_mode is "leaf" or "node", not {pin_mode!r}')
     if lin_input and (orig is not None or n_lanes is None):
         raise ValueError("diff_round0: the lin-input form takes n_lanes and no rays")
     # bump scenes take the bump hybrid (ops/bump_round0.py, dispatched by
@@ -508,9 +544,10 @@ def diff_round0(lay: Round0Layout, prm, packed: ScenePacked, orig=None, dir=None
     tensors = (*rays, *leaves(packed))
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
         return trace(lay, prm, *rays, **({"lin_input": True, "n_lanes": n_lanes} if lin_input else {}))
-    lay_r = layout(static, lay.width, lay.height, want_hit=True, want_vis=True)
+    leaf_pins = pin_mode == "leaf" and len(leaf_table(static)[0]) > 0
+    lay_r = layout(static, lay.width, lay.height, want_hit=lay.want_hit or leaf_pins, want_vis=True)
     form = "rays" if rays else ((int(lin_base), int(n_lanes)) if lin_input else None)
-    outs = _DiffRound0.apply(lay_r, lay.names, trace, prm.detach(), form, None, *tensors)
+    outs = _DiffRound0.apply(lay_r, lay.names, trace, prm.detach(), form, None, leaf_pins, *tensors)
     res = dict(zip(lay.names, outs[:-1]))
     res["win"] = outs[-1]
     return res

@@ -27,6 +27,13 @@ a gradient is recorded (recomputed in the backward, shadow scans included:
 torch has no counterpart of the JAX policy that saves only the shadow bits).
 Everything stays differentiable by autograd in every ScenePacked leaf.
 
+The ray counters of the JAX package (``stats``: camera, shadow and bounce
+rays, read by ``utils/diagnostics.frame_ray_stats`` for rays/s) are kept as
+0-d tensors on the device and read once by their reader; a frame rendered
+with them is the frame rendered without.  ``render_samples``' ``trace_fn``
+and ``gi_trace_fn`` hooks let the mesh layer's per-shard sampler trace
+through K1 (parallel/mesh.py).
+
 The random streams are the JAX package's: ``key`` is a threefry key of
 ops/prng.py (the default ``PRNGKey(0)``), split per sample, AA tap and
 chunk slab in the JAX order, and every draw is ``prng.uniform``, bit-equal
@@ -86,10 +93,18 @@ def dot(a, b):
 # --------------------------------------------------------------------------
 
 
-def _whitted_round(packed, static, color, atten, alive, orig, dir, recursive):
+def _count(stats, name, n):
+    """Add ``n`` rays (a 0-d tensor on the device, or a number) to counter
+    ``name``: no host read, the reader converts once."""
+    stats[name] = stats.get(name, 0) + n
+
+
+def _whitted_round(packed, static, color, atten, alive, orig, dir, recursive, stats=None, r=0):
     """One wavefront round: closest hit, direct shade, spawn the
     continuation.  Returns the updated carry (color, atten, alive, orig,
-    dir)."""
+    dir).  ``stats`` counts the round's shadow rays (one per lit shading
+    point per light, shader.d:88) and, after round 0 (``r``), its bounce
+    rays (the live lanes)."""
     eps = S.shadow_eps(orig.dtype)
     hit, win = G.scene_closest(packed, static, orig, dir, tangents=static.has_bump)
     hitmask = alive & (win >= 0)
@@ -111,6 +126,11 @@ def _whitted_round(packed, static, color, atten, alive, orig, dir, recursive):
     if static.has_env:
         env = sample_cubemap(packed.env_cubemap, dir)
         color = color + atten * torch.where((alive & (win < 0))[..., None], env, 0.0)
+
+    if stats is not None:
+        _count(stats, "shadow", (hitmask & is_direct).sum() * static.n_lights)
+        if r > 0:
+            _count(stats, "bounce", alive.sum())
 
     if not recursive:
         return color, atten, torch.zeros_like(alive), orig, dir
@@ -145,14 +165,18 @@ def _whitted_round(packed, static, color, atten, alive, orig, dir, recursive):
     return color, atten, continuing, orig, dir
 
 
-def trace_whitted(packed: ScenePacked, static: SceneStatic, orig, dir):
+def trace_whitted(packed: ScenePacked, static: SceneStatic, orig, dir, stats=None):
     """Radiance [N, 3] for a batch of primary rays.
 
     A scene without reflective or refractive nodes runs one round;
     otherwise ``_run_rounds``, or round 0 at full width and then
-    ``continue_bounces`` when ``static.bounce_capacity`` is set.  (The JAX
-    package's ``stats`` counters, read by its TPU benchmark only, are not
-    ported.)"""
+    ``continue_bounces`` when ``static.bounce_capacity`` is set.
+
+    ``stats`` (a dict) accumulates traced-ray counts: "camera" primary rays
+    (a number), "shadow" and "bounce" rays (0-d tensors on the rays'
+    device; see ``_whitted_round``).  With it, every round runs at full
+    width, none skipped and nothing compacted, so counting reads nothing on
+    the host (the JAX package's statically unrolled rounds)."""
     recursive = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
     rounds = (static.max_trace_depth + 1) if recursive else 1
     carry = (
@@ -162,6 +186,11 @@ def trace_whitted(packed: ScenePacked, static: SceneStatic, orig, dir):
         orig,
         dir,
     )
+    if stats is not None:
+        _count(stats, "camera", float(orig[..., 0].numel()))
+        for r in range(rounds):
+            carry = _whitted_round(packed, static, *carry, recursive, stats, r)
+        return carry[0]
     if not recursive:
         return _whitted_round(packed, static, *carry, False)[0]
 
@@ -336,7 +365,8 @@ def trace_path(packed: ScenePacked, static: SceneStatic, orig, dir, key):
 # --------------------------------------------------------------------------
 
 
-def render_samples(packed: ScenePacked, static: SceneStatic, frame, x, y, key=None, dx=1.0, dy=1.0):
+def render_samples(packed: ScenePacked, static: SceneStatic, frame, x, y, key=None, dx=1.0, dy=1.0,
+                   stats=None, trace_fn=None, gi_trace_fn=None):
     """renderSample for a batch of (fractional) pixel coordinates -> [N, 3]
     (renderer.d:254-313).  Deterministic: one pinhole ray per coordinate
     through ``trace_whitted`` (two with stereo, combined).  With DoF, the
@@ -345,27 +375,41 @@ def render_samples(packed: ScenePacked, static: SceneStatic, frame, x, y, key=No
     sample, as JAX's ``lax.scan`` does; GI runs ``paths_per_pixel`` samples
     the same way, each one path through ``trace_path``.  Dispatch order as
     renderSample's: DoF first (a GI scene with DoF traces Whitted DoF
-    samples), then GI (mono: stereo is ignored), then stereo.  (The JAX
-    package's ``trace_fn`` / ``gi_trace_fn`` hooks serve its mesh layer's
-    XLA per-shard sampler, ROADMAP item 11.)"""
+    samples), then GI (mono: stereo is ignored), then stereo.
+
+    ``trace_fn(packed, orig, dir, stats)`` and ``gi_trace_fn(packed, orig,
+    dir, key)`` replace the Whitted and the GI tracer while this function
+    keeps its ray-gen and random streams: the mesh layer's per-shard
+    sampler plugs K1 in this way (parallel/mesh.py).  ``stats`` counts the
+    traced rays (``trace_whitted``); in the Monte-Carlo modes only the
+    camera rays, a number known before the loop, as in JAX."""
     cam = packed.camera
     W, H = float(static.width), float(static.height)
     key = prng.as_key(key)
 
-    def trace_one(xx, yy, k):
+    def whitted(p, o, d, st=None):
+        return trace_whitted(p, static, o, d, st)
+
+    whitted = trace_fn or whitted
+
+    def trace_one(xx, yy, k, st=None):
         if static.gi_enabled and not static.dof:
             o, d = screen_rays(cam, frame, W, H, xx, yy, 0.0)
+            if gi_trace_fn is not None:
+                return gi_trace_fn(packed, o, d, k)
             return trace_path(packed, static, o, d, k)
         if static.stereo:
             ol, dl = screen_rays(cam, frame, W, H, xx, yy, -1.0, dof=static.dof, key=k)
             orr, drr = screen_rays(cam, frame, W, H, xx, yy, +1.0, dof=static.dof, key=k)
-            return _combine_stereo(trace_whitted(packed, static, ol, dl), trace_whitted(packed, static, orr, drr))
+            return _combine_stereo(whitted(packed, ol, dl, st), whitted(packed, orr, drr, st))
         o, d = screen_rays(cam, frame, W, H, xx, yy, 0.0, dof=static.dof, key=k)
-        return trace_whitted(packed, static, o, d)
+        return whitted(packed, o, d, st)
 
     if not (static.dof or static.gi_enabled):
-        return trace_one(x, y, key)
+        return trace_one(x, y, key, stats)
     n_samples = static.dof_samples if static.dof else static.paths_per_pixel
+    if stats is not None:
+        _count(stats, "camera", float(x.numel() * n_samples * (2 if static.stereo else 1)))
     acc = torch.zeros(x.shape + (3,), dtype=x.dtype, device=x.device)
     for _ in range(n_samples):
         key, kj, kj2, kr = prng.split(key, 4)

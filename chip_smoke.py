@@ -41,7 +41,15 @@ read just after:
   form, in its fast and its reshade gate), the stand-in under a sky
   cubemap at 1920x1080 AA5 (the merged bitmap+cubemap gather), their
   640x480 gradient steps (K2 on the merged table), GI under the sky, and
-  a frame with the compensated (df32) ray-gen through the twin.
+  a frame with the compensated (df32) ray-gen through the twin;
+* distribution: the per-shard sampler over 4 entries of the card
+  (``parallel.make_sharded_render_fn`` and ``make_sharded_value_and_grad``
+  on DoF, stereo, GI and float64 frames: K1's ray-input form or the fused
+  GI tracer and the threefry draw per shard, keys folded per shard), the
+  gradient step with ``pin_mode="node"``, two processes sharing the card
+  over ``torch.distributed`` (``parallel.mp_dryrun.run_multiprocess_
+  dryrun``, gloo), and the ray counters (``utils.diagnostics.
+  frame_ray_stats``).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -166,6 +174,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 30. the compensated (df32) ray-gen: the stand-in at 640x480 AA5 through
     the twin (no K1 launch), against the plain-ray twin frame, its ms, and
     its rays against float64 rays beside the plain f32 rays.
+31. the sharded DoF stand-in over 4 entries of the card: kernel path
+    against plain path (plain K1, plain draws) at 640x480 with 4 samples,
+    then the 1080p AA5 frame with 25 samples: launch counts (500 shard
+    passes plus their bounce rounds, 2,000 draws), ms beside phase 20's;
+    K1's ray-input form and the draw at one shard's 518,400 lanes against
+    their plain versions, timed;
+32. the sharded 1080p AA5 stereo frame: kernel path against plain path, ms;
+33. the sharded GI frame at 640x480: kernel path against plain path at 4
+    paths, the 40-path frame's ms beside phase 24's;
+34. the sharded float64 stand-in at 320x240 (the sampler on the twin)
+    against the port's float64 oracle at phase 17's rule;
+35. the sharded DoF (4 samples) and GI (4 paths) steps at 640x480: kernel
+    path against plain path at phase 8's rule on the pixels whose frames
+    agree, ms per step;
+36. the 640x480 gradient step with ``pin_mode="node"`` against "leaf":
+    the same loss, every leaf at phase 8's rule, both ms;
+37. ``run_multiprocess_dryrun(2, 640, 480)`` (the card by default): two ranks on
+    the card (gloo, printed), their launch counts, against the in-process
+    2-entry mesh (loss rtol 1e-5, leaves rtol 1e-4 atol 1e-6);
+38. ``frame_ray_stats`` of the 1080p AA5 stand-in: the counts, the twin
+    pass's ms, rays per second at phase 5's frame time.
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -183,6 +212,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -289,6 +319,8 @@ PEAK_INT32 = 33.5e12
 
 
 T0 = time.perf_counter()
+# times of earlier phases that later phases print beside their own
+MEASURED = {}
 
 
 def log(msg: str) -> None:
@@ -861,6 +893,7 @@ def main(argv) -> int:
     kernels += mc_phases(argv, card, dev, kernel_ms)
     kernels += gi_phases(argv, card, dev)
     kernels += feature_phases(argv, card, dev, kernel_ms)
+    kernels += dist_phases(argv, card, dev, kernel_ms)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -1676,6 +1709,7 @@ def mc_phases(argv, card, dev, phase5_frame_ms):
             prng.uniform(prng.fold_in(key, j), (MC_LANES,), device=dev)
 
     draws_ms, _ = time_events(frame_draws, 1, 1)
+    MEASURED["dof_ms"] = dof_ms
     log(f"  DoF frame {dof_ms:.3f} ms {['%.3f' % t for t in dof_all]} (the deterministic frame, phase 5: "
         f"{phase5_frame_ms:.3f} ms; {dof_ms / phase5_frame_ms:.1f}x) on {card}; its {dof_draws} draws alone "
         f"{draws_ms:.3f} ms, {draws_ms / dof_ms:.1%} of the frame")
@@ -1899,6 +1933,7 @@ def gi_phases(argv, card, dev):
     if not bool(torch.isfinite(img).all()) or (img.amax(-1) > 0).double().mean().item() <= 0.5:
         raise AssertionError("the 40-path GI frame is not finite or mostly black")
     gi_ms, gi_all = time_events(lambda i: render_frame(jittered(tp, i), ts, prng.fold_in(key, i)), 3, 1)
+    MEASURED["gi_ms"] = gi_ms
     log(f"  GI frame {gi_ms:.3f} ms {['%.3f' % t for t in gi_all]} on {card}; peak device memory above the scene "
         f"{gi_peak:.3f} GiB; {frame_counts['bounce_rounds']} bounce rounds, each a host read of the alive mask")
     if "--profile" in argv:
@@ -2286,6 +2321,347 @@ def feature_phases(argv, card, dev, phase5_frame_ms):
                         f"{n_texels} texel rows)", "chess2rt_tpu_torch/csrc/texel_hist.cu",
                         "chess2rt_tpu/ops/texel_hist.py:41", env_step_counts["k2"], merged_err, m_ms, m_plain_ms,
                         *merged_bound, library_ms=m_lib_ms), "queued_ms": m_q},
+    ]
+
+
+def dist_phases(argv, card, dev, phase5_frame_ms):
+    """Phases 31-38: the per-shard sampler over 4 mesh entries of the card
+    (DoF, stereo, GI and float64 frames; the DoF and GI steps), the
+    node-pinned backward, two processes sharing the card over
+    torch.distributed, and the ray counters.  Returns the kernels-line
+    entries of K1's ray-input form and the threefry draw at one DoF shard's
+    width."""
+    import torch
+    from chess2rt_tpu_torch import cuda_build
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import LEAF_NAMES, leaves, pack_scene
+    from chess2rt_tpu_torch.ops import flagship as F
+    from chess2rt_tpu_torch.ops import gi, prng
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.ops import round0_grad as RG
+    from chess2rt_tpu_torch.ops import texel_hist as K2
+    from chess2rt_tpu_torch.ops.camera import begin_frame, screen_rays
+    from chess2rt_tpu_torch.oracle.renderer import OracleRenderer
+    from chess2rt_tpu_torch.parallel import make_mesh, make_sharded_render_fn, make_sharded_value_and_grad, mp_dryrun
+    from chess2rt_tpu_torch.render import pipeline as P
+    from chess2rt_tpu_torch.scenes import flagship_standin, gi_standin
+    from chess2rt_tpu_torch.utils.color import srgb_u8
+    from chess2rt_tpu_torch.utils.diagnostics import frame_ray_stats
+
+    mesh = make_mesh([dev] * MESH_ENTRIES)
+    busy = torch.ones((8192, 8192), dtype=torch.float32, device=dev)
+    key = prng.PRNGKey(31)
+    gw, gh = GRAD_SIZE
+    out = {}
+
+    def zero_counts():
+        R.launches = R.resid_launches = R.hit_launches = R.ray_launches = R.lin_launches = 0
+        F.bounce_rounds = gi.bounce_rounds = prng.launches = K2.launches = P.wavefront_frames = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"k1": R.launches, "k1_ray": R.ray_launches, "k1_hit": R.hit_launches, "k1_resid": R.resid_launches,
+                "k1_lin": R.lin_launches, "bounce_rounds": F.bounce_rounds, "gi_rounds": gi.bounce_rounds,
+                "draws": prng.launches, "k2": K2.launches, "twin_frames": P.wavefront_frames}
+
+    @contextlib.contextmanager
+    def plain_draws():
+        """The threefry draw's plain version wherever the port draws."""
+        kernel = prng.uniform
+        prng.uniform = prng.uniform_reference
+        try:
+            yield
+        finally:
+            prng.uniform = kernel
+
+    def plain_frame(ts, packed, k):
+        zero_counts()
+        with plain_draws():
+            img = make_sharded_render_fn(ts, mesh, trace=R.round0_reference)(packed, k)
+        c = counts()
+        if c["k1"] or c["draws"] or c["k2"]:
+            raise AssertionError(f"the plain sharded path launched a kernel: {c}")
+        return img
+
+    def check_whitted(label, c, taps):
+        """One ray-input launch per shard pass and bounce round, four draws
+        per DoF sample pass (jitter x, y and the disc's two), no other form."""
+        log(f"  {label}: K1 launches {c['k1']} (ray-input {c['k1_ray']}, bounce rounds {c['bounce_rounds']}), "
+            f"draws {c['draws']}")
+        if c["k1"] != c["k1_ray"] or c["k1"] != taps + c["bounce_rounds"] or c["k1_resid"] or c["k1_lin"]:
+            raise AssertionError(f"{label}: launch counts {c} for {taps} shard passes")
+
+    def sharded_step(ts, packed, target, trace):
+        """(loss, {leaf: gradient}) of the sharded step on ``trace``; the
+        plain path draws and sums texels with the plain versions."""
+        vg = make_sharded_value_and_grad(ts, mesh, trace=trace)
+        if trace is R.round0:
+            loss, g = vg(packed, target, key)
+        else:
+            with plain_draws(), plain_texel_vjp():
+                loss, g = vg(packed, target, key)
+        return loss, dict(zip(LEAF_NAMES, leaves(g)))
+
+    def step_phase(label, ts, packed, frame_k, frame_p):
+        """The sharded step on K1 against the plain path at phase 8's rule:
+        the whole frame logged, then held on the pixels whose two frames
+        agree (knife-edge pixels carry other leaves' whole gradient): there
+        each path's target is its own frame, so their error and gradient
+        vanish."""
+        target = torch.zeros((ts.height, ts.width, 3), dtype=torch.float32, device=dev)
+        zero_counts()
+        loss_k, g_k = sharded_step(ts, packed, target, R.round0)
+        c = counts()
+        loss_p, g_p = sharded_step(ts, packed, target, R.round0_reference)
+        log(f"  {label}: loss kernel path {loss_k.item():.9g}, plain path {loss_p.item():.9g}; K1 {c['k1']} "
+            f"(residual form {c['k1_resid']}), K2 {c['k2']}, draws {c['draws']}")
+        if not c["k1"] or c["k1_resid"] != c["k1"] or not c["k2"]:
+            raise AssertionError(f"{label}: launch counts {c}")
+        if not abs(loss_k.item() - loss_p.item()) <= LOSS_RTOL * abs(loss_p.item()):
+            raise AssertionError(f"{label}: the two paths' losses differ by more than {LOSS_RTOL} of the loss")
+        compare_grads(f"{label} whole frame", g_k, g_p, enforce=False)
+        agree = ((frame_k - frame_p).abs().amax(-1) <= GRAD_AGREE).float()
+        log(f"  pixels whose frames differ by more than {GRAD_AGREE}: {1 - agree.mean().item():.3e}")
+        keep = agree[..., None] > 0
+        _, g_k = sharded_step(ts, packed, torch.where(keep, target, frame_k), R.round0)
+        _, g_p = sharded_step(ts, packed, torch.where(keep, target, frame_p), R.round0_reference)
+        err = compare_grads(f"{label} agreeing pixels", g_k, g_p)
+        ms, all_ms = time_events(lambda i: sharded_step(ts, jittered(packed, i), target, R.round0), 2, 0)
+        log(f"  {label}: {ms:.3f} ms per step {['%.3f' % t for t in all_ms]} on {card}")
+        return {"max_rel_err": err, "ms": ms, "counts": c}
+
+    # ---- 31. the sharded DoF frame ------------------------------------------------------------------
+    tp, ts = pack_scene(flagship_standin(T, gw, gh, dof=True, samples=MC_SMALL_SAMPLES), device=dev)
+    log(f"phase 31 sharded DoF stand-in over {MESH_ENTRIES} entries of the card: {gw}x{gh} AA5 "
+        f"{MC_SMALL_SAMPLES} samples, kernel path vs plain path (the per-shard sampler, keys folded per shard)")
+    zero_counts()
+    img = make_sharded_render_fn(ts, mesh)(tp, key)
+    c = counts()
+    taps = 5 * MC_SMALL_SAMPLES * MESH_ENTRIES
+    check_whitted(f"{gw}x{gh} DoF frame", c, taps)
+    if c["draws"] != 4 * taps:
+        raise AssertionError(f"the sharded DoF frame drew {c['draws']} times for {taps} shard passes")
+    dof_small_frame_k = img
+    dof_small_err = compare_frames(f"sharded DoF {gw}x{gh} kernel frame vs plain frame", img,
+                                   dof_small_frame_p := plain_frame(ts, tp, key))
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT, dof=True, samples=MC_SAMPLES), device=dev)
+    fn = make_sharded_render_fn(ts, mesh)
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    img = fn(tp, key)
+    dof_counts = counts()
+    dof_peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    taps = 5 * MC_SAMPLES * MESH_ENTRIES
+    check_whitted(f"{WIDTH}x{HEIGHT} AA5 {MC_SAMPLES}-sample DoF frame", dof_counts, taps)
+    if dof_counts["draws"] != 4 * taps:
+        raise AssertionError(f"the 1080p sharded DoF frame drew {dof_counts['draws']} times")
+    if not bool(torch.isfinite(img).all()) or (img.amax(-1) > 0).double().mean().item() <= 0.5:
+        raise AssertionError("the 1080p sharded DoF frame is not finite or mostly black")
+    dof_ms, dof_all = time_events(lambda i: fn(jittered(tp, i), prng.fold_in(key, i)), 3, 1)
+    log(f"  sharded DoF {WIDTH}x{HEIGHT} AA5 {MC_SAMPLES} samples: {dof_ms:.3f} ms {['%.3f' % t for t in dof_all]} "
+        f"on {card}; the single-device DoF frame (phase 20) {MEASURED.get('dof_ms', float('nan')):.3f} ms; peak "
+        f"device memory above the scene {dof_peak:.3f} GiB")
+    # K1's ray-input form and the draw at one shard's width: shard 0's first DoF pass
+    C = WIDTH * HEIGHT // MESH_ENTRIES
+    lin = torch.arange(C, device=dev)
+    k1, k2 = prng.split(prng.fold_in(key, 0))
+    uv = (prng.uniform(k1, (C,), device=dev), prng.uniform(k2, (C,), device=dev))
+    frame = begin_frame(tp.camera, WIDTH / HEIGHT)
+    o3, d3 = screen_rays(tp.camera, frame, float(WIDTH), float(HEIGHT), (lin % WIDTH).float() + 0.5,
+                         (lin // WIDTH).float() + 0.5, 0.0, dof=True, disc_uv=uv)
+    o3, d3 = o3.contiguous(), d3.contiguous()
+    lay = R.layout(ts, WIDTH, HEIGHT)
+    prm0 = lay.pack(tp)
+    ray_err = compare_round0(f"ray-input on one shard's {C} DoF rays", R.round0(lay, prm0, o3, d3),
+                             R.round0_reference(lay, prm0, o3, d3), lay.names)
+    ray_bound = k1_bound(lay, C, lit_shares(R.round0(lay, prm0, o3, d3, want_vis=True), ts.n_lights),
+                         ray_input=True)
+    ray_ms, _ = time_events(lambda i: R.round0(lay, prm0, o3, d3), 20, 3)
+    ray_q = queued_ms(lambda: R.round0(lay, prm0, o3, d3), 20, busy)
+    ray_plain_ms, _ = time_events(lambda i: R.round0_reference(lay, prm0, o3, d3), 3, 1)
+    dk = prng.fold_in(key, 1)
+    draw_k, draw_p = prng.uniform(dk, (C,), device=dev), prng.uniform_reference(dk, (C,), device=dev)
+    draw_diff = int((bits(draw_k) != bits(draw_p)).sum())
+    if draw_diff:
+        raise AssertionError(f"the draw at {C} lanes: {draw_diff} values differ from the plain draw")
+    draw_ms, _ = time_events(lambda i: prng.uniform(dk, (C,), device=dev), 20, 3)
+    draw_q = queued_ms(lambda: prng.uniform(dk, (C,), device=dev), 20, busy)
+    draw_plain_ms, _ = time_events(lambda i: prng.uniform_reference(dk, (C,), device=dev), 5, 1)
+    draw_bound = bound(C * 4, C * OPS_THREEFRY)
+    log(f"  K1 ray-input on {C} rays: {ray_ms:.4f} ms per call, {ray_q:.4f} ms queued, plain {ray_plain_ms:.3f} ms, "
+        f"bound {ray_bound[0]:.4f} ms ({ray_bound[1]}); the draw at {C} lanes: {draw_ms:.4f} ms per call, "
+        f"{draw_q:.4f} ms queued, plain {draw_plain_ms:.3f} ms, bound {draw_bound[0]:.4f} ms ({draw_bound[1]})")
+    out.update(sharded_dof_small_max_abs_err=dof_small_err, sharded_dof_ms=dof_ms, sharded_dof_all_ms=dof_all,
+               sharded_dof_counts=dof_counts, sharded_dof_peak_gib=dof_peak)
+    del img, o3, d3, uv, lin, fn
+
+    # ---- 32. the sharded stereo frame -------------------------------------------------------------
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT, stereo=True), device=dev)
+    log(f"phase 32 sharded stereo stand-in {WIDTH}x{HEIGHT} AA5 over {MESH_ENTRIES} entries")
+    fn = make_sharded_render_fn(ts, mesh)
+    zero_counts()
+    img = fn(tp, key)
+    c = counts()
+    check_whitted("stereo frame", c, 10 * MESH_ENTRIES)
+    if c["draws"]:
+        raise AssertionError(f"the sharded stereo frame drew {c['draws']} times")
+    st_err = compare_frames("sharded stereo kernel frame vs plain frame", img, plain_frame(ts, tp, key))
+    st_ms, st_all = time_events(lambda i: fn(jittered(tp, i), key), 3, 1)
+    log(f"  sharded stereo frame {st_ms:.3f} ms {['%.3f' % t for t in st_all]} on {card}")
+    out.update(sharded_stereo_max_abs_err=st_err, sharded_stereo_ms=st_ms, sharded_stereo_counts=c)
+    del img, fn
+
+    # ---- 33. the sharded GI frame -------------------------------------------------------------------
+    w, h = GI_SIZE
+
+    def gi_scene(paths, **knobs):
+        p, s = pack_scene(gi_standin(T, w, h, paths=paths), device=dev)
+        return p, dataclasses.replace(s, gi_point_light_direct=True, **knobs)
+
+    def check_gi(label, c, passes, step=False):
+        rounds = c["gi_rounds"]
+        form = c["k1_resid"] if step else c["k1_hit"]
+        log(f"  {label}: K1 launches {c['k1']} (want_hit alone {c['k1_hit']}, residual {c['k1_resid']}), bounce "
+            f"rounds {rounds}, draws {c['draws']}, K2 {c['k2']}")
+        if not (c["k1"] == c["k1_ray"] == form == rounds and c["draws"] == 2 * passes + 2 * rounds):
+            raise AssertionError(f"{label}: launch counts {c} for {passes} shard path passes")
+
+    tp, ts = gi_scene(GI_SMALL_PATHS)
+    log(f"phase 33 sharded GI stand-in {w}x{h} over {MESH_ENTRIES} entries, NEE, AA off: kernel path vs plain "
+        f"path at {GI_SMALL_PATHS} paths")
+    zero_counts()
+    img = make_sharded_render_fn(ts, mesh)(tp, key)
+    check_gi(f"{GI_SMALL_PATHS}-path frame", counts(), GI_SMALL_PATHS * MESH_ENTRIES)
+    gi_small_frame_k = img
+    gi_small_frame_p = plain_frame(ts, tp, key)
+    gi_err = compare_frames(f"sharded GI {GI_SMALL_PATHS} paths kernel frame vs plain frame", img, gi_small_frame_p)
+    tp, ts = gi_scene(GI_PATHS)
+    fn = make_sharded_render_fn(ts, mesh)
+    zero_counts()
+    img = fn(tp, key)
+    gi_counts = counts()
+    check_gi(f"{GI_PATHS}-path frame", gi_counts, GI_PATHS * MESH_ENTRIES)
+    if not bool(torch.isfinite(img).all()) or (img.amax(-1) > 0).double().mean().item() <= 0.5:
+        raise AssertionError("the 40-path sharded GI frame is not finite or mostly black")
+    gi_ms, gi_all = time_events(lambda i: fn(jittered(tp, i), prng.fold_in(key, i)), 3, 1)
+    log(f"  sharded GI {w}x{h} {GI_PATHS} paths: {gi_ms:.3f} ms {['%.3f' % t for t in gi_all]} on {card}; the "
+        f"single-device GI frame (phase 24) {MEASURED.get('gi_ms', float('nan')):.3f} ms")
+    out.update(sharded_gi_small_max_abs_err=gi_err, sharded_gi_ms=gi_ms, sharded_gi_all_ms=gi_all,
+               sharded_gi_counts=gi_counts)
+    del img, fn
+
+    # ---- 34. the sharded float64 frame ---------------------------------------------------------------
+    sw, sh = SMALL
+    sc = flagship_standin(T, sw, sh)
+    sc.settings.AAEnabled = False
+    p64, s64 = pack_scene(sc, dtype=torch.float64, device=dev)
+    log(f"phase 34 sharded float64 stand-in {sw}x{sh}, AA off, over {MESH_ENTRIES} entries (the sampler on the "
+        f"twin) against the port's float64 oracle")
+    zero_counts()
+    img64 = make_sharded_render_fn(s64, mesh)(p64)
+    c = counts()
+    if c["k1"] or img64.dtype != torch.float64:
+        raise AssertionError(f"the sharded f64 frame ({img64.dtype}) launched K1 {c['k1']} times")
+    gold = OracleRenderer(sc).render()
+    img64 = img64.cpu().numpy()
+    f64_err = float(np.abs(img64 - gold).max())
+    f64_u8 = float((srgb_u8(img64.astype(np.float32)) == srgb_u8(gold.astype(np.float32))).all(-1).mean())
+    f64_ms, f64_all = time_events(lambda i: make_sharded_render_fn(s64, mesh)(p64), 2, 1)
+    log(f"  max |d| {f64_err:.3e}, u8 equal on {f64_u8:.6f} of pixels (phase 17's rule: < 1e-4, > 0.999); "
+        f"{f64_ms:.3f} ms {['%.3f' % t for t in f64_all]}")
+    if not (f64_err < 1e-4 and f64_u8 > 0.999):
+        raise AssertionError(f"the sharded f64 frame against the oracle: max |d| {f64_err:.3e}, u8 {f64_u8:.6f}")
+    out.update(sharded_f64_max_abs_err=f64_err, sharded_f64_u8_equal=f64_u8, sharded_f64_ms=f64_ms)
+
+    # ---- 35. the sharded DoF and GI steps --------------------------------------------------------------
+    log(f"phase 35 sharded steps over {MESH_ENTRIES} entries, every leaf: kernel path vs plain path (phase 8's rule)")
+    tp, ts = pack_scene(flagship_standin(T, gw, gh, dof=True, samples=MC_SMALL_SAMPLES), device=dev)
+    ts = dataclasses.replace(ts, aa_enabled=False)
+    with torch.no_grad():
+        fk = make_sharded_render_fn(ts, mesh)(tp, key)
+        fp = plain_frame(ts, tp, key)
+    out["sharded_dof_step"] = step_phase(f"DoF step {gw}x{gh} {MC_SMALL_SAMPLES} samples", ts, tp, fk, fp)
+    tp, ts = gi_scene(GI_SMALL_PATHS)
+    out["sharded_gi_step"] = step_phase(f"GI step {w}x{h} {GI_SMALL_PATHS} paths", ts, tp, gi_small_frame_k,
+                                        gi_small_frame_p)
+    del fk, fp, dof_small_frame_k, dof_small_frame_p, gi_small_frame_k, gi_small_frame_p
+
+    # ---- 36. pin_mode="node" ---------------------------------------------------------------------------
+    tp, ts = pack_scene(flagship_standin(T, gw, gh), device=dev)
+    ts = dataclasses.replace(ts, aa_enabled=False)
+    target = torch.zeros((gh, gw, 3), dtype=torch.float32, device=dev)
+    log(f"phase 36 the {gw}x{gh} gradient step with pin_mode 'node' (the full re-scan backward) vs 'leaf'")
+    node_call = functools.partial(RG.diff_round0, pin_mode="node")
+    step = {}
+    for mode in ("leaf", "node"):
+        F.diff_round0 = node_call if mode == "node" else RG.diff_round0
+        try:
+            zero_counts()
+            loss, grads, _ = grad_step(lambda p: P.render_frame(p, ts), tp, target)
+            c = counts()
+            ms, all_ms = time_events(lambda i: grad_step(lambda p: P.render_frame(p, ts), jittered(tp, i), target), 3, 1)
+        finally:
+            F.diff_round0 = RG.diff_round0
+        if not c["k1"] or c["k1_resid"] != c["k1"]:
+            raise AssertionError(f"the {mode}-pinned step: launch counts {c}")
+        step[mode] = (loss, grads, ms, all_ms, c)
+        log(f"  {mode}: loss {loss.item():.9g}, {ms:.3f} ms per step {['%.3f' % t for t in all_ms]} on {card}, "
+            f"K1 {c['k1']} (residual form), K2 {c['k2']}")
+    node_err = compare_grads("node vs leaf", step["node"][1], step["leaf"][1])
+    if step["node"][0].item() != step["leaf"][0].item():
+        raise AssertionError("the two pin modes' forward losses differ")
+    out.update(node_step_ms=step["node"][2], leaf_step_ms=step["leaf"][2], node_max_rel_err=node_err,
+               node_counts=step["node"][4])
+    del step
+
+    # ---- 37. two processes on the card -------------------------------------------------------------------
+    log(f"phase 37 run_multiprocess_dryrun: 2 ranks on the one card, one sharded {gw}x{gh} step, against the "
+        f"in-process 2-entry mesh (loss rtol 1e-5, leaves rtol 1e-4 atol 1e-6)")
+    cuda_build.load_all()  # the ranks find every library built
+    t0 = time.perf_counter()
+    mp_loss, mp_grads, backend, mp_counts = mp_dryrun.run_multiprocess_dryrun(2, gw, gh, timeout=600)
+    mp_s = time.perf_counter() - t0
+    packed, static = mp_dryrun._build(gw, gh, dev)
+    ref_loss, ref = make_sharded_value_and_grad(static, make_mesh([dev] * 2))(
+        packed, torch.zeros((gh, gw, 3), device=dev), prng.PRNGKey(0))
+    log(f"  backend {backend}; loss {mp_loss:.9g} (in-process {ref_loss.item():.9g}); the ranks' launches "
+        f"{mp_counts}; {mp_s:.1f} s for both ranks, their start-up included")
+    if backend != "gloo" or not (mp_counts["k1_lin"] and mp_counts["k1_resid"] and mp_counts["k2"]):
+        raise AssertionError(f"the dryrun: backend {backend}, launches {mp_counts}")
+    np.testing.assert_allclose(mp_loss, ref_loss.item(), rtol=1e-5)
+    worst = 0.0
+    for name, a, b in zip(LEAF_NAMES, mp_grads, leaves(ref)):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6, err_msg=name)
+        if b.size and np.abs(b).any():
+            worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    log(f"  every leaf within the rule; largest |a - b| / max|b| {worst:.2e}")
+    out.update(mp_backend=backend, mp_loss=mp_loss, mp_ref_loss=ref_loss.item(), mp_counts=mp_counts, mp_s=mp_s,
+               mp_max_rel_err=worst)
+
+    # ---- 38. the ray counters --------------------------------------------------------------------------------
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT), device=dev)
+    log(f"phase 38 frame_ray_stats of the {WIDTH}x{HEIGHT} AA5 stand-in (one twin pass, the counts x5)")
+    zero_counts()
+    stats = frame_ray_stats(tp, ts)
+    c = counts()
+    if c["k1"] or stats["camera"] != 5 * WIDTH * HEIGHT or not stats["shadow"] or not stats["bounce"]:
+        raise AssertionError(f"frame_ray_stats: {stats}, launches {c}")
+    stats_ms, stats_all = time_events(lambda i: frame_ray_stats(jittered(tp, i), ts), 2, 1)
+    log(f"  {stats}; {stats_ms:.3f} ms per call {['%.3f' % t for t in stats_all]} (the twin); at phase 5's "
+        f"{phase5_frame_ms:.3f} ms per fused frame: {stats['total'] / phase5_frame_ms * 1e3 / 1e6:.1f} M rays/s")
+    out.update(ray_stats=stats, ray_stats_ms=stats_ms)
+
+    log(json.dumps(out, default=str))
+    return [
+        {**kernel_entry(f"round0 ray-input form (K1, one sharded DoF pass of one shard: {C} rays)", K1_SOURCE,
+                        K1_REPLACES, dof_counts["k1_ray"], ray_err, ray_ms, ray_plain_ms, *ray_bound),
+         "queued_ms": ray_q},
+        {**kernel_entry(f"threefry uniform draw, f32 (one shard's {C} lanes of the sharded DoF frame)",
+                        "chess2rt_tpu_torch/csrc/threefry.cu", "none: XLA's threefry2x32 (jax.random.uniform)",
+                        dof_counts["draws"], 0.0, draw_ms, draw_plain_ms, *draw_bound), "queued_ms": draw_q},
     ]
 
 

@@ -7,7 +7,8 @@ CsgDiff nest), with its hit lists in shared and in global memory, K2
 wrong, K3's four stages (round0.cu built with -DC2RT_STAGE=k), the round-0
 gradient through each form, the threefry draw (csrc/threefry.cu) bit for
 bit, and the sharded, chunked, adaptive, DoF, stereo and GI frames and
-the GI gradient step at small sizes.
+the GI gradient step at small sizes; the per-shard sampler's DoF, stereo
+and GI frames, ``pin_mode="node"`` and two ranks sharing the card.
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -680,3 +681,78 @@ def test_texel_hist_on_the_merged_table(cuda):
     for keys, vals, n in seen:
         out, ref = K2.texel_histogram(keys, vals, n), K2.texel_histogram_reference(keys, vals, n)
         assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("mode", ["dof", "stereo", "gi"])
+def test_sharded_mc_frame_matches_plain(cuda, mode, monkeypatch):
+    """The per-shard sampler over 4 mesh entries of the card (parallel/
+    mesh.py): K1's ray-input form (the fused GI tracer for GI) and the
+    threefry draw per shard, against the same sampler on K1's plain version
+    and the plain draw: the frame limits; K1 and the draw launched."""
+    from chess2rt_tpu_torch.ops import gi
+    from chess2rt_tpu_torch.parallel import make_mesh, make_sharded_render_fn
+
+    w, h = 160, 120
+    sc = (gi_standin(T, w, h, paths=2) if mode == "gi"
+          else flagship_standin(T, w, h, dof=mode == "dof", stereo=mode == "stereo", samples=2))
+    tp, ts = pack_scene(sc, device=cuda)
+    ts = dataclasses.replace(ts, gi_point_light_direct=ts.gi_enabled)
+    mesh = make_mesh([cuda] * 4)
+    key = prng.PRNGKey(9)
+    R.launches = prng.launches = gi.bounce_rounds = 0
+    img = make_sharded_render_fn(ts, mesh)(tp, key)
+    assert R.launches > 0 and (prng.launches > 0 or mode == "stereo")
+    monkeypatch.setattr(prng, "uniform", prng.uniform_reference)
+    R.launches = 0
+    ref = make_sharded_render_fn(ts, mesh, trace=R.round0_reference)(tp, key)
+    assert R.launches == 0
+    d = (img - ref).abs().amax(-1).double()
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0.01
+    assert (d > 2e-3).double().mean().item() < 0.01
+    assert d.median().item() < 2e-4
+
+
+def test_node_pin_mode_matches_leaf_mode(cuda):
+    """diff_round0(pin_mode="node") through K1's residual form (the vis rows
+    only) against the leaf mode on the card: the rule of
+    tests/test_pallas_grad.py:203-204 on every leaf."""
+    w, h = 160, 120
+    tp, ts = pack_scene(flagship_standin(T, w, h), device=cuda)
+    lay = R.layout(ts, w, h)
+
+    def grads(mode):
+        xs = [x.detach().clone().requires_grad_(x.is_floating_point()) for x in leaves(tp)]
+        p = from_leaves(xs)
+        o = diff_round0(lay, lay.pack(p, (0.0, 0.0)), p, pin_mode=mode)
+        sum((v ** 2).mean() for k, v in o.items() if k != "win").backward()
+        return [x.grad for x in xs]
+
+    before = R.resid_launches
+    node, leaf = grads("node"), grads("leaf")
+    assert R.resid_launches == before + 2
+    compared = 0
+    for name, a, b in zip(LEAF_NAMES, node, leaf):
+        if b is None or b.numel() == 0:
+            continue
+        scale = b.abs().max().item() + 1e-12
+        assert (a - b).abs().max().item() <= 1e-4 * scale + 1e-4 * scale, name
+        compared += bool(b.abs().max().item() > 0)
+    assert compared >= 4
+
+
+def test_two_ranks_share_the_card(cuda):
+    """run_multiprocess_dryrun with both ranks on the one card (gloo, since
+    NCCL refuses two ranks on one device) against the in-process 2-entry
+    mesh: the loss at rtol 1e-5, the leaves at rtol 1e-4, atol 1e-6."""
+    from chess2rt_tpu_torch import cuda_build
+    from chess2rt_tpu_torch.parallel import make_mesh, make_sharded_value_and_grad, mp_dryrun
+
+    cuda_build.load_all()  # both ranks find the libraries built
+    loss, grads, backend, _ = mp_dryrun.run_multiprocess_dryrun(2, 64, 48, timeout=300)
+    assert backend == "gloo"
+    packed, static = mp_dryrun._build(64, 48, cuda)
+    ref_loss, ref = make_sharded_value_and_grad(static, make_mesh([cuda] * 2))(
+        packed, torch.zeros((48, 64, 3), device=cuda), prng.PRNGKey(0))
+    np.testing.assert_allclose(loss, ref_loss.item(), rtol=1e-5)
+    for name, a, b in zip(LEAF_NAMES, grads, leaves(ref)):
+        np.testing.assert_allclose(a, b.cpu().numpy(), rtol=1e-4, atol=1e-6, err_msg=name)

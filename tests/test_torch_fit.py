@@ -95,7 +95,8 @@ class _Cut(Exception):
 def test_checkpoint_resumes_at_the_same_step(standin, tmp_path):
     """A run of 4 steps checkpointed every 2 and cut during its third step,
     resumed from its step-2 checkpoint, ends where an uninterrupted run
-    ends (parameters, Adam moments and the lr schedule all resume)."""
+    ends (parameters, Adam moments and the lr schedule all resume); the
+    same run over a 2-entry mesh follows it."""
     _, ts, target, wrong = standin
     prob = InverseProblem(static=ts, target=target, train_fields=("mat_color", "light_power"),
                           learning_rate=2e-2, steps=4, update_scales={"light_power": 10.0},
@@ -117,5 +118,10 @@ def test_checkpoint_resumes_at_the_same_step(standin, tmp_path):
     np.testing.assert_allclose(first + rest, losses, rtol=1e-6)
     for name in ("mat_color", "light_power"):
         torch.testing.assert_close(getattr(resumed, name), getattr(whole, name), rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit(wrong, dataclasses.replace(prob, mesh=object()))
+    # over a mesh of two CPU entries (the sharded step): the same trajectory,
+    # the shards' gradients summed in another order
+    from chess2rt_tpu_torch.parallel import make_mesh
+
+    sharded, s_losses = fit(wrong, dataclasses.replace(prob, checkpoint_path=None, mesh=make_mesh(["cpu"] * 2)))
+    np.testing.assert_allclose(s_losses, losses, rtol=1e-5)
+    torch.testing.assert_close(sharded.mat_color, whole.mat_color, rtol=1e-5, atol=1e-6)

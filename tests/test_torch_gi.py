@@ -1,8 +1,8 @@
 """GI frames of the port: the twin (``render/pipeline.trace_path``) against the
 JAX package's XLA GI frame under the same key, the statistical checks of
 tests/test_gi.py against the port's float64 oracle copy (for the twin and
-for the fused GI path), the dispatch order, the command line, and what
-still raises.
+for the fused GI path), the dispatch order, the command line, and the
+environment's GI frames, sharded too.
 
 Scene: ``scenes.gi_standin`` (tests/test_gi.py reads lecture4.sdl, which is
 not in the repository; the stand-in is lecture4 plus the same far bounce
@@ -212,10 +212,9 @@ def test_dispatch_order_dof_gi_stereo():
 
 
 def test_what_gi_still_refuses():
-    """The sharded GI frame (the JAX package's per-shard XLA sampler) raises
-    naming item 11.  The environment miss term (item 10) is ported: the
-    env GI frame renders, on the fused path and in the twin, and the sky
-    lights it."""
+    """Nothing of GI raises any more.  The environment miss term (item 10)
+    is ported: the env GI frame renders, on the fused path and in the twin,
+    and the sky lights it; so does its sharded frame (item 11)."""
     from chess2rt_tpu_torch.parallel import make_mesh, make_sharded_render_fn
 
     sc = _scene(TT)
@@ -229,9 +228,12 @@ def test_what_gi_still_refuses():
     miss = P.trace_path(tp, ts, torch.tensor([[0.0, 10.0, 0.0]] * 4), torch.tensor([[0.0, 1.0, 0.0]] * 4),
                         prng.PRNGKey(0))
     np.testing.assert_allclose(miss.numpy(), 0.5)  # straight up into the grey sky
-    _, ts = _pack(_scene(TT))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_sharded_render_fn(ts, make_mesh(["cpu", "cpu"]))
+    # the sharded env GI frame (item 11) renders too: the fused GI tracer per
+    # shard against the twin's, and the sky lights it
+    sharded = make_sharded_render_fn(ts, make_mesh(["cpu", "cpu"]))(tp, prng.PRNGKey(0)).numpy()
+    twin = make_sharded_render_fn(ts, make_mesh(["cpu", "cpu"]), trace=None)(tp, prng.PRNGKey(0)).numpy()
+    np.testing.assert_allclose(sharded, twin, atol=5e-4)
+    assert sharded.mean() > dark.mean() + 0.05
 
 
 def test_cli_renders_the_gi_scene_file(tmp_path):

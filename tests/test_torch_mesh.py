@@ -89,21 +89,48 @@ def test_shard_sizes_are_the_jax_mesh_layers(shards, size):
 
 
 def test_make_mesh_and_unported_modes():
+    """The mesh constructors, and the modes the per-shard sampler now
+    renders: DoF, stereo, GI and float64 frames (no mode raises), each
+    equal to the sampler's own frame through the twin's tracers, and the
+    2-D mesh's frame equal to the 1-D mesh's bit for bit."""
+    from chess2rt_tpu_torch.models import types as TT
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import prng
+    from chess2rt_tpu_torch.scenes import flagship_standin, gi_standin
+
     mesh = make_mesh(["cpu", "cpu"])
     assert mesh == (torch.device("cpu"),) * 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            M.make_mesh_2d()
     with pytest.raises(ValueError):
         make_mesh([])
-    _, _, tp, ts = packed_pair("standin")
-    for change in ({"gi_enabled": True}, {"dof": True}, {"stereo": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_sharded_render_fn(dataclasses.replace(ts, **change), mesh)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_sharded_value_and_grad(dataclasses.replace(ts, **change), mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_render_fn(ts, mesh)(dataclasses.replace(tp, node_matrix=tp.node_matrix.double()))
+    grid = M.make_mesh_2d(["cpu"] * 8)
+    assert grid.shape == (2, 4) and len(grid.devices) == 2 and len(grid.devices[0]) == 4
+    assert M.make_mesh_2d(["cpu"] * 4).shape == (2, 2) and M.make_mesh_2d(["cpu"] * 2).shape == (1, 2)
+    with pytest.raises(ValueError, match="hosts"):
+        M.make_mesh_2d(["cpu"] * 4, hosts=3)
+    key = prng.PRNGKey(4)
+    cases = [flagship_standin(TT, 12, 7, dof=True, samples=2), flagship_standin(TT, 12, 7, stereo=True),
+             gi_standin(TT, 12, 7, paths=2)]
+    for sc in cases:
+        tp, ts = pack_scene(sc, device="cpu")
+        ts = dataclasses.replace(ts, aa_enabled=False, gi_point_light_direct=ts.gi_enabled)
+        img = make_sharded_render_fn(ts, mesh)(tp, key)
+        twin = make_sharded_render_fn(ts, mesh, trace=None)(tp, key)
+        assert img.shape == (7, 12, 3) and img.mean() > 0.01
+        assert (img - twin).abs().max().item() < 5e-4
+        assert torch.equal(make_sharded_render_fn(ts, M.make_mesh_2d(["cpu"] * 2))(tp, key), img)
+        _, grads = make_sharded_value_and_grad(ts, mesh)(tp, torch.zeros_like(img), key)
+        assert grads.mat_color.abs().max() > 0
+    # float64 goes through the sampler and the twin: the single device's frame
+    tp, ts = pack_scene(flagship_standin(TT, 12, 7), dtype=torch.float64, device="cpu")
+    ts = dataclasses.replace(ts, aa_enabled=False)
+    f64 = make_sharded_render_fn(ts, make_mesh(["cpu"] * 3))(tp)
+    assert f64.dtype == torch.float64
+    assert (f64 - render_frame(tp, ts)).abs().max().item() < 1e-9
 
 
 def test_mask_from_base_pads_with_unflagged_lanes():

@@ -229,8 +229,11 @@ def test_unported_forms_raise_with_their_roadmap_item():
     assert {"t", "nx", "dr", "vis0", "vis1"} <= set(out)
     from chess2rt_tpu_torch.ops.round0_grad import diff_round0
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        diff_round0(lay, prm, tp, pin_mode="node")
+    # both pin modes are ported: node mode's forward is the plain call too
+    node, ref = diff_round0(lay, prm, tp, pin_mode="node"), R.round0(lay, prm)
+    assert set(node) == set(ref) and all(torch.equal(node[k], ref[k]) for k in ref)
+    with pytest.raises(ValueError, match="pin_mode"):
+        diff_round0(lay, prm, tp, pin_mode="tile")
     with pytest.raises(ValueError, match="n_lanes"):
         diff_round0(lay, prm, tp, lin_input=True)
 
@@ -298,10 +301,12 @@ def test_vec_rotations_torch_match_numpy():
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-15)
 
 
-def test_entry_points_default_to_the_card_not_the_cpu(monkeypatch):
-    """pack_scene and from_numpy place the scene on the current CUDA device
-    unless the caller names one, and raise when there is no card: they do
-    not carry on on the CPU."""
+def test_entry_points_default_to_the_card_not_the_cpu(monkeypatch, tmp_path):
+    """pack_scene, from_numpy and the process dryruns (run_multiprocess_
+    dryrun, dryrun_multichip, the rank's command line) run on the current
+    CUDA device unless the caller names another, and raise when there is no
+    card, as does initialize_distributed without local_devices: they do not
+    carry on on the CPU."""
     import inspect
 
     from chess2rt_tpu_torch.models import packed as TP
@@ -322,3 +327,15 @@ def test_entry_points_default_to_the_card_not_the_cpu(monkeypatch):
         pack_scene(scene(TT, "standin"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_numpy(jax_leaves(jp), ts)
+
+    from chess2rt_tpu_torch.parallel import distributed, mp_dryrun
+
+    for fn in (mp_dryrun.run_multiprocess_dryrun, mp_dryrun.dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default is None
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mp_dryrun.worker_main(["--coordinator", "localhost:1", "--num-processes", "1", "--process-id", "0",
+                               "--width", "4", "--height", "2", "--out", str(tmp_path / "rank0.npz")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed._default_local_devices(0)
