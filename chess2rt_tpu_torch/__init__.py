@@ -22,7 +22,13 @@ Layout:
                  GI renderer, the threefry random numbers
     render/      render_frame dispatch: the fused paths (K1; Whitted or
                  GI) or the eager twin of the JAX package's XLA wavefront
-                 and path tracer
+                 and path tracer; the async multi-pass renderer and the
+                 zigzag bucket list
+    gui/         the interactive session (RTDemo's controls), the
+                 progressive terminal / SDL viewers, the GuiDemo toy
+    chess/       the reference's chess data model (copy)
+    demos/       torch twins of the JAX package's inverse-rendering demos
+                 and scaling recipe (python -m chess2rt_tpu_torch.demos.<name>)
     parallel/    pixel slices over a mesh of devices, in one process or
                  across processes (torch.distributed), and the dryruns
     grad/        inverse rendering (fit) and its checkpoints
@@ -32,7 +38,8 @@ Layout:
                  stress scenes, a CSG-free scene, the GI stand-in) and the
                  two stand-ins as SDL
     app.py       the command line: python -m chess2rt_tpu_torch --file
-                 scene.sdl -o out.bmp (on the card; --device cpu elsewhere)
+                 scene.sdl -o out.bmp, or --interactive (on the card;
+                 --device cpu elsewhere)
 """
 
 __version__ = "0.1.0"

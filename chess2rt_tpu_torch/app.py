@@ -23,8 +23,10 @@ with the float64 numpy oracle.  ``--distributed`` first brings up
 ``torch.distributed`` from a launcher's environment (RANK, WORLD_SIZE,
 MASTER_ADDR; parallel/distributed.py; nothing without it), then shards the
 pixels over every device of every process (parallel/mesh.py), and only the
-first process writes the BMP.  The interactive viewer is ROADMAP.md queue 1
-item 12.
+first process writes the BMP.  ``--interactive`` runs the progressive
+viewer instead (gui/viewer.py: a coarse prepass, then the full frame in
+buckets, then WASD/arrow camera drive with ``r`` reload, ``p`` screenshot,
+``q`` quit) on the same device.
 ``--stats`` prints the wall time of each stage: load, device init, pack,
 render (the kernel's nvcc build included on its first use) and write.
 """
@@ -186,7 +188,8 @@ def main(argv=None) -> int:
     ap.add_argument("--debug-pixel", default=None, metavar="X,Y",
                     help="dump a single-pixel trace (click-to-inspect parity) and exit")
     ap.add_argument("--interactive", action="store_true",
-                    help="the progressive viewer (not ported: ROADMAP.md queue 1 item 12)")
+                    help="progressive viewer + WASD camera drive (SDL2 window "
+                         "when pysdl2 is importable, 24-bit ANSI terminal otherwise)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quiet", "-q", action="store_true", help="skip the scene dump")
     ap.add_argument("--stats", action="store_true", help="print per-frame and per-stage timing")
@@ -194,11 +197,6 @@ def main(argv=None) -> int:
                     help="append structured JSON-lines event records (scene "
                          "load, frame timing) to PATH ('-' = stderr)")
     args = ap.parse_args(argv)
-
-    if args.interactive:
-        print("chess2rt_tpu_torch: --interactive (the progressive viewer) is not ported yet "
-              "(ROADMAP.md queue 1 item 12: host apps)", file=sys.stderr)
-        return 2
 
     import torch
 
@@ -241,6 +239,11 @@ def main(argv=None) -> int:
         x, y = (int(v) for v in args.debug_pixel.split(","))
         print(debug_pixel(scene, x, y, args.dtype, device))
         return 0
+
+    if args.interactive:
+        from .gui.viewer import interactive_main
+
+        return interactive_main(path, dtype=_dtype(args.dtype), device=device)
 
     frame_rec = {"scene": path, "backend": args.backend, "dtype": args.dtype, "device": str(device),
                  "width": scene.settings.frameWidth, "height": scene.settings.frameHeight}

@@ -401,7 +401,8 @@ GI_BOX = ((1.5, 1.0, 1.2), (-130.0, 30.0, 250.0))
 GI_CSG = ((150.0, 50.0, 280.0), (0.3, 0.5, 0.8))
 
 
-def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int = 40, env: bool = False):
+def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int = 40, env: bool = False,
+               gi: bool = True):
     """The GI stand-in at ``width`` x ``height``: the reference's lecture4.sdl
     (a checkered Lambert floor, one point light, 640x480; not in the
     repository) plus the far bounce wall of bench.py's ``build_gi`` (a
@@ -412,13 +413,15 @@ def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int
     stand-in's camera.  NEE (the point-light direct term) is the SceneStatic
     knob ``gi_point_light_direct``, not a scene setting: ``build_gi`` turns
     it on after packing, and so do this scene's callers.  ``env``: a 64x64
-    ``sky_cubemap`` environment, the paths' miss term.  ``T`` is a
+    ``sky_cubemap`` environment, the paths' miss term.  ``gi`` False:
+    lecture4.sdl's part alone (the floor and the light), GI off, the scene
+    the inverse-rendering demo adds its ball to.  ``T`` is a
     ``models.types`` module (either package's)."""
     rng = np.random.default_rng(seed)
     sc = T.Scene(name="gi_standin")
     sc.settings.frameWidth, sc.settings.frameHeight = width, height
     sc.settings.AAEnabled = False
-    sc.settings.GIEnabled = True
+    sc.settings.GIEnabled = gi
     sc.settings.pathsPerPixel = paths
     sc.settings.maxTraceDepth = 5
     sc.settings.ambientLightColor = (0.1, 0.1, 0.1)
@@ -444,6 +447,9 @@ def gi_standin(T, width: int = 640, height: int = 480, seed: int = 5, paths: int
     scale, move = GI_BOX
     at, blue = GI_CSG
     node("floor", T.Plane(name="floor", y=0.0), T.Lambert(name="floor", color=(1.0, 1.0, 1.0), texture=checker))
+    if not gi:
+        sc.textures = [checker]
+        return sc
     node("wall", T.Sphere(name="w", center=center, R=r), T.Lambert(name="white", color=white))
     node("box", T.Cube(name="box", center=(0.0, 0.0, 0.0), side=60.0),
          T.Lambert(name="box", color=(1.0, 1.0, 1.0), texture=bmp),

@@ -119,7 +119,8 @@ def test_the_cli_raises_without_a_card(scene_file, tmp_path):
         pytest.skip("a card is present: the CLI renders on it")
     with pytest.raises(RuntimeError, match="--device cpu"):
         app.main(["--file", scene_file, "-o", str(tmp_path / "x.bmp"), "-q"])
-    assert app.main(["--interactive"]) != 0  # the viewer is not ported
+    with pytest.raises(RuntimeError, match="--device cpu"):  # the viewer renders on the card too
+        app.main(["--interactive", "--file", scene_file, "-q"])
 
 
 def test_python_dash_m_entry_point(scene_file, tmp_path):

@@ -756,3 +756,47 @@ def test_two_ranks_share_the_card(cuda):
     np.testing.assert_allclose(loss, ref_loss.item(), rtol=1e-5)
     for name, a, b in zip(LEAF_NAMES, grads, leaves(ref)):
         np.testing.assert_allclose(a, b.cpu().numpy(), rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+def test_session_and_async_render_on_the_card(cuda, tmp_path):
+    """The interactive session and the async renderer default to the card:
+    a preview event launches K1 once per screen tap, the full frame is
+    ``render_frame``'s bit for bit, and the async AA pass equals it."""
+    from chess2rt_tpu_torch.gui import InteractiveSession
+    from chess2rt_tpu_torch.render.async_render import render_scene_async
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+    from chess2rt_tpu_torch.scenes import write_standin_sdl
+
+    s = InteractiveSession(write_standin_sdl(str(tmp_path), 160, 120))
+    assert s.device.type == "cuda"
+    R.launches = R.ray_launches = F.bounce_rounds = 0
+    preview = s.handle_key("w", "shift")
+    assert preview.shape == (120, 160, 3) and np.isfinite(preview).all()
+    assert R.launches - R.ray_launches == 1 and R.ray_launches == F.bounce_rounds
+    full = s.render()
+    packed, static = pack_scene(s.scene)
+    with torch.no_grad():
+        np.testing.assert_array_equal(full, render_frame(packed, static).cpu().numpy())
+    h = render_scene_async(s.scene)
+    np.testing.assert_array_equal(h.result(300), full)
+    assert h.passes_completed == 3 and h.error is None
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("inverse_render", ["--size", "32x24", "--steps", "9"]),
+    ("texture_recovery", ["--size", "64x48", "--steps", "5"]),
+    ("bump_inverse", ["--size", "64x48", "--steps", "5"]),
+    ("gi_inverse", ["--size", "32x24", "--paths", "2", "--steps", "3"]),
+])
+def test_demo_twins_on_the_card(cuda, name, argv, capsys):
+    """Each demo twin on the card at a small size: its loss falls, its
+    finite-difference check (where it has one) holds, and its steps went
+    through K1's residual form."""
+    import importlib
+
+    demo = importlib.import_module(f"chess2rt_tpu_torch.demos.{name}")
+    R.resid_launches = 0
+    out = demo.run(argv)
+    assert out["losses"][-1] < out["losses"][0]
+    assert out.get("fd_ok", True)
+    assert R.resid_launches >= len(out["losses"])
