@@ -85,7 +85,7 @@ def run(argv=None) -> dict:
     ok = losses[-1] < losses[0] * 0.02 and mae_visible < 0.08 and img_mae < 0.01
     print("RECOVERED" if ok else "FAILED")
     return {"ok": ok, "losses": losses, "step_ms": 1e3 * dt / max(len(losses), 1), "mae_visible": mae_visible,
-            "visible_frac": frac, "img_mae": img_mae}
+            "visible_frac": frac, "visible": moved.cpu().numpy(), "img_mae": img_mae}
 
 
 def main(argv=None) -> int:

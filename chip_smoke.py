@@ -56,7 +56,12 @@ read just after:
   viewer, the async renderer, ``python -m chess2rt_tpu_torch --interactive``
   on a pseudo-terminal, the four demo twins (``chess2rt_tpu_torch.demos``:
   K1's residual form, K2 and the draw under ``fit``) and the scaling recipe
-  (K1's lin-input form).
+  (K1's lin-input form);
+* the DoF + cubemap showcase: ``demos.zaphod_skybox`` (the twin of
+  demos/zaphod_skybox.py, BASELINE config #4) and ``render_frame`` on
+  ``scenes.flagship_standin(dof=True, env=True)`` at 1920x1080 AA5 with 25
+  samples: every pass through K1's ray-input form with the merged
+  bitmap+cubemap gather, four threefry draws per pass.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -233,6 +238,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 44. ``demos.pod_scaling`` at 1080p over the card's devices: forward and grad
     rays/s and ms, its JSON artifact's keys; K1's lin-input form at the
     one-shard 1080p tap against its plain version.
+45. the DoF + cubemap frame: the kernel path against the plain path at
+    640x480 AA5 with 4 samples, at full width and with the adaptive taps
+    lane-compacted (and those against the full-width taps), each held to
+    the launch rule (draws 4 per pass, K1's ray-input form once per pass
+    and bounce round); the 1080p AA5 25-sample frame's ms (median of 3
+    after 1 warm-up) beside phases 20 and 27, its peak memory and launch
+    counts; K1's ray-input form on the frame's first pass of DoF rays
+    against its plain version, timed, its miss share and bound; then
+    ``demos.zaphod_skybox`` at 1080p with and without ``--adaptive-aa``:
+    its BMP equal byte for byte to ``srgb_u8`` of ``render_frame`` in this
+    process, its sky row lit, its first and steady frames' ms.
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -933,6 +949,7 @@ def main(argv) -> int:
     kernels += feature_phases(argv, card, dev, kernel_ms)
     kernels += dist_phases(argv, card, dev, kernel_ms)
     kernels += app_phases(argv, card, dev, kernel_ms)
+    kernels += skybox_phases(argv, card, dev)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -2289,6 +2306,7 @@ def feature_phases(argv, card, dev, phase5_frame_ms):
     env_ms, env_all = time_events(lambda k: P.render_frame(jittered(ep, k), es), 5, 2)
     log(f"  env {WIDTH}x{HEIGHT} AA5 frame {env_ms:.3f} ms {['%.3f' % t for t in env_all]} on {card} "
         f"(the flagship frame of phase 5: {phase5_frame_ms:.3f} ms)")
+    MEASURED["env_ms"] = env_ms
     if "--profile" in argv:
         profile_run("env frame", lambda: P.render_frame(jittered(ep, 96), es))
     del img, ep
@@ -3189,6 +3207,165 @@ def app_phases(argv, card, dev, phase5_frame_ms):
         shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps(out, default=str))
     return entries
+
+
+def skybox_phases(argv, card, dev):
+    """Phase 45: the DoF + cubemap frame of demos/zaphod_skybox.py on the
+    stand-in (``flagship_standin(dof=True, env=True)``), through K1's
+    ray-input form and the draw, and the twin ``demos.zaphod_skybox`` end to
+    end.  Returns the kernels-line entry of K1's ray-input form on the
+    frame's first DoF rays."""
+    import shutil
+
+    import torch
+    from chess2rt_tpu_torch.demos import zaphod_skybox
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import flagship as F
+    from chess2rt_tpu_torch.ops import prng
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.ops.camera import begin_frame, screen_rays
+    from chess2rt_tpu_torch.render.pipeline import aa_detect, render_frame
+    from chess2rt_tpu_torch.scenes import flagship_standin
+    from chess2rt_tpu_torch.utils.color import srgb_u8
+
+    busy = torch.ones((8192, 8192), dtype=torch.float32, device=dev)
+    key = prng.PRNGKey(45)
+
+    def plain_renderer(static, w, h):
+        return F.build_flagship_renderer(static, w, h, trace=R.round0_reference, uniform=prng.uniform_reference)
+
+    def mc_counts(label, c, samples):
+        """Every DoF pass through K1's ray-input form, four draws per pass."""
+        taps = 5 * samples
+        log(f"  {label}: K1 launches {c['k1']} (ray-input {c['k1_ray']}, bounce rounds {c['bounce_rounds']}), "
+            f"draws {c['draws']}, twin frames {c['twin_frames']}")
+        if (c["draws"] != 4 * taps or c["k1_ray"] != c["k1"] or c["k1_ray"] != taps + c["bounce_rounds"]
+                or c["k1_resid"] or c["twin_frames"]):
+            raise AssertionError(f"{label}: launch counts {c} for {taps} DoF passes")
+
+    # ---- 45. the DoF + cubemap frame -------------------------------------------------------------
+    w, h = GRAD_SIZE
+    tp, ts = pack_scene(flagship_standin(T, w, h, dof=True, env=True, samples=MC_SMALL_SAMPLES), device=dev)
+    log(f"phase 45 the DoF + cubemap frame (flagship_standin(dof=True, env=True), demos/zaphod_skybox.py): "
+        f"{w}x{h} AA5 {MC_SMALL_SAMPLES} samples, kernel path vs plain path, full width and adaptive")
+    zero_counts()
+    img = render_frame(tp, ts, key)
+    small_counts = counts()
+    mc_counts(f"{w}x{h} frame", small_counts, MC_SMALL_SAMPLES)
+    if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"the DoF + cubemap frame {tuple(img.shape)} is not a finite {h}x{w}x3 image")
+    small_err = compare_frames(f"DoF + cubemap {w}x{h} kernel frame vs plain frame", img,
+                               plain_renderer(ts, w, h)(tp, key))
+    base = render_frame(tp, dataclasses.replace(ts, aa_enabled=False), key)
+    flagged = int(aa_detect(base).sum())
+    cap = F._aa_capacity(flagged)
+    tsa = dataclasses.replace(ts, aa_adaptive=True, aa_capacity=cap)
+    zero_counts()
+    img_a = render_frame(tp, tsa, key)
+    adaptive_counts = counts()
+    log(f"  adaptive: {flagged} pixels flagged ({flagged / (w * h):.2%}), the 4 taps lane-compacted to {cap} lanes")
+    mc_counts(f"adaptive {w}x{h} frame", adaptive_counts, MC_SMALL_SAMPLES)
+    adaptive_err = compare_frames(f"adaptive DoF + cubemap {w}x{h} kernel frame vs plain frame", img_a,
+                                  plain_renderer(tsa, w, h)(tp, key))
+    compare_frames("adaptive (compacted taps) vs full-width taps", img_a, torch.where(
+        aa_detect(base)[..., None], img, base))
+    del img, img_a, base
+
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT, dof=True, env=True, samples=MC_SAMPLES), device=dev)
+    log(f"  DoF + cubemap {WIDTH}x{HEIGHT} AA5, {MC_SAMPLES} samples")
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    img = render_frame(tp, ts, key)
+    c = counts()
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    mc_counts(f"{WIDTH}x{HEIGHT} frame", c, MC_SAMPLES)
+    log(f"  peak device memory above the scene {peak:.3f} GiB")
+    if not bool(torch.isfinite(img).all()) or (img.amax(-1) > 0).double().mean().item() <= 0.9:
+        raise AssertionError("the 1080p DoF + cubemap frame is not finite or not lit")
+    ms, all_ms = time_events(lambda i: render_frame(jittered(tp, i), ts, prng.fold_in(key, i)), 3, 1)
+    dof_ms, env_ms = MEASURED.get("dof_ms"), MEASURED.get("env_ms")
+    log(f"  DoF + cubemap frame {ms:.3f} ms {['%.3f' % t for t in all_ms]} on {card}; beside the DoF frame of "
+        f"phase 20 ({dof_ms:.3f} ms, {ms / dof_ms:.2f}x) and the env frame of phase 27 ({env_ms:.3f} ms)")
+    if "--profile" in argv:
+        profile_run("DoF + cubemap frame", lambda: render_frame(jittered(tp, 94), ts, key))
+    del img
+
+    # K1's ray-input form on the frame's first DoF rays (its first pass)
+    frame = begin_frame(tp.camera, WIDTH / HEIGHT)
+    lin = torch.arange(MC_LANES, device=dev)
+    _, k0 = prng.split(key)
+    _, kj, kj2, kr = prng.split(k0, 4)
+    k1, k2 = prng.split(kr)
+    draw = lambda k: prng.uniform(k, (MC_LANES,), device=dev)  # noqa: E731
+    o3, d3 = screen_rays(tp.camera, frame, float(WIDTH), float(HEIGHT), (lin % WIDTH).float() + draw(kj),
+                         (lin // WIDTH).float() + draw(kj2), 0.0, dof=True, disc_uv=(draw(k1), draw(k2)))
+    o3, d3 = o3.contiguous(), d3.contiguous()
+    lay = R.layout(ts, WIDTH, HEIGHT)
+    prm0 = lay.pack(tp)
+    out_k = R.round0(lay, prm0, o3, d3)
+    miss = (out_k["win"] < 0).double().mean().item()
+    k1_err = compare_round0(f"ray-input on the frame's first {MC_LANES} DoF rays", out_k,
+                            R.round0_reference(lay, prm0, o3, d3), lay.names)
+    del out_k
+    k1_b = k1_bound(lay, MC_LANES, lit_shares(R.round0(lay, prm0, o3, d3, want_vis=True), ts.n_lights),
+                    ray_input=True)
+    k1_ms, _ = time_events(lambda i: R.round0(lay, prm0, o3, d3), 20, 3)
+    k1_q = queued_ms(lambda: R.round0(lay, prm0, o3, d3), 20, busy)
+    k1_plain_ms, _ = time_events(lambda i: R.round0_reference(lay, prm0, o3, d3), 3, 1)
+    log(f"  the first pass's rays that miss every node {miss:.4f}; K1 ray-input on them: {k1_ms:.4f} ms per call, "
+        f"{k1_q:.4f} ms queued, plain {k1_plain_ms:.3f} ms, bound {k1_b[0]:.4f} ms ({k1_b[1]}; bytes "
+        f"{k1_b[2]:.4f}, operations {k1_b[3]:.4f})")
+    if miss < 0.05:
+        raise AssertionError(f"only {miss:.2%} of the DoF + cubemap rays miss")
+    del o3, d3, lin
+
+    # the twin end to end, with and without --adaptive-aa
+    tmp = tempfile.mkdtemp(prefix="c2rt_skybox_")
+    twin = {}
+    try:
+        for adaptive in (False, True):
+            label = "--adaptive-aa" if adaptive else "default"
+            path = os.path.join(tmp, f"sky_{adaptive}.bmp")
+            zero_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                r = zaphod_skybox.run(["--size", f"{WIDTH}x{HEIGHT}", "-o", path]
+                                      + (["--adaptive-aa"] if adaptive else []))
+            wall = time.perf_counter() - t
+            tc = counts()
+            packed, static = zaphod_skybox.build(WIDTH, HEIGHT, adaptive_aa=adaptive, device=dev)
+            want = srgb_u8(render_frame(packed, static, prng.PRNGKey(0)).float().cpu().numpy())
+            compare_u8(f"zaphod_skybox {label}: its BMP vs srgb_u8 of render_frame in this process", bmp_u8(path),
+                       want)
+            tflagged = None
+            if adaptive:
+                tflagged = int(aa_detect(render_frame(packed, dataclasses.replace(static, aa_enabled=False),
+                                                      prng.PRNGKey(0))).sum())
+            for line in printed.getvalue().strip().splitlines():
+                log(f"    {line}")
+            log(f"  zaphod_skybox {label}: first frame {r['first_ms']:.1f} ms (kernels built earlier), steady "
+                f"{r['steady_ms']:.1f} ms, {wall:.1f} s in all on {card}; launches {tc}"
+                + (f"; {tflagged} pixels flagged against the default capacity "
+                   f"{F._aa_capacity(-(-MC_LANES // 32))} lanes" if adaptive else ""))
+            if not (r["sky"].min() > 0.05) or not tc["k1_ray"] or not tc["draws"] or tc["twin_frames"]:
+                raise AssertionError(f"zaphod_skybox {label}: sky row {r['sky']}, launches {tc}")
+            twin[label] = {"first_ms": r["first_ms"], "steady_ms": r["steady_ms"], "wall_s": wall,
+                           "sky": r["sky"].tolist(), "counts": tc, "flagged": tflagged}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    log(json.dumps({
+        "skybox_small_counts": small_counts, "skybox_small_max_abs_err": small_err,
+        "skybox_adaptive_counts": adaptive_counts, "skybox_adaptive_max_abs_err": adaptive_err,
+        "skybox_adaptive_flagged": flagged, "skybox_frame_ms": ms, "skybox_frame_all_ms": all_ms,
+        "skybox_counts": c, "skybox_peak_gib": peak, "skybox_miss_share": miss, "skybox_twin": twin,
+    }))
+    return [{**kernel_entry(f"round0 ray-input form (K1, the DoF + cubemap frame's first pass of {MC_LANES} rays)",
+                            K1_SOURCE, K1_REPLACES, c["k1_ray"], k1_err, k1_ms, k1_plain_ms, *k1_b),
+             "queued_ms": k1_q}]
 
 
 if __name__ == "__main__":

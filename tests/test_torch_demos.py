@@ -14,7 +14,14 @@ on the CPU at tiny sizes:
   losses (rtol 2e-2) and recovery errors, so the same verdict;
 * ``pod_scaling`` at 32x24 over two mesh entries of the CPU writes the
   JAX artifact's keys (SCALING_cpu.json);
+* ``zaphod_skybox`` at 32x24 with 1 DoF sample writes the BMP of
+  ``render_frame`` in this process under ``PRNGKey(0)`` byte for byte, its
+  sky row lit, and its ``--xla`` frame (the eager twin) meets the frame
+  limits against the fused one, AA quirk and adaptive;
 * without a card and without ``--device``, every twin raises.
+
+tests/test_torch_demo_fits.py and tests/test_torch_gi_inverse.py hold the
+other fitting twins to the JAX demos' loops.
 """
 
 import dataclasses
@@ -30,10 +37,16 @@ import torch
 from chess2rt_tpu.models import types as JT
 from chess2rt_tpu.models.packed import pack_scene as jax_pack_scene
 from chess2rt_tpu.render.pipeline import render_frame as jax_render_frame
-from chess2rt_tpu_torch.demos import bump_inverse, gi_inverse, inverse_render, pod_scaling, texture_recovery
+from chess2rt_tpu_torch.demos import (bump_inverse, gi_inverse, inverse_render, pod_scaling, texture_recovery,
+                                      zaphod_skybox)
+from chess2rt_tpu_torch.imageio.bmp import load_bmp_file
 from chess2rt_tpu_torch.models import types as TT
 from chess2rt_tpu_torch.models.packed import pack_scene
+from chess2rt_tpu_torch.ops import prng
 from chess2rt_tpu_torch.render.pipeline import render_frame
+from chess2rt_tpu_torch.utils.color import srgb_u8
+
+from torch_port_cases import assert_frame_close
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,9 +164,35 @@ def test_pod_scaling_writes_the_jax_artifact_keys(tmp_path, capsys):
     assert got["platform"] == "cpu" and "2 mesh entries over 1 distinct device" in got["note"]
 
 
-@pytest.mark.parametrize("demo", [inverse_render, texture_recovery, bump_inverse, gi_inverse, pod_scaling])
+def _bmp_u8(path):
+    p = load_bmp_file(path).pixels_u32
+    return np.stack([(p >> 16) & 0xFF, (p >> 8) & 0xFF, p & 0xFF], axis=-1).astype(np.uint8)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_zaphod_skybox_writes_the_frame(adaptive, tmp_path, capsys):
+    """The twin of demos/zaphod_skybox.py: the BMP is srgb_u8 of the frame
+    render_frame gives in this process, the sky row is lit (the demo's
+    assertion), and the --xla frame meets the frame limits against it."""
+    flags = ["--device", "cpu", "--size", "32x24", "--samples", "1"] + (["--adaptive-aa"] if adaptive else [])
+    out = zaphod_skybox.run([*flags, "-o", str(tmp_path / "sky.bmp")])
+    packed, static = zaphod_skybox.build(32, 24, 1, adaptive, "cpu")
+    assert static.dof and static.has_env and static.dof_samples == 1 and static.aa_adaptive == adaptive
+    with torch.no_grad():
+        frame = render_frame(packed, static, prng.PRNGKey(0)).numpy()
+    np.testing.assert_array_equal(out["frame"], frame)
+    np.testing.assert_array_equal(_bmp_u8(out["output"]), srgb_u8(frame))
+    assert out["sky"].min() > 0.05 and out["first_ms"] > 0 and out["steady_ms"] > 0
+    printed = capsys.readouterr().out
+    assert "steady-state frame" in printed and "sky row mean RGB" in printed
+    xla = zaphod_skybox.run([*flags, "--xla", "-o", str(tmp_path / "sky_xla.bmp")])
+    assert_frame_close(xla["frame"], frame)
+
+
+@pytest.mark.parametrize("demo", [inverse_render, texture_recovery, bump_inverse, gi_inverse, pod_scaling,
+                                  zaphod_skybox])
 def test_twins_raise_without_a_card(demo):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        demo.run(["--size", "16x12", "--steps", "1"] if demo is not pod_scaling else ["--size", "16x12"])
+        demo.run(["--size", "16x12"] + ([] if demo in (pod_scaling, zaphod_skybox) else ["--steps", "1"]))

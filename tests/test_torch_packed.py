@@ -182,6 +182,8 @@ def test_port_never_imports_jax():
         "import chess2rt_tpu_torch.imageio.buffer, chess2rt_tpu_torch.imageio.image\n"
         "import chess2rt_tpu_torch.utils.structlog, chess2rt_tpu_torch.render\n"
         "import chess2rt_tpu_torch.parallel, chess2rt_tpu_torch.grad\n"
+        "import chess2rt_tpu_torch.demos.zaphod_skybox, chess2rt_tpu_torch.demos.gi_inverse\n"
+        "import chess2rt_tpu_torch.demos.texture_recovery, chess2rt_tpu_torch.demos.bump_inverse\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'chess2rt_tpu.')))\n"
         "assert not bad, bad\n"
         "assert 'chess2rt_tpu' not in sys.modules\n"

@@ -11,6 +11,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib.util
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -448,3 +451,61 @@ def check_frame_grads(aa_enabled, monkeypatch):
         assert np.isfinite(have[k]).all(), k
         assert np.abs(have[k]).any() == np.abs(want[k]).any(), k
     compare_grads(have, want, [k for k in scene if k not in HORIZON_LEAVES], rtol=5e-3, skip_zero=True)
+
+
+# --- the demo twins' fits against the JAX demos' loops ---
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_jax_demo(name):
+    """demos/<name>.py of the JAX package as a module (demos/ is not a
+    package)."""
+    spec = importlib.util.spec_from_file_location(f"jax_demo_{name}", os.path.join(ROOT, "demos", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_value_and_grad(js):
+    """jit(value_and_grad) of the demos' pixel L2 through JAX's
+    ``render_frame``, the frame as aux: vg(p, target, key) -> ((loss,
+    frame), grads).  One compile gives a demo's target (a zero target's
+    aux), its first step and its finite differences."""
+    from chess2rt_tpu.render.pipeline import render_frame
+
+    def loss(p, target, key):
+        img = render_frame(p, js, key)
+        return ((img - target) ** 2).mean(), img
+
+    return jax.jit(jax.value_and_grad(loss, has_aux=True))
+
+
+def port_step(tp, ts, target, fields, key):
+    """The port's pixel L2 and its gradients in the trained ``fields`` at
+    ``tp``: (loss, {field: numpy gradient})."""
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+
+    xs = {f: getattr(tp, f).detach().clone().requires_grad_() for f in fields}
+    loss = ((render_frame(dataclasses.replace(tp, **xs), ts, key) - target) ** 2).mean()
+    loss.backward()
+    return loss.item(), {f: x.grad.numpy() for f, x in xs.items()}
+
+
+def assert_step_rule(got_loss, got, want_loss, want):
+    """PERF.md section 2's step rule (tests/test_pallas_grad.py:51-66): the
+    loss within 1e-3 relative, every trained leaf within 2e-6 plus 5e-3 of
+    its largest element plus 5e-3 relative."""
+    assert abs(got_loss - want_loss) <= 1e-3 * abs(want_loss), (got_loss, want_loss)
+    for f, w in want.items():
+        assert np.abs(w).any(), f
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(got[f], w, rtol=5e-3, atol=2e-6 + 5e-3 * scale, err_msg=f)
+
+
+def fd_printed(text, what):
+    """(autodiff, central difference) of a demo's printed ``FD check
+    (what): autodiff A vs central-diff B`` line."""
+    m = re.search(rf"FD check \({re.escape(what)}\): autodiff (\S+) vs central-diff (\S+)", text)
+    assert m, text[-2000:]
+    return float(m.group(1)), float(m.group(2))
