@@ -61,7 +61,12 @@ read just after:
   demos/zaphod_skybox.py, BASELINE config #4) and ``render_frame`` on
   ``scenes.flagship_standin(dof=True, env=True)`` at 1920x1080 AA5 with 25
   samples: every pass through K1's ray-input form with the merged
-  bitmap+cubemap gather, four threefry draws per pass.
+  bitmap+cubemap gather, four threefry draws per pass;
+* the bench twin, ``python -m chess2rt_tpu_torch.bench`` (the root
+  bench.py's six modes): the 1080p frame (K1's screen-tap and ray-input
+  forms), the sharded frame (the lin-input form), the 640x480 gradient
+  step (the residual form, K2), the GI step (the residual form, K2, the
+  draw), the card's gate ``--check`` and the ray-count extrapolation.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -249,6 +254,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``demos.zaphod_skybox`` at 1080p with and without ``--adaptive-aa``:
     its BMP equal byte for byte to ``srgb_u8`` of ``render_frame`` in this
     process, its sky row lit, its first and steady frames' ms.
+46. the bench twin's modes in this process at bench.py's defaults (``--grad
+    --gi`` at 640x480, 40 paths, one step per call): each prints its one
+    JSON line, logged with its comment line (the card, the best, median
+    and every call's ms, the warm call) and its launch counts; each mode's
+    path shows its kernels (main: K1's screen-tap and ray-input forms and
+    no twin frame; ``--sharded``: the lin-input form; the steps: the
+    residual form and K2; every timed mode: the jitter's draws), and
+    ``--check`` is ok; then ``python -m chess2rt_tpu_torch.bench`` in a
+    fresh process, its last line parsed.
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -950,6 +964,7 @@ def main(argv) -> int:
     kernels += dist_phases(argv, card, dev, kernel_ms)
     kernels += app_phases(argv, card, dev, kernel_ms)
     kernels += skybox_phases(argv, card, dev)
+    bench_phases(argv, card, dev)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -3366,6 +3381,71 @@ def skybox_phases(argv, card, dev):
     return [{**kernel_entry(f"round0 ray-input form (K1, the DoF + cubemap frame's first pass of {MC_LANES} rays)",
                             K1_SOURCE, K1_REPLACES, c["k1_ray"], k1_err, k1_ms, k1_plain_ms, *k1_b),
              "queued_ms": k1_q}]
+
+
+# phase 46: the bench twin's modes (the command line's flags, the function,
+# its arguments) and the launch counters each path must show (zero_counts'
+# names); --grad --gi takes one step per call
+BENCH_MODES = (
+    ("main", "main", (), ("k1", "k1_ray", "draws")),
+    ("--sharded", "main_sharded", (), ("k1_lin", "draws")),
+    ("--grad", "main_grad", (), ("k1_resid", "k2", "draws")),
+    ("--grad --gi", "main_grad_gi", (GI_SIZE[0], GI_SIZE[1], 1, GI_PATHS), ("k1_resid", "k2", "draws")),
+    ("--check", "main_check", (), ("k1", "k1_ray", "k1_resid", "k2", "twin_frames")),
+    ("--verify-counts", "main_verify_counts", (), ()),
+)
+
+
+def bench_phases(argv, card, dev):
+    """Phase 46: the six modes of ``python -m chess2rt_tpu_torch.bench`` (the
+    twin of the root bench.py) in this process at bench.py's defaults, each
+    with the launch counters zeroed just before it and read just after,
+    then the command in a fresh process."""
+    from chess2rt_tpu_torch import bench
+
+    log(f"phase 46 the bench twin's modes in this process ({', '.join(m[0] for m in BENCH_MODES)}; --grad --gi "
+        f"at {GI_SIZE[0]}x{GI_SIZE[1]}, {GI_PATHS} paths, one step per call), then python -m "
+        f"chess2rt_tpu_torch.bench in a fresh process")
+    results = {}
+    for mode, name, args, needs in BENCH_MODES:
+        zero_counts()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            r = getattr(bench, name)(*args, device=dev)
+        wall = time.perf_counter() - t0
+        c = counts()
+        printed = out.getvalue().strip().splitlines()
+        log(f"  {mode}: {printed[-1] if printed else '(nothing printed)'}")
+        for text in err.getvalue().strip().splitlines():
+            log(f"    {text}")
+        log(f"    launches {c}; {wall:.1f} s in all")
+        if len(printed) != 1 or json.loads(printed[0]) != r["line"]:
+            raise AssertionError(f"bench {mode} printed {printed}, not its one JSON line")
+        value = r["line"]["value"]
+        if not (isinstance(value, float) and np.isfinite(value) and value >= 0):
+            raise AssertionError(f"bench {mode}: value {value}")
+        missing = [k for k in needs if not c[k]]
+        if missing:
+            raise AssertionError(f"bench {mode}: its path launched none of {missing} ({c})")
+        results[mode] = {**r, "counts": c, "wall_s": wall}
+    if not results["--check"]["line"]["ok"]:
+        raise AssertionError(f"bench --check failed on the card: {results['--check']['line']}")
+    c = results["main"]["counts"]
+    if c["twin_frames"] or c["k1_resid"] or c["k1"] <= c["k1_ray"]:
+        raise AssertionError(f"bench main: launches {c}: a twin frame, a residual form or no screen tap")
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "chess2rt_tpu_torch.bench"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"python -m chess2rt_tpu_torch.bench exited {res.returncode}:\n{res.stderr[-4000:]}")
+    fresh = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"  fresh process: {json.dumps(fresh)}; {wall:.1f} s in all; {res.stderr.strip().splitlines()[-1]}")
+    if fresh["metric"] != "rays_per_sec_chip" or not fresh["value"] > 0:
+        raise AssertionError(f"python -m chess2rt_tpu_torch.bench printed {fresh}")
+    log(json.dumps({"bench": results, "bench_fresh": fresh, "bench_fresh_wall_s": wall}))
 
 
 if __name__ == "__main__":

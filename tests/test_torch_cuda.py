@@ -8,7 +8,8 @@ wrong, K3's four stages (round0.cu built with -DC2RT_STAGE=k), the round-0
 gradient through each form, the threefry draw (csrc/threefry.cu) bit for
 bit, and the sharded, chunked, adaptive, DoF, stereo and GI frames and
 the GI gradient step at small sizes; the per-shard sampler's DoF, stereo
-and GI frames, ``pin_mode="node"`` and two ranks sharing the card.
+and GI frames, ``pin_mode="node"``, two ranks sharing the card, and the
+bench twin's gate (``python -m chess2rt_tpu_torch.bench --check``).
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -23,6 +24,7 @@ absolute difference, relative to |plain| where |plain| > 1.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -800,3 +802,35 @@ def test_demo_twins_on_the_card(cuda, name, argv, capsys):
     assert out["losses"][-1] < out["losses"][0]
     assert out.get("fd_ok", True)
     assert R.resid_launches >= len(out["losses"])
+
+
+def test_bench_check_on_the_card(cuda, capsys):
+    """The bench twin's gate (``python -m chess2rt_tpu_torch.bench --check``)
+    at its defaults on the card: ok, through K1 and K2."""
+    from chess2rt_tpu_torch import bench
+
+    R.launches = R.resid_launches = K2.launches = 0
+    r = bench.main_check()
+    assert r["line"]["ok"] and r["line"]["kernels_launched"] is True, r["line"]
+    assert R.launches and R.resid_launches and K2.launches
+    assert capsys.readouterr().out.strip().splitlines()[-1] == json.dumps(r["line"])
+
+
+def test_bench_gate_fails_without_its_kernels(cuda, monkeypatch, capsys):
+    """With the bench twin's kernel path swapped for the twin (no K1), the
+    gate reports ``kernels_launched`` false and fails, and ``main`` and
+    ``main_sharded`` raise."""
+    from chess2rt_tpu_torch import bench
+    from chess2rt_tpu_torch import parallel
+    from chess2rt_tpu_torch.render.pipeline import render_frame_wavefront
+
+    monkeypatch.setattr(bench, "render_frame", render_frame_wavefront)
+    line = bench.main_check(96, 54)["line"]
+    assert line["kernels_launched"] is False and line["ok"] is False, line
+    with pytest.raises(AssertionError, match="launched K1 0 times"):
+        bench.main(96, 54)
+    monkeypatch.setattr(parallel, "make_sharded_render_fn",
+                        lambda static, m: lambda p, k: render_frame_wavefront(p, static, k))
+    with pytest.raises(AssertionError, match="launched K1 0 times"):
+        bench.main_sharded(96, 54)
+    capsys.readouterr()

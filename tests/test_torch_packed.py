@@ -184,6 +184,7 @@ def test_port_never_imports_jax():
         "import chess2rt_tpu_torch.parallel, chess2rt_tpu_torch.grad\n"
         "import chess2rt_tpu_torch.demos.zaphod_skybox, chess2rt_tpu_torch.demos.gi_inverse\n"
         "import chess2rt_tpu_torch.demos.texture_recovery, chess2rt_tpu_torch.demos.bump_inverse\n"
+        "import chess2rt_tpu_torch.bench, chess2rt_tpu_torch.entry, chess2rt_tpu_torch.utils.diagnostics\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'chess2rt_tpu.')))\n"
         "assert not bad, bad\n"
         "assert 'chess2rt_tpu' not in sys.modules\n"
@@ -304,11 +305,12 @@ def test_vec_rotations_torch_match_numpy():
 
 
 def test_entry_points_default_to_the_card_not_the_cpu(monkeypatch, tmp_path):
-    """pack_scene, from_numpy and the process dryruns (run_multiprocess_
-    dryrun, dryrun_multichip, the rank's command line) run on the current
-    CUDA device unless the caller names another, and raise when there is no
-    card, as does initialize_distributed without local_devices: they do not
-    carry on on the CPU."""
+    """pack_scene, from_numpy, the process dryruns (run_multiprocess_
+    dryrun, dryrun_multichip, the rank's command line), the bench twin's
+    modes and ``python -m chess2rt_tpu_torch.bench``, and ``entry.entry``
+    run on the current CUDA device unless the caller names another, and
+    raise when there is no card, as does initialize_distributed without
+    local_devices: they do not carry on on the CPU."""
     import inspect
 
     from chess2rt_tpu_torch.models import packed as TP
@@ -341,3 +343,20 @@ def test_entry_points_default_to_the_card_not_the_cpu(monkeypatch, tmp_path):
                                "--width", "4", "--height", "2", "--out", str(tmp_path / "rank0.npz")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distributed._default_local_devices(0)
+
+    import runpy
+
+    from chess2rt_tpu_torch import bench, entry
+
+    for fn in (bench.main, bench.main_grad, bench.main_grad_gi, bench.main_sharded, bench.main_check,
+               bench.main_verify_counts, entry.entry):
+        assert inspect.signature(fn).parameters["device"].default is None
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    packed = []  # the command line's fresh module imports this spy: it packs nothing
+    monkeypatch.setattr(TP, "pack_scene", lambda *a, **k: packed.append(k.get("device")))
+    monkeypatch.setattr(sys, "argv", ["chess2rt_tpu_torch.bench"])
+    monkeypatch.delitem(sys.modules, "chess2rt_tpu_torch.bench")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runpy.run_module("chess2rt_tpu_torch.bench", run_name="__main__")
+    assert not packed
