@@ -57,6 +57,7 @@ _EXPORTS = {
     ),
     "threefry": (
         ("c2rt_uniform", [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _vp, _ci, _vp], _ci),
+        ("c2rt_uniform_keys", [_vp, _ci, ctypes.c_longlong, _vp, _ci, _vp], _ci),
         ("c2rt_error_string", [_ci], ctypes.c_char_p),
     ),
 }

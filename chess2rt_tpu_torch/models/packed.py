@@ -144,9 +144,12 @@ class NodeStatic:
 class SceneStatic:
     """Hashable structure + engine knobs (global_settings.d:5-78).  The
     field set is the JAX package's, so a static from either package
-    describes the same scene; knobs that only steer JAX/TPU machinery
-    (``use_pallas``, ``interpret_pallas``, ``texel_grad_mode``, ...) are
-    carried and ignored here."""
+    describes the same scene.  The engine's modes are honoured where the
+    JAX package honours them: ``gi_path_batch`` (ops/gi.py),
+    ``bounce_mode``, ``texel_tap_reuse`` and ``texel_reuse_capacity``
+    (ops/flagship.py), ``texel_grad_mode`` (ops/shade.py).  The two knobs
+    that only steer JAX/TPU machinery, ``use_pallas`` and
+    ``interpret_pallas``, are carried and ignored here."""
 
     nodes: Tuple[NodeStatic, ...]
     n_lights: int

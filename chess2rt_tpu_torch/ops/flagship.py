@@ -10,6 +10,23 @@ Monte-Carlo (depth of field, stereo):
                        rounds: round0 (ray-input) on a block-compacted
                        buffer, full width when it overflows
 
+The engine's modes (``SceneStatic``), honoured where the JAX package honours
+them:
+
+* ``bounce_mode``: ``"block"`` (the default: whole 128-lane blocks with a
+  live lane compacted, ``bounce_block_capacity``), ``"full"`` (every round
+  at full width) or any other value, the lane-granular compaction
+  (``"compact"``: the live lanes compacted into ``bounce_capacity`` lanes
+  rounded up to whole tiles, one merged row gather, full width on overflow,
+  counted by ``compact_overflows``); without a capacity below the width it
+  runs full width;
+* ``texel_tap_reuse``: AA taps 1-4 of a quirk-AA frame reuse the base tap's
+  gathered texel quads and re-gather only the lanes whose texel key changed
+  (``texel_reuse_capacity`` of them, else the full gather), bit-identical to
+  the plain gather, in the un-chunked frame and per slice of the rows
+  renderer;
+* ``texel_grad_mode``: passed to every texel gather (ops/shade.py).
+
 * ``build_flagship_renderer``: the whole frame on one device, un-chunked or
   in ``chunk_pixels`` slabs (rays from ``screen_rays`` into the ray-input
   form at slab width, so peak memory follows the slab), with quirk AA (5
@@ -60,9 +77,45 @@ from .round0_grad import _gen_rays_lin, diff_round0
 
 # bounce rounds run (each is one round-0 call); callers zero and read it
 bounce_rounds = 0
+# lane-compacted bounce passes whose live lanes overflowed the capacity (run
+# at full width, JAX's lax.cond branch)
+compact_overflows = 0
+# AA taps that reused the base tap's texel quads, the lanes they re-gathered
+# and those that overflowed the reuse capacity (a full gather)
+reuse_taps = reuse_changed = reuse_overflows = 0
 
 
-def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=None):
+def _reused_quads(static: SceneStatic, quads, key, texel_reuse):
+    """This tap's gathered quads from the base tap's ``texel_reuse = (key0,
+    g0)``: g0 where the texel key is unchanged, and the changed lanes
+    re-gathered lane-compacted (``texel_reuse_capacity`` or n / 8 lanes, one
+    [cap, 12] row gather, set into g0's rows); a full gather when more lanes
+    changed (decided on the host).  The same keys give the same rows, so the
+    result is the plain gather's bit for bit; unchanged lanes route their
+    cotangent into the base tap's gather."""
+    global reuse_taps, reuse_changed, reuse_overflows
+    from ..render.pipeline import compact_indices
+
+    key0, g0 = texel_reuse
+    n = key.shape[0]
+    cap = min(static.texel_reuse_capacity or -(-n // 8), n)
+    changed = key != key0
+    count = int(changed.sum())  # host sync: JAX's lax.cond predicate
+    reuse_taps += 1
+    reuse_changed += count
+    if count > cap:
+        reuse_overflows += 1
+        return S.quad_gather_flat(quads, key, static.texel_grad_mode)
+    if count == 0:
+        return g0
+    sel = compact_indices(changed, n, cap).long()
+    rows = S.quad_gather_flat(quads, key[sel.clamp_max(n - 1)], static.texel_grad_mode)
+    # out of place: the graph holds g0 for the taps to come
+    return g0.index_put((sel[:count],), rows[:count])
+
+
+def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=None, texel_plan=False,
+                    texel_reuse=None):
     """Kernel outputs -> (direct color incl. deferred bitmap texels and the
     environment, continuation mask, attenuation factor, refl orig, refl
     dir).  ``dirs_or_none``: the rays' directions, for the cubemap sample of
@@ -72,7 +125,11 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
     With both bitmaps and a cubemap the two gathers merge into one: the
     bitmap quad table and the cubemap's concatenated, one key per lane (a
     hit's texel, or a miss's cubemap texel past the bitmap rows), one
-    ``quad_gather_flat``, so one texel VJP (K2) covers both tables."""
+    ``quad_gather_flat``, so one texel VJP (K2) covers both tables.
+
+    ``texel_plan=True`` appends this tap's plan, (texel keys, gathered
+    [n, 12] quads), to the tuple (None without bitmaps); ``texel_reuse``
+    takes a base tap's plan and gathers through ``_reused_quads``."""
     has_bitmap = TEX_BITMAP in static.tex_kinds_present
     has_refl = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
     use_env = static.has_env and dirs_or_none is not None
@@ -80,6 +137,13 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
     color = torch.stack([o["r"], o["g"], o["b"]], dim=-1)
     winc = torch.clamp_min(win, 0)
     onehot = S.node_onehot(static, winc) if (has_bitmap or has_refl) else None
+    plan = None
+
+    def gather(quads, key):
+        if texel_reuse is not None:
+            return _reused_quads(static, quads, key, texel_reuse)
+        return S.quad_gather_flat(quads, key, static.texel_grad_mode)
+
     if has_bitmap and use_env:
         quads_t, key_t, p_t, q_t = S.bitmap_plan(packed, static, winc, o["u"], o["v"], onehot)
         quads_e = cubemap_quads(packed.env_cubemap)
@@ -87,14 +151,18 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
         miss = win < 0
         missc = miss[..., None]
         key = torch.where(miss, quads_t.shape[0] + key_e, key_t)
-        g = S.quad_gather_flat(torch.cat([quads_t, quads_e]), key)
+        g = gather(torch.cat([quads_t, quads_e]), key)
+        plan = (key, g)
         out3 = S.bilerp_quad(g, torch.where(missc, p_e, p_t), torch.where(missc, q_e, q_t))
         L = torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1)
         is_bmp = (S.tex_kind_of(static, winc) == TEX_BITMAP) & (win >= 0)
         w3 = torch.where(is_bmp[..., None], L, 0.0) + torch.where(missc, 1.0, 0.0)
         color = color + out3 * w3
-    elif has_bitmap:
-        tex = S.bitmap_color(packed, static, winc, o["u"], o["v"], onehot)
+    elif has_bitmap:  # ``S.bitmap_color``, its gather kept as the plan
+        quads_t, key_t, p_t, q_t = S.bitmap_plan(packed, static, winc, o["u"], o["v"], onehot)
+        g = gather(quads_t, key_t)
+        plan = (key_t, g)
+        tex = S.bilerp_quad(g, p_t, q_t)
         L = torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1)
         is_bmp = (S.tex_kind_of(static, winc) == TEX_BITMAP) & (win >= 0)
         color = color + torch.where(is_bmp[..., None], tex * L, 0.0)
@@ -102,13 +170,15 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
         env = sample_cubemap(packed.env_cubemap, dirs_or_none)
         color = color + torch.where((win < 0)[..., None], env, 0.0)
     if not has_refl:
-        return color, None, None, None, None
-    skind = S.shader_kind_of(static, winc)
-    cont = (win >= 0) & ((skind == REFLECTION) | (skind == REFRACTION))
-    atten = torch.where(cont[..., None], S.node_gather(onehot, packed.mat_color), 1.0)
-    ro = torch.stack([o["rox"], o["roy"], o["roz"]], dim=-1)
-    rd = torch.stack([o["rdx"], o["rdy"], o["rdz"]], dim=-1)
-    return color, cont, atten, ro, rd
+        out = (color, None, None, None, None)
+    else:
+        skind = S.shader_kind_of(static, winc)
+        cont = (win >= 0) & ((skind == REFLECTION) | (skind == REFRACTION))
+        atten = torch.where(cont[..., None], S.node_gather(onehot, packed.mat_color), 1.0)
+        ro = torch.stack([o["rox"], o["roy"], o["roz"]], dim=-1)
+        rd = torch.stack([o["rdx"], o["rdy"], o["rdz"]], dim=-1)
+        out = (color, cont, atten, ro, rd)
+    return out + (plan,) if texel_plan else out
 
 
 def round0_call(packed: ScenePacked, trace=round0):
@@ -165,14 +235,21 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
     call)``, with ``prm`` the frame's packed parameters at aa offset (0, 0)
     and ``call`` the frame's round-0 call (``round0_call``).  ``is_slab``
     says the buffer is a part of the frame (a chunk slab, a mesh shard, the
-    compacted adaptive-AA taps), which sets the block capacity."""
+    compacted adaptive-AA taps), which sets the block capacity.  The
+    ``bounce_mode`` picks the rounds' layout (module docstring); every
+    layout gives every lane the same values."""
     from ..render.pipeline import compact_indices
 
     has_refl = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
     rounds = (static.max_trace_depth + 1) if has_refl else 1
     n = n_lanes
     lay = layout(static, width, height)
+    full_bounce = has_refl and static.bounce_mode == "full"
     block_bounce = has_refl and static.bounce_mode == "block" and n % BOUNCE_BLOCK == 0
+    cap = static.bounce_capacity
+    compact_bounce = bool(has_refl and cap and cap < n and static.bounce_mode not in ("block", "full"))
+    if compact_bounce:
+        cap = -(-cap // TILE_N) * TILE_N  # whole kernel tiles, as JAX's kernel width
     if block_bounce:
         nblk = n // BOUNCE_BLOCK
         lanes_per_tile = TILE_N // BOUNCE_BLOCK
@@ -226,14 +303,50 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         out.index_add_(0, sel, carry[0].reshape(count, B, 3))
         return out.reshape(n, 3)
 
+    def compact_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call):
+        """Bounce rounds on a LANE-compacted buffer of ``cap`` lanes: the
+        live lanes' (atten, orig, dir) in one merged row gather, the rounds
+        through the ray-input kernel at ``cap`` width (slots past the live
+        count dead), the colors added back at the live lanes in ascending
+        order.  More live lanes than ``cap``: full-width rounds, counted."""
+        global compact_overflows
+        count = int(alive.sum())  # host sync: JAX's lax.cond predicate
+        if count > cap:
+            compact_overflows += 1
+            return fullwidth_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call)
+        if count == 0:
+            return color
+        sel = compact_indices(alive, n, cap).long()
+        g = torch.cat([atten0, orig, dir], dim=-1)[sel.clamp_max(n - 1)]  # junk slots clamp onto the last lane
+        lane_live = torch.arange(cap, device=alive.device) < count
+        carry = (torch.zeros((cap, 3), dtype=color.dtype, device=color.device), g[:, 0:3], lane_live, g[:, 3:6],
+                 g[:, 6:9])
+        for _ in range(n_rounds):
+            if not bool(carry[2].any()):  # host sync (see module docstring)
+                break
+            carry = _round(packed, static, lay, prm, carry, call)
+        return color.index_add(0, sel[:count], carry[0][:count])
+
     def finish(packed, prm, color, cont, atten, ro, rd, call):
         if not has_refl:
             return color
+        if full_bounce:
+            return fullwidth_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
         if block_bounce:
             return block_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
+        if compact_bounce:
+            return compact_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
         return fullwidth_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
 
     return finish
+
+
+def _texel_reuse_on(static: SceneStatic, slabs) -> bool:
+    """Whether AA taps 1-4 reuse the base tap's texel quads: ``texel_tap_reuse``
+    on a quirk-AA frame (or slice) with bitmaps and no chunk slabs, as in
+    JAX's flagship and rows renderers."""
+    return bool(static.texel_tap_reuse and static.aa_enabled and not static.aa_adaptive and slabs is None
+                and TEX_BITMAP in static.tex_kinds_present)
 
 
 def _chunk_slabs(static: SceneStatic, n: int):
@@ -325,19 +438,23 @@ def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=
     lay = layout(static, width, height)
     a0 = lay.off["aa"]
     slabs = _chunk_slabs(static, n)
+    reuse = _texel_reuse_on(static, slabs)
 
     if slabs is None:
         finish = build_bounce_finisher(static, width, height, n)
 
-        def render_tap(packed: ScenePacked, prm0, prm_tap, call):
+        def render_tap(packed: ScenePacked, prm0, prm_tap, call, plan=False, texel_reuse=None):
+            """One tap [n, 3]; with ``plan`` also its texel plan (for the
+            taps that reuse it), with ``texel_reuse`` a base tap's plan."""
             o = call(lay, prm_tap)
             # the miss rays' directions for the environment term, recomputed
             # in torch (the JAX package's ``_tap_dirs``)
             dirs = None
             if static.has_env:
                 dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), 0, n)[1]
-            color, cont, atten, ro, rd = combine_outputs(packed, static, o, dirs)
-            return finish(packed, prm0, color, cont, atten, ro, rd, call)
+            out = combine_outputs(packed, static, o, dirs, plan, texel_reuse)
+            img = finish(packed, prm0, *out[:5], call)
+            return (img, out[5]) if plan else img
 
     else:
         # memory-bounded: the frame in S slabs of C lanes, rays from
@@ -374,8 +491,13 @@ def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=
             return acc
 
         if not static.aa_adaptive:
-            img = taps(torch.zeros((n, 3), dtype=torch.float32, device=prm0.device), range(5)) / 5.0
-            return img.reshape(height, width, 3)
+            if reuse:  # taps 1-4 reuse the base tap's texel quads
+                img, plan = render_tap(packed, prm0, prm0, call, plan=True)
+                for k in range(1, 5):
+                    img = img + render_tap(packed, prm0, prms[k], call, texel_reuse=plan)
+            else:
+                img = taps(torch.zeros((n, 3), dtype=torch.float32, device=prm0.device), range(5))
+            return (img / 5.0).reshape(height, width, 3)
         base = render_tap(packed, prm0, prm0, call)
         mask = aa_detect(base.reshape(height, width, 3)).reshape(-1)
         compact = None
@@ -567,23 +689,26 @@ def build_rows_renderer(static: SceneStatic, width: int, height: int, n_lanes: i
     lay = layout(static, width, height)
     a0, l0 = lay.off["aa"], lay.off["lin"]
     slabs = _chunk_slabs(static, n)
+    reuse = _texel_reuse_on(static, slabs)
 
-    def lin_tap(packed, prm0, prm_tap, base, lanes, finish, call):
-        """One tap of ``lanes`` pixels from ``base`` through the lin-input form."""
+    def lin_tap(packed, prm0, prm_tap, base, lanes, finish, call, plan=False, texel_reuse=None):
+        """One tap of ``lanes`` pixels from ``base`` through the lin-input
+        form (``plan`` and ``texel_reuse`` as in the flagship renderer's tap)."""
         prm = prm_tap.clone()
         prm[l0] = float(exact_lane_base(base))
         o = call(lay, prm, lin=(base, lanes))
         dirs = None
         if static.has_env:  # the JAX package's ``_lin_dirs``
             dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), base, lanes)[1]
-        color, cont, atten, ro, rd = combine_outputs(packed, static, o, dirs)
-        return finish(packed, prm0, color, cont, atten, ro, rd, call)
+        out = combine_outputs(packed, static, o, dirs, plan, texel_reuse)
+        img = finish(packed, prm0, *out[:5], call)
+        return (img, out[5]) if plan else img
 
     if slabs is None:
         finish = build_bounce_finisher(static, width, height, n, is_slab=n < width * height)
 
-        def render_tap(packed, prm0, prm_tap, lin_base, call):
-            return lin_tap(packed, prm0, prm_tap, lin_base, n, finish, call)
+        def render_tap(packed, prm0, prm_tap, lin_base, call, **plan_kw):
+            return lin_tap(packed, prm0, prm_tap, lin_base, n, finish, call, **plan_kw)
 
     else:
         C, n_slabs = slabs
@@ -617,6 +742,11 @@ def build_rows_renderer(static: SceneStatic, width: int, height: int, n_lanes: i
 
         if not static.aa_adaptive:
             # the reference's quirk: every pixel is the average of the 5 taps
+            if reuse:  # taps 1-4 reuse the base tap's texel quads, per slice
+                img, plan = render_tap(packed, prm0, prm0, lin_base, call, plan=True)
+                for k in range(1, 5):
+                    img = img + render_tap(packed, prm0, prms[k], lin_base, call, texel_reuse=plan)
+                return img / 5.0
             return taps(torch.zeros((n, 3), dtype=torch.float32, device=prm0.device), range(5)) / 5.0
         if mask is None:
             raise ValueError("rows: adaptive AA needs this slice of the whole frame's needs-AA mask")

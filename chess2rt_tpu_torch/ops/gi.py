@@ -12,37 +12,43 @@ so the two agree to the kernel's float differences.
                  miss term, the NEE term diffuse / pi * (L - ambient), the
                  hemisphere sample and the path's next ray in torch
 
-* ``build_gi_tracer``: the kernel-backed ``trace_path`` for a batch of rays
-  with one key: each bounce one K1 call (``round0``, the CUDA kernel for
-  CUDA tensors), then ``trace_path``'s key chain (split in three, two
-  draws).  K1's light sum L includes the ambient term (``shade_direct``'s
-  base) and uses the same faceforward normal and shadow origin as the
-  twin's NEE, so the NEE term is diffuse / pi * (L - ambient).
+* ``build_gi_tracer``: the kernel-backed ``trace_path`` for K path-slabs
+  of C rays with a key each ([K * C, 3] rays, keys [K, 2]): each bounce one
+  K1 call over all K * C lanes (``round0``, the CUDA kernel for CUDA
+  tensors), then ``trace_path``'s key chain per slab (each slab's key split
+  in three, two draws: for K > 1 one batched draw over the slabs,
+  ``prng.uniform_keys``).  K1's light sum L includes the ambient term
+  (``shade_direct``'s base) and uses the same faceforward normal and shadow
+  origin as the twin's NEE, so the NEE term is diffuse / pi * (L - ambient).
 * ``build_gi_renderer``: the Monte-Carlo loop over ``paths_per_pixel``
   paths (each ``split(key, 4)``: the x and y jitter and the path), quirk AA
   (5 taps everywhere) or adaptive AA (the 4 extra taps at full width, the
   ``aa_detect`` mask selecting), un-chunked or in ``chunk_pixels`` slabs
   with the JAX package's per-slab key splits (slabs of exactly
   ``chunk_pixels`` lanes, pad lanes rendering pixel (0, 0), since a draw's
-  values depend on its width).
+  values depend on its width).  ``gi_path_batch`` = K traces K paths per
+  K1 launch: the sequential key chain is unrolled K times per batch, so
+  slab j of batch i draws what path i * K + j draws one path at a time,
+  and the batch's K slabs are summed into the frame; the frame equals the
+  one-path frame but for that order of summation (the JAX package's own
+  test holds the two within 1e-5, tests/test_gi.py:153-169).
 
 Where JAX skipped an all-dead bounce with ``lax.cond``, the port reads the
-alive mask on the host: one ``.any()`` per bounce after the first.  When a
-gradient is recorded, each K1 call goes through ``round0_grad.diff_round0``
-(K1's residual form forward, the leaf-pinned re-shade backward, which also
-recomputes the hit rows), and ``gi_remat_paths`` wraps each path in
+alive mask on the host: one ``.any()`` per bounce after the first, over all
+K * C lanes.  When a gradient is recorded, each K1 call goes through
+``round0_grad.diff_round0`` (K1's residual form forward, the leaf-pinned
+re-shade backward, which also recomputes the hit rows), and
+``gi_remat_paths`` wraps each batch of K paths in
 ``torch.utils.checkpoint`` (recomputed in the backward instead of keeping
 every bounce's rows; keys are host values and every decision is
 deterministic, so the recompute takes the same branches and draws the same
-bits).  ``gi_path_batch`` (K paths per launch, a measured loss on the TPU)
-is not ported: with it set the renderer still runs one path per launch,
-whose frame the JAX package's own test holds value-equal to the batched one
-within 1e-5 (tests/test_gi.py:153-169).  ``bounce_rounds`` counts the
-bounce rounds run (one K1 call each).
+bits).  ``bounce_rounds`` counts the bounce rounds run (one K1 call each),
+so a K-path batch counts its rounds once.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -57,14 +63,26 @@ from .round0_grad import diff_round0
 bounce_rounds = 0
 
 
+def _draw(uniform, keys, C, dtype, device):
+    """[K * C] uniforms, slab j the draw of C under ``keys[j]``: ``uniform``
+    (None: ``prng.uniform``) for one key; for more, ``prng.uniform_keys`` (one
+    launch), or with ``uniform`` given its K draws concatenated."""
+    if len(keys) == 1:
+        return (uniform or prng.uniform)(keys[0], (C,), dtype, device=device)
+    if uniform is None:
+        return prng.uniform_keys(keys, C, dtype, device=device)
+    return torch.cat([uniform(k, (C,), dtype, device=device) for k in keys])
+
+
 def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, uniform=None):
-    """The kernel-backed ``trace_path``: ``tracer(packed, orig, dir, key,
-    prm=None) -> [N, 3]`` for N rays of one path each, ``key`` the paths'
-    threefry key, ``prm`` the scene's packed parameters
-    (``tracer.layout.pack(packed)``, packed on each call when None).
-    ``trace`` is K1's call (``round0``, or its plain version
-    ``round0_reference``), ``uniform`` the draw (None: ``prng.uniform``; its
-    plain version ``prng.uniform_reference``)."""
+    """The kernel-backed ``trace_path``: ``tracer(packed, orig, dir, keys,
+    prm=None) -> [K * C, 3]`` for K path-slabs of C rays, one path each,
+    ``keys`` the slabs' threefry keys ([K, 2]; one key [2] is K = 1),
+    ``prm`` the scene's packed parameters (``tracer.layout.pack(packed)``,
+    packed on each call when None).  ``trace`` is K1's call (``round0``, or
+    its plain version ``round0_reference``), ``uniform`` the draw (None:
+    ``prng.uniform``, batched ``prng.uniform_keys``; with the plain version
+    ``prng.uniform_reference``, its draws concatenated)."""
     from ..render.pipeline import env_miss_term, hemisphere_bounce
 
     if not supports_gi(static):
@@ -84,15 +102,18 @@ def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, 
             diffuse = torch.where((S.tex_kind_of(static, winc) == TEX_BITMAP)[..., None], tex, diffuse)
         return win, normal, diffuse, torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1)
 
-    def tracer(packed: ScenePacked, orig, dir, key, prm=None):
+    def tracer(packed: ScenePacked, orig, dir, keys, prm=None):
         global bounce_rounds
-        draw = uniform or prng.uniform
+        keys = np.asarray(keys, dtype=np.uint32)
+        keys = prng.as_keys(keys[None] if keys.shape == (2,) else keys)
+        if orig.shape[0] % keys.shape[0]:
+            raise ValueError(f"GI tracer: {orig.shape[0]} rays do not split into {keys.shape[0]} path-slabs")
+        C = orig.shape[0] // keys.shape[0]
         prm = lay.pack(packed) if prm is None else prm
         eps = S.shadow_eps(orig.dtype)
         acc = torch.zeros_like(orig)
         mult = torch.ones_like(orig)
         alive = torch.ones(orig.shape[:-1], dtype=torch.bool, device=orig.device)
-        key = prng.as_key(key)
         for r in range(static.max_trace_depth + 1):
             if r and not bool(alive.any()):  # host sync: JAX's lax.cond predicate
                 break
@@ -108,9 +129,10 @@ def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, 
             if static.gi_point_light_direct:
                 nee = diffuse * (1.0 / torch.pi) * (L - packed.ambient)
                 acc = acc + torch.where(hitmask[..., None], mult_eff * nee, 0.0)
-            key, k1, k2 = prng.split(key, 3)
-            u = draw(k1, win.shape, orig.dtype, device=orig.device)
-            v = draw(k2, win.shape, orig.dtype, device=orig.device)
+            sp = np.stack([prng.split(k, 3) for k in keys])  # per slab: its chain, u's key, v's key
+            keys = sp[:, 0]
+            u = _draw(uniform, sp[:, 1], C, orig.dtype, orig.device)
+            v = _draw(uniform, sp[:, 2], C, orig.dtype, orig.device)
             w, mult = hemisphere_bounce(mult, N, diffuse, u, v)
             ts = torch.where(hitmask, o["t"], 0.0)
             p = orig + dir * ts[..., None]
@@ -127,19 +149,23 @@ def build_gi_renderer(static: SceneStatic, width: int, height: int, trace=round0
     """The fused GI renderer: fn(packed, key=None) -> [H, W, 3], ``key`` a
     threefry key (None is ``PRNGKey(0)``), mirroring the twin's
     ``render_samples`` Monte-Carlo loop and AA key for key.  ``trace`` and
-    ``uniform`` as in ``build_gi_tracer``.  Callers dispatch here through
-    render/pipeline.render_frame for the scenes ``supports_gi`` covers."""
+    ``uniform`` as in ``build_gi_tracer``.  ``static.gi_path_batch`` = K
+    traces K paths per launch (``paths_per_pixel`` a multiple of K, else
+    ValueError).  Callers dispatch here through render/pipeline.render_frame
+    for the scenes ``supports_gi`` covers."""
     from ..render.pipeline import AA_KERNEL, aa_detect
 
     tracer = build_gi_tracer(static, width, height, trace, uniform)
     n = width * height
     paths = static.paths_per_pixel
+    K = static.gi_path_batch or 1
+    if K < 1 or paths % K:
+        raise ValueError(f"gi_path_batch {K} must divide paths_per_pixel {paths}")
     chunked = bool(static.chunk_pixels and static.chunk_pixels < n)
     C = static.chunk_pixels if chunked else n
     n_slabs = -(-n // C)
 
     def render(packed: ScenePacked, key=None):
-        draw = uniform or prng.uniform
         key = prng.as_key(key)
         dt, dev = packed.dtype, packed.device
         frame = begin_frame(packed.camera, width / height)
@@ -149,20 +175,27 @@ def build_gi_renderer(static: SceneStatic, width: int, height: int, trace=round0
         offsets = torch.tensor(AA_KERNEL, dtype=dt, device=dev)
         remat = static.gi_remat_paths and torch.is_grad_enabled()
 
-        def one_path(xx, yy, kj, kj2, kr):
-            jx = xx + draw(kj, xx.shape, dt, device=dev)
-            jy = yy + draw(kj2, yy.shape, dt, device=dev)
+        def batch(xx, yy, kj, kj2, kr):
+            """K paths of the C pixels (xx, yy): K jittered slabs traced in
+            one call, summed over the slabs."""
+            jx = (xx + _draw(uniform, kj, C, dt, dev).reshape(K, C)).reshape(K * C)
+            jy = (yy + _draw(uniform, kj2, C, dt, dev).reshape(K, C)).reshape(K * C)
             o3, d3 = screen_rays(packed.camera, frame, float(width), float(height), jx, jy, 0.0)
-            return tracer(packed, o3, d3, kr, prm)
+            out = tracer(packed, o3, d3, kr, prm)
+            return out if K == 1 else out.reshape(K, C, 3).sum(0)
 
         def samples(xx, yy, k):
             acc = torch.zeros(xx.shape + (3,), dtype=dt, device=dev)
-            for _ in range(paths):
-                k, kj, kj2, kr = prng.split(k, 4)
+            for _ in range(paths // K):
+                ks = []
+                for _ in range(K):  # the sequential chain, unrolled: path i * K + j's keys
+                    k, kj, kj2, kr = prng.split(k, 4)
+                    ks.append((kj, kj2, kr))
+                kj, kj2, kr = (np.stack(x) for x in zip(*ks))
                 if remat:
-                    acc = acc + checkpoint(one_path, xx, yy, kj, kj2, kr, use_reentrant=False)
+                    acc = acc + checkpoint(batch, xx, yy, kj, kj2, kr, use_reentrant=False)
                 else:
-                    acc = acc + one_path(xx, yy, kj, kj2, kr)
+                    acc = acc + batch(xx, yy, kj, kj2, kr)
             return acc / paths
 
         def padded(a):

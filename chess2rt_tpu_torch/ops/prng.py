@@ -22,6 +22,11 @@ A copy of the algorithm, not an import of it: the port never imports JAX.
   alone, so ``uniform(k, (n,))[sel]`` equals the draw of the lanes
   ``sel`` in the full-width frame (the lane-compacted adaptive-AA DoF taps
   rely on this, as JAX's do).
+* ``uniform_keys`` is the batched draw, ``jax.vmap`` of ``uniform`` over a
+  [K, 2] key array flattened: K slabs of C uniforms, slab j under key j, in
+  one launch of csrc/threefry.cu's second kernel (the GI renderer's K
+  path-slabs, ops/gi.py); its plain version ``uniform_keys_reference`` is K
+  ``uniform_reference`` draws concatenated.
 """
 
 from __future__ import annotations
@@ -36,9 +41,12 @@ M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
-# draws made by ``uniform`` through the CUDA kernel; chip_smoke.py zeroes
-# it before driving a path and reads it after
+# draws made by ``uniform`` and ``uniform_keys`` through the CUDA kernels,
+# one per call; chip_smoke.py zeroes it before driving a path and reads it
+# after
 launches = 0
+# the most keys one batched draw takes (csrc/threefry.cu MAX_KEYS)
+MAX_KEYS = 256
 
 
 def _threefry_np(key, x0, x1):
@@ -163,6 +171,56 @@ def _uniform_cuda(key, shape, dtype, dev):
                                torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"uniform: kernel launch failed: {cuda_build.error_string('threefry', err)}")
+    if out.numel():
+        launches += 1
+    return out
+
+
+def as_keys(keys) -> np.ndarray:
+    """``keys`` as a uint32[K, 2] array of threefry keys (K >= 1)."""
+    out = np.asarray(keys, dtype=np.uint32)
+    if out.ndim != 2 or out.shape[1] != 2 or out.shape[0] < 1:
+        raise ValueError(f"keys: want a [K, 2] array of threefry keys, got shape {out.shape}")
+    return out
+
+
+def uniform_keys_reference(keys, C: int, dtype=torch.float32, *, device) -> torch.Tensor:
+    """The plain PyTorch version of ``uniform_keys``: K ``uniform_reference``
+    draws of C elements, concatenated."""
+    return torch.cat([uniform_reference(k, (int(C),), dtype, device=device) for k in as_keys(keys)])
+
+
+def uniform_keys(keys, C: int, dtype=torch.float32, *, device) -> torch.Tensor:
+    """[K * C] uniforms in [0, 1): slab j is ``uniform(keys[j], (C,))``, as
+    ``jax.vmap(lambda k: jax.random.uniform(k, (C,), dtype))(keys)`` draws
+    them flattened, on ``device``: one launch of csrc/threefry.cu's batched
+    kernel on a CUDA device (or a raise), ``uniform_keys_reference`` on the
+    CPU."""
+    _check_dtype(dtype)
+    keys = as_keys(keys)
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return uniform_keys_reference(keys, C, dtype, device=dev)
+    if dev.type != "cuda":
+        raise RuntimeError(f"uniform_keys: no kernel for device {dev}")
+    if keys.shape[0] > MAX_KEYS:
+        raise ValueError(f"uniform_keys: at most {MAX_KEYS} keys per draw, got {keys.shape[0]}")
+    return _uniform_keys_cuda(keys, int(C), dtype, dev)
+
+
+def _uniform_keys_cuda(keys, C, dtype, dev):
+    global launches
+    from .. import cuda_build
+
+    K = keys.shape[0]
+    out = torch.empty((K * C,), dtype=dtype, device=dev)
+    table = np.ascontiguousarray(keys, dtype=np.uint32)
+    lib = cuda_build.load("threefry")
+    with torch.cuda.device(dev):
+        err = lib.c2rt_uniform_keys(table.ctypes.data, K, C, out.data_ptr(), int(dtype == torch.float64),
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"uniform_keys: kernel launch failed: {cuda_build.error_string('threefry', err)}")
     if out.numel():
         launches += 1
     return out

@@ -13,9 +13,12 @@ so a whole wavefront shades in one pass:
   unpadded flat quad table.  The JAX package gathered that row in XLA,
   outside any Pallas kernel, so here it is plain tensor indexing
   (``quad_gather_flat``).  Its backward is the texel-gradient custom VJP of
-  the JAX package's ``histogram`` mode: the cotangent rows sorted by texel
-  key, then summed per key by the texel-histogram kernel K2
-  (ops/texel_hist.py).  The fused path defers exactly this gather from K1
+  the JAX package, in the mode ``SceneStatic.texel_grad_mode`` names:
+  ``"histogram"`` (the default: the cotangent rows sorted by texel key, then
+  summed per key by the texel-histogram kernel K2, ops/texel_hist.py),
+  ``"sorted"`` (the sorted rows summed by ``index_add_``) or ``"scatter"``
+  (``index_add_`` on the unsorted keys); the last two are XLA scatters in
+  JAX too.  The fused path defers exactly this gather from K1
   (``bitmap_color``).
 
 ``apply_bump`` perturbs hit normals by the winning node's bump map (the
@@ -150,18 +153,26 @@ def bitmap_plan(packed: ScenePacked, static: SceneStatic, winc, u, v, onehot=Non
     return quads2d, key, p, q
 
 
+# the texel VJP's modes (``SceneStatic.texel_grad_mode``)
+TEXEL_GRAD_MODES = ("histogram", "sorted", "scatter")
+
+
 class _QuadGather(torch.autograd.Function):
-    """``table[key]`` whose backward sums the cotangent rows per key: a
-    stable sort of the rows by key (JAX's ``lax.sort``, outside the kernel
-    there too), then K2 on the sorted runs.  K2 is f32 only, as the TPU
-    kernel is; another dtype (the f64 twin's) takes the plain segment sum in
-    its own dtype, ``index_add_`` over the sorted rows, as JAX's ``_qgf_bwd``
-    sends it to its dtype-generic sorted scatter."""
+    """``table[key]`` whose backward sums the cotangent rows per key, as
+    JAX's ``_qgf_bwd`` in ``mode``:
+
+    * ``"histogram"``: a stable sort of the rows by key (JAX's ``lax.sort``,
+      outside the kernel there too), then K2 on the sorted runs.  K2 is f32
+      only, as the TPU kernel is; another dtype (the f64 twin's) takes the
+      sorted ``index_add_`` in its own dtype, as JAX sends it to its
+      dtype-generic sorted scatter;
+    * ``"sorted"``: the stable sort, then ``index_add_`` of the sorted rows;
+    * ``"scatter"``: ``index_add_`` of the rows at their unsorted keys."""
 
     @staticmethod
-    def forward(ctx, table, key):
+    def forward(ctx, table, key, mode):
         ctx.save_for_backward(key)
-        ctx.n_rows = table.shape[0]
+        ctx.n_rows, ctx.mode = table.shape[0], mode
         return table[key.long()]
 
     @staticmethod
@@ -169,30 +180,34 @@ class _QuadGather(torch.autograd.Function):
         (key,) = ctx.saved_tensors
         kf = key.reshape(-1)
         gf = g.reshape(kf.shape[0], g.shape[-1])
-        sk, perm = torch.sort(kf, stable=True)
-        rows = gf[perm].contiguous()
-        if g.dtype != torch.float32:
-            out = torch.zeros((ctx.n_rows, g.shape[-1]), dtype=g.dtype, device=g.device)
-            return out.index_add_(0, sk.long(), rows), None
-        return texel_histogram(sk, rows, ctx.n_rows), None
+        if ctx.mode != "scatter":
+            sk, perm = torch.sort(kf, stable=True)
+            kf, gf = sk, gf[perm].contiguous()
+            if ctx.mode == "histogram" and g.dtype == torch.float32:
+                return texel_histogram(kf, gf, ctx.n_rows), None, None
+        out = torch.zeros((ctx.n_rows, g.shape[-1]), dtype=g.dtype, device=g.device)
+        return out.index_add_(0, kf.long(), gf), None, None
 
 
-def quad_gather_flat(table, key):
+def quad_gather_flat(table, key, mode="histogram"):
     """``table[key]`` for a flat [rows, C] quad table (int32 keys); out-of-
     range keys clamp, like the JAX gather.  Differentiable in ``table``
-    through the texel-histogram VJP (plain indexing when no gradient is
-    wanted, which keeps a forward frame free of the Function's cost)."""
+    through the texel VJP of ``mode`` (one of ``TEXEL_GRAD_MODES``, else
+    ValueError); plain indexing when no gradient is wanted, which keeps a
+    forward frame free of the Function's cost."""
+    if mode not in TEXEL_GRAD_MODES:
+        raise ValueError(f"texel_grad_mode {mode!r}: one of {TEXEL_GRAD_MODES}")
     key = key.clamp(0, table.shape[0] - 1)
     if not (table.requires_grad and torch.is_grad_enabled()):
         return table[key.long()]
-    return _QuadGather.apply(table, key)
+    return _QuadGather.apply(table, key, mode)
 
 
 def bitmap_color(packed: ScenePacked, static: SceneStatic, winc, u, v, onehot=None):
     """Bilinear bitmap sample for the winning node's texture: the gather the
     round-0 kernel defers (it emits win, u, v)."""
     quads2d, key, p, q = bitmap_plan(packed, static, winc, u, v, onehot)
-    return bilerp_quad(quad_gather_flat(quads2d, key), p, q)
+    return bilerp_quad(quad_gather_flat(quads2d, key, static.texel_grad_mode), p, q)
 
 
 def _quad_atlas_flat(atlas, sizes):
@@ -253,7 +268,7 @@ def apply_bump(packed: ScenePacked, static: SceneStatic, winc, hit, onehot=None)
     ixi = torch.nan_to_num(ix, nan=0.0).to(torch.int32)
     iyi = torch.nan_to_num(iy, nan=0.0).to(torch.int32)
     key = _quad_row_key(static.bump_sizes, b, list(range(len(static.bump_sizes))), ixi, iyi)
-    g = quad_gather_flat(quads, key)
+    g = quad_gather_flat(quads, key, static.texel_grad_mode)
     d = (
         g[..., 0:2] * (1 - p) * (1 - q)
         + g[..., 2:4] * p * (1 - q)

@@ -66,7 +66,12 @@ read just after:
   bench.py's six modes): the 1080p frame (K1's screen-tap and ray-input
   forms), the sharded frame (the lin-input form), the 640x480 gradient
   step (the residual form, K2), the GI step (the residual form, K2, the
-  draw), the card's gate ``--check`` and the ray-count extrapolation.
+  draw), the card's gate ``--check`` and the ray-count extrapolation;
+* the engine modes of ``SceneStatic``: ``gi_path_batch`` (the 640x480 GI
+  frame, 8 paths per K1 launch over 2,457,600 lanes, its draws through the
+  batched threefry kernel), ``bounce_mode`` (block, compact, full) and
+  ``texel_tap_reuse`` on the 1080p AA5 frame, and ``texel_grad_mode`` on the
+  640x480 step (histogram through K2, sorted and scatter without it).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -262,7 +267,24 @@ Phases, in order; any failure raises and the script exits non-zero:
     no twin frame; ``--sharded``: the lin-input form; the steps: the
     residual form and K2; every timed mode: the jitter's draws), and
     ``--check`` is ok; then ``python -m chess2rt_tpu_torch.bench`` in a
-    fresh process, its last line parsed.
+    fresh process, its last line parsed;
+47. the engine modes: the batched threefry draw (8 keys x 307,200 lanes,
+    one launch) bit-equal to its plain version and to 8 single draws, in f32
+    and f64, timed beside them, with its bound; the GI stand-in at 640x480
+    with 4 paths and ``gi_path_batch`` 4, kernel path against plain path;
+    the 40-path frame at K = 1 and K = 8 (K1 launches 240 and 30, draws 560
+    and 70; K = 8 within rtol/atol 1e-5 of K = 1), their peak memory and ms
+    interleaved (median of 3 after 1 warm-up each; with ``--profile`` the
+    device-busy share of each); K1's want_hit form on 8 slabs of camera rays
+    (2,457,600 lanes) against its plain version, timed, with its bound; the
+    1080p AA5 frame under ``bounce_mode`` block, compact and full
+    (``bounce_capacity`` 2,073,600 // 16), bit-equal, compact's overflows,
+    ms interleaved; ``texel_tap_reuse`` off and on (capacity n / 8, the
+    default, and n) on the same frame, bit-equal, the share of each tap's
+    lanes whose texel changed and the overflows, ms interleaved; the 640x480 step under ``texel_grad_mode``
+    histogram, sorted and scatter: K2 in histogram's backward only, the
+    atlas gradients within atol 1e-6 rtol 1e-4 of histogram's
+    (tests/test_inverse.py:219-241), ms interleaved.
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -965,6 +987,7 @@ def main(argv) -> int:
     kernels += app_phases(argv, card, dev, kernel_ms)
     kernels += skybox_phases(argv, card, dev)
     bench_phases(argv, card, dev)
+    kernels += engine_phases(argv, card, dev)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -2484,6 +2507,7 @@ def zero_counts():
 
     R.launches = R.resid_launches = R.hit_launches = R.ray_launches = R.lin_launches = 0
     F.bounce_rounds = gi.bounce_rounds = prng.launches = K2.launches = P.wavefront_frames = 0
+    F.compact_overflows = 0
 
 
 def counts():
@@ -2498,7 +2522,8 @@ def counts():
     torch.cuda.synchronize()
     return {"k1": R.launches, "k1_ray": R.ray_launches, "k1_hit": R.hit_launches, "k1_resid": R.resid_launches,
             "k1_lin": R.lin_launches, "bounce_rounds": F.bounce_rounds, "gi_rounds": gi.bounce_rounds,
-            "draws": prng.launches, "k2": K2.launches, "twin_frames": P.wavefront_frames}
+            "draws": prng.launches, "k2": K2.launches, "twin_frames": P.wavefront_frames,
+            "compact_overflows": F.compact_overflows}
 
 
 def dist_phases(argv, card, dev, phase5_frame_ms):
@@ -3446,6 +3471,266 @@ def bench_phases(argv, card, dev):
     if fresh["metric"] != "rays_per_sec_chip" or not fresh["value"] > 0:
         raise AssertionError(f"python -m chess2rt_tpu_torch.bench printed {fresh}")
     log(json.dumps({"bench": results, "bench_fresh": fresh, "bench_fresh_wall_s": wall}))
+
+
+# phase 47: the engine modes.  The GI frame's paths per launch, the batched
+# draw's K (the GI frame's keys per draw) and the frames' repeats
+ENGINE_K, ENGINE_SMALL_K, ENGINE_REPS = 8, 4, 3
+
+
+def engine_phases(argv, card, dev):
+    """Phase 47: the engine modes of ``SceneStatic`` on the card, each beside
+    its default: the batched threefry draw, ``gi_path_batch`` on the 640x480
+    GI frame, ``bounce_mode`` on the 1080p AA5 frame, ``texel_tap_reuse`` on
+    the same frame and ``texel_grad_mode`` on the 640x480 step.  Returns the
+    kernels-line entries of the batched draw and of K1's want_hit form at
+    the batched frame's width."""
+    import torch
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import flagship as F
+    from chess2rt_tpu_torch.ops import gi, prng
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+    from chess2rt_tpu_torch.scenes import flagship_standin, gi_standin
+
+    w, h = GI_SIZE
+    C = w * h
+    busy = torch.ones((8192, 8192), dtype=torch.float32, device=dev)
+    key = prng.PRNGKey(47)
+    out = {}
+
+    def interleaved(label, runs, reps=ENGINE_REPS):
+        """Median ms of each run (CUDA events around each call), the runs
+        taking turns: one warm-up each, then ``reps`` rounds."""
+        times = {name: [] for name in runs}
+        for i in range(1 + reps):
+            for name, run in runs.items():
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                run(i)
+                end.record()
+                torch.cuda.synchronize()
+                if i:
+                    times[name].append(start.elapsed_time(end))
+        res = {name: {"ms": statistics.median(t), "all_ms": t} for name, t in times.items()}
+        log(f"  {label} on {card}: " + "; ".join(
+            f"{name} {r['ms']:.3f} ms {['%.3f' % t for t in r['all_ms']]}" for name, r in res.items()))
+        return res
+
+    # ---- the batched draw ---------------------------------------------------------------------------------
+    K = ENGINE_K
+    keys = prng.split(key, K)
+    log(f"phase 47 the engine modes: the batched threefry draw (uniform_keys), {K} keys x {C} lanes, against its "
+        f"plain version and {K} single draws")
+    draw_bits = {}
+    for dt in (torch.float32, torch.float64):
+        zero_counts()
+        got = prng.uniform_keys(keys, C, dt, device=dev)
+        if counts()["draws"] != 1:
+            raise AssertionError("the batched draw did not launch its kernel once")
+        plain = prng.uniform_keys_reference(keys, C, dt, device=dev)
+        single = torch.cat([prng.uniform(k, (C,), dt, device=dev) for k in keys])
+        diff = (int((bits(got) != bits(plain)).sum()), int((bits(got) != bits(single)).sum()))
+        draw_bits[str(dt).split(".")[-1]] = diff
+        if any(diff):
+            raise AssertionError(f"batched draw {dt}: {diff[0]} values differ from the plain draw, {diff[1]} from "
+                                 f"{K} single launches")
+    draw_ms, _ = time_events(lambda i: prng.uniform_keys(keys, C, device=dev), 20, 3)
+    draw_q = queued_ms(lambda: prng.uniform_keys(keys, C, device=dev), 20, busy)
+    singles_q = queued_ms(lambda: [prng.uniform(k, (C,), device=dev) for k in keys], 20, busy)
+    singles_ms, _ = time_events(lambda i: [prng.uniform(k, (C,), device=dev) for k in keys], 20, 3)
+    draw_plain_ms, _ = time_events(lambda i: prng.uniform_keys_reference(keys, C, device=dev), 5, 1)
+    draw_bound = bound(4 * K * C + 8 * K, K * C * OPS_THREEFRY)
+    log(f"  f32 and f64 bit-equal to the plain draw and to {K} single launches; f32: {draw_ms:.4f} ms per call, "
+        f"{draw_q:.4f} ms queued; {K} single launches {singles_ms:.4f} ms per call, {singles_q:.4f} ms queued; "
+        f"plain {draw_plain_ms:.3f} ms; bound {draw_bound[0]:.4f} ms ({draw_bound[1]}), at the int32 rate "
+        f"{1e3 * K * C * OPS_THREEFRY / PEAK_INT32:.4f} ms")
+    out["draw"] = {"ms": draw_ms, "queued_ms": draw_q, "singles_ms": singles_ms, "singles_queued_ms": singles_q,
+                   "plain_ms": draw_plain_ms, "bound_ms": draw_bound[0], "differing_bits": draw_bits}
+    del got, plain, single
+
+    # ---- gi_path_batch -------------------------------------------------------------------------------------
+    def gi_scene(paths, **knobs):
+        tp, ts = pack_scene(gi_standin(T, w, h, paths=paths), device=dev)
+        return tp, dataclasses.replace(ts, gi_point_light_direct=True, **knobs)
+
+    def gi_counts(label, c, ts, batches):
+        """One K1 launch (want_hit alone) per bounce round over the batch's K
+        slabs; two draws per batch of paths and per bounce round."""
+        rounds = c["gi_rounds"]
+        log(f"  {label}: K1 launches {c['k1']} (want_hit alone {c['k1_hit']}), bounce rounds {rounds}, draws "
+            f"{c['draws']} for {batches} batches of paths")
+        if not (c["k1"] == c["k1_hit"] == c["k1_ray"] == rounds and c["draws"] == 2 * batches + 2 * rounds
+                and batches <= rounds <= batches * (ts.max_trace_depth + 1) and not c["twin_frames"]):
+            raise AssertionError(f"{label}: launch counts {c}")
+
+    tp4, ts4 = gi_scene(GI_SMALL_PATHS, gi_path_batch=ENGINE_SMALL_K)
+    log(f"  gi_path_batch: the GI stand-in {w}x{h}, {GI_SMALL_PATHS} paths, K={ENGINE_SMALL_K}: kernel path vs "
+        f"plain path (plain K1, plain draws)")
+    zero_counts()
+    img = render_frame(tp4, ts4, key)
+    gi_counts(f"K={ENGINE_SMALL_K} frame", counts(), ts4, GI_SMALL_PATHS // ENGINE_SMALL_K)
+    plain = gi.build_gi_renderer(ts4, w, h, trace=R.round0_reference, uniform=prng.uniform_reference)(tp4, key)
+    small_err = compare_frames(f"GI {GI_SMALL_PATHS} paths K={ENGINE_SMALL_K} kernel frame vs plain frame", img, plain)
+    del img, plain, tp4
+
+    tp, ts = gi_scene(GI_PATHS)
+    tsk = dataclasses.replace(ts, gi_path_batch=K)
+    log(f"  gi_path_batch: the {GI_PATHS}-path GI frame, K=1 and K={K}")
+    gi_runs, frames = {}, {}
+    for label, st in (("K=1", ts), (f"K={K}", tsk)):
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        frames[label] = render_frame(tp, st, key)
+        c = counts()
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        gi_counts(f"{label} frame", c, st, GI_PATHS // (st.gi_path_batch or 1))
+        gi_runs[label] = {"counts": c, "peak_gib": peak}
+        log(f"    {label}: peak device memory above the scene {peak:.3f} GiB")
+    rel = ((frames[f"K={K}"] - frames["K=1"]).abs() / (1e-5 + frames["K=1"].abs())).max().item()
+    gap = (frames[f"K={K}"] - frames["K=1"]).abs().max().item()
+    log(f"  K={K} frame vs K=1 frame: max |d| {gap:.3e}, max |d| / (1e-5 + |K=1|) {rel:.3e}")
+    if not bool(((frames[f"K={K}"] - frames["K=1"]).abs() <= 1e-5 + 1e-5 * frames["K=1"].abs()).all()):
+        raise AssertionError(f"the K={K} GI frame differs from the K=1 frame beyond rtol/atol 1e-5")
+    if gi_runs[f"K={K}"]["counts"]["k1"] * K > gi_runs["K=1"]["counts"]["k1"]:
+        raise AssertionError(f"K={K} launched K1 more than 1/{K} as often as K=1")
+    del frames
+    times = interleaved(f"GI frame {w}x{h}, {GI_PATHS} paths", {
+        "K=1": lambda i: render_frame(jittered(tp, i), ts, prng.fold_in(key, i)),
+        f"K={K}": lambda i: render_frame(jittered(tp, i), tsk, prng.fold_in(key, i))})
+    for label in times:
+        gi_runs[label].update(times[label])
+    if "--profile" in argv:
+        profile_run("GI frame K=1", lambda: render_frame(jittered(tp, 91), ts, key))
+        profile_run(f"GI frame K={K}", lambda: render_frame(jittered(tp, 91), tsk, key))
+    out["gi"] = {"small_max_abs_err": small_err, "k_vs_1_max_abs": gap, "runs": gi_runs}
+
+    # K1's want_hit form at the batched frame's width: K slabs of jittered camera rays
+    lay = R.layout(ts, w, h, want_hit=True)
+    prm = lay.pack(tp)
+    rays = [gi_camera_rays(tp, w, h, 470 + j) for j in range(K)]
+    wo, wd = (torch.cat([r[i] for r in rays]).contiguous() for i in (0, 1))
+    n_wide = wo.shape[0]
+    wide_err = compare_round0(f"K1 want_hit on {n_wide} camera rays ({K} slabs)", R.round0(lay, prm, wo, wd),
+                              R.round0_reference(lay, prm, wo, wd), lay.names)
+    vis = R.round0(lay, prm, wo, wd, want_vis=True)
+    shaded = (vis["win"] >= 0).float()
+    lit = [(vis[f"vis{li}"] * shaded).mean().item() for li in range(ts.n_lights)]
+    wide_bound = k1_bound(lay, n_wide, lit, ray_input=True, scanned=shaded.mean().item())
+    wide_ms, _ = time_events(lambda i: R.round0(lay, prm, wo, wd), 10, 2)
+    wide_q = queued_ms(lambda: R.round0(lay, prm, wo, wd), 10, busy)
+    wide_plain_ms, _ = time_events(lambda i: R.round0_reference(lay, prm, wo, wd), 2, 1)
+    log(f"  K1 want_hit ray-input on {n_wide} rays: {wide_ms:.4f} ms per call, {wide_q:.4f} ms queued, plain "
+        f"{wide_plain_ms:.3f} ms; bound {wide_bound[0]:.4f} ms ({wide_bound[1]})")
+    del vis, rays, wo, wd, tp
+
+    # ---- bounce_mode -----------------------------------------------------------------------------------------
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT), device=dev)
+    ts = dataclasses.replace(ts, bounce_capacity=WIDTH * HEIGHT // 16)  # bench.py's
+    log(f"  bounce_mode: the {WIDTH}x{HEIGHT} AA5 frame, bounce_capacity {ts.bounce_capacity}: block, compact, full")
+    modes = {m: dataclasses.replace(ts, bounce_mode=m) for m in ("block", "compact", "full")}
+    bounce = {}
+    ref = None
+    for m, st in modes.items():
+        zero_counts()
+        img = render_frame(tp, st)
+        c = counts()
+        if not (c["k1"] > c["k1_ray"] == c["bounce_rounds"] > 0 and not c["twin_frames"]):
+            raise AssertionError(f"bounce_mode {m}: launch counts {c}")
+        ref = img if ref is None else ref
+        differ = int((bits(img) != bits(ref)).sum())
+        log(f"    {m}: K1 launches {c['k1']} (ray-input {c['k1_ray']}), bounce rounds {c['bounce_rounds']}, "
+            f"compact overflows {c['compact_overflows']}; values differing from block {differ}")
+        if differ:
+            raise AssertionError(f"bounce_mode {m}: {differ} values differ from the block frame")
+        bounce[m] = {"counts": c}
+    times = interleaved(f"{WIDTH}x{HEIGHT} AA5 frame by bounce_mode",
+                        {m: (lambda i, st=st: render_frame(jittered(tp, i), st)) for m, st in modes.items()})
+    for m in bounce:
+        bounce[m].update(times[m])
+    out["bounce_mode"] = bounce
+
+    # ---- texel_tap_reuse --------------------------------------------------------------------------------------
+    log(f"  texel_tap_reuse: the {WIDTH}x{HEIGHT} AA5 frame, off and on at capacity n / 8 (the default) and n")
+    variants = {"on": dataclasses.replace(ts, texel_tap_reuse=True),
+                "on_cap_n": dataclasses.replace(ts, texel_tap_reuse=True, texel_reuse_capacity=WIDTH * HEIGHT)}
+    img_off = render_frame(tp, ts)
+    reuse = {}
+    for name, st in variants.items():
+        zero_counts()
+        F.reuse_taps = F.reuse_changed = F.reuse_overflows = 0
+        img_on = render_frame(tp, st)
+        c = counts()
+        differ = int((bits(img_on) != bits(img_off)).sum())
+        share = F.reuse_changed / max(1, F.reuse_taps * WIDTH * HEIGHT)
+        log(f"    {name}: {F.reuse_taps} taps reused the base tap's quads, changed lanes {F.reuse_changed} ({share:.4f} "
+            f"of each tap's lanes on average), {F.reuse_overflows} overflowed to the full gather; K1 launches "
+            f"{c['k1']}; values differing from off {differ}")
+        if differ or F.reuse_taps != 4 or c["twin_frames"] or (name == "on_cap_n" and F.reuse_overflows):
+            raise AssertionError(f"texel_tap_reuse {name}: {differ} values differ from off, {F.reuse_taps} taps "
+                                 f"reused, {F.reuse_overflows} overflowed")
+        reuse[name] = {"changed_share": share, "taps": F.reuse_taps, "overflows": F.reuse_overflows}
+    times = interleaved(f"{WIDTH}x{HEIGHT} AA5 frame, texel_tap_reuse",
+                        {"off": lambda i: render_frame(jittered(tp, i), ts),
+                         **{name: (lambda i, st=st: render_frame(jittered(tp, i), st)) for name, st in variants.items()}})
+    reuse["off"] = {}
+    for name in times:
+        reuse[name].update(times[name])
+    out["texel_tap_reuse"] = reuse
+    del img_on, img_off, tp
+
+    # ---- texel_grad_mode -----------------------------------------------------------------------------------------
+    gw, gh = GRAD_SIZE
+    gp, gs = pack_scene(flagship_standin(T, gw, gh), device=dev)
+    gs = dataclasses.replace(gs, aa_enabled=False, bounce_capacity=gw * gh // 16)  # the grad bench's
+    target = torch.zeros((gh, gw, 3), dtype=torch.float32, device=dev)
+    log(f"  texel_grad_mode: the {gw}x{gh} gradient step under histogram, sorted and scatter")
+    grads, steps = {}, {}
+    for m in ("histogram", "sorted", "scatter"):
+        st = dataclasses.replace(gs, texel_grad_mode=m)
+        zero_counts()
+        loss, grads[m], _ = grad_step(lambda p: render_frame(p, st), gp, target)
+        c = counts()
+        if not c["k1_resid"] or bool(c["k2"]) != (m == "histogram"):
+            raise AssertionError(f"texel_grad_mode {m}: launch counts {c}")
+        steps[m] = {"loss": loss.item(), "counts": c}
+    atlas = grads["histogram"]["bitmap_atlas"]
+    for m in ("sorted", "scatter"):
+        d = (grads[m]["bitmap_atlas"] - atlas).abs()
+        # the mode moves the atlas gradient alone; other leaves may differ in the last bits where atomics sum
+        others = {k: (g - grads["histogram"][k]).abs().max().item() / max(1e-30, g.abs().max().item())
+                  for k, g in grads[m].items() if k != "bitmap_atlas" and g.numel()}
+        ok = bool((d <= 1e-6 + 1e-4 * atlas.abs()).all())
+        log(f"    {m}: atlas gradient vs histogram max |d| {d.max().item():.3e} (largest {atlas.abs().max().item():.3e}"
+            f"); other leaves: {sum(v > 0 for v in others.values())} of {len(others)} differ, largest |d| / max "
+            f"{max(others.values()):.2e}; K2 launches {steps[m]['counts']['k2']}")
+        if not ok or max(others.values()) > 1e-5 or abs(steps[m]["loss"] - steps["histogram"]["loss"]) > 1e-6 * abs(
+                steps["histogram"]["loss"]):
+            raise AssertionError(f"texel_grad_mode {m}: the step differs from histogram's beyond atol 1e-6, rtol 1e-4 "
+                                 f"(the atlas) or 1e-5 (the other leaves)")
+        steps[m]["atlas_max_abs"] = d.max().item()
+    times = interleaved(f"{gw}x{gh} step by texel_grad_mode", {
+        m: (lambda i, m=m: grad_step(lambda p: render_frame(p, dataclasses.replace(gs, texel_grad_mode=m)),
+                                     jittered(gp, i), target)) for m in steps})
+    for m in steps:
+        steps[m].update(times[m])
+    out["texel_grad_mode"] = steps
+    log(json.dumps({"engine_modes": out}))
+    return [
+        {**kernel_entry(f"threefry uniform draw, batched, f32 ({K} keys x {C} lanes, one launch: the K={K} GI frame's "
+                        f"draws; no TPU kernel: XLA's vmapped threefry2x32)",
+                        "chess2rt_tpu_torch/csrc/threefry.cu",
+                        "none: XLA's threefry2x32 (jax.vmap of jax.random.uniform, pallas_trace.py:2201-2205)",
+                        gi_runs[f"K={K}"]["counts"]["draws"], 0.0, draw_ms, draw_plain_ms, *draw_bound),
+         "queued_ms": draw_q, "bound_int32_ops_ms": 1e3 * K * C * OPS_THREEFRY / PEAK_INT32},
+        {**kernel_entry(f"round0 want_hit ray-input form (K1 without the vis rows, one bounce of the K={K} GI frame: "
+                        f"{n_wide} rays)", K1_SOURCE, K1_REPLACES, gi_runs[f"K={K}"]["counts"]["k1_hit"], wide_err,
+                        wide_ms, wide_plain_ms, *wide_bound), "queued_ms": wide_q},
+    ]
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ wrong, K3's four stages (round0.cu built with -DC2RT_STAGE=k), the round-0
 gradient through each form, the threefry draw (csrc/threefry.cu) bit for
 bit, and the sharded, chunked, adaptive, DoF, stereo and GI frames and
 the GI gradient step at small sizes; the per-shard sampler's DoF, stereo
-and GI frames, ``pin_mode="node"``, two ranks sharing the card, and the
-bench twin's gate (``python -m chess2rt_tpu_torch.bench --check``).
+and GI frames, ``pin_mode="node"``, two ranks sharing the card, the
+bench twin's gate (``python -m chess2rt_tpu_torch.bench --check``), and the
+engine modes: the batched threefry draw, ``gi_path_batch``,
+``bounce_mode="compact"``, ``texel_tap_reuse`` and ``texel_grad_mode``.
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -834,3 +836,106 @@ def test_bench_gate_fails_without_its_kernels(cuda, monkeypatch, capsys):
     with pytest.raises(AssertionError, match="launched K1 0 times"):
         bench.main_sharded(96, 54)
     capsys.readouterr()
+
+
+# --- the engine modes: gi_path_batch, bounce_mode="compact", texel_tap_reuse, texel_grad_mode ---
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K, c", [(1, 257), (3, 1023), (8, 100_003)])
+def test_batched_draw_matches_plain_bit_for_bit(cuda, dtype, K, c):
+    """csrc/threefry.cu's batched draw: one launch, bit-equal to its plain
+    version on the card and on the CPU and to K single draws."""
+    keys = prng.split(prng.fold_in(prng.PRNGKey(c), K), K)
+    before = prng.launches
+    out = prng.uniform_keys(keys, c, dtype, device=cuda)
+    assert prng.launches == before + 1 and out.shape == (K * c,)
+    view = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(out.view(view), prng.uniform_keys_reference(keys, c, dtype, device=cuda).view(view))
+    assert torch.equal(out.cpu().view(view), prng.uniform_keys_reference(keys, c, dtype, device="cpu").view(view))
+    single = torch.cat([prng.uniform(k, (c,), dtype, device=cuda) for k in keys])
+    assert torch.equal(out.view(view), single.view(view))
+
+
+def test_gi_path_batch_frame_on_the_card(cuda):
+    """K = 4 paths per K1 launch: within 1e-5 of one path per launch, the
+    draws batched (2 per batch and per bounce round), and the kernel path at
+    the frame limits of the plain path (plain K1, plain draws)."""
+    import dataclasses
+
+    from chess2rt_tpu_torch.ops import gi
+
+    tp, ts = _gi_scene(96, 72, 8)
+    key = prng.PRNGKey(7)
+    frames = []
+    for K in (None, 4):
+        st = dataclasses.replace(ts, gi_path_batch=K)
+        R.launches = R.hit_launches = prng.launches = gi.bounce_rounds = 0
+        frames.append(gi.build_gi_renderer(st, 96, 72)(tp, key))
+        assert R.launches == R.hit_launches == gi.bounce_rounds > 0
+        assert prng.launches == 2 * 8 // (K or 1) + 2 * gi.bounce_rounds
+    torch.testing.assert_close(frames[1], frames[0], rtol=1e-5, atol=1e-5)
+    st = dataclasses.replace(ts, gi_path_batch=4)
+    ref = gi.build_gi_renderer(st, 96, 72, trace=R.round0_reference, uniform=prng.uniform_reference)(tp, key)
+    _frame_close(frames[1], ref)
+
+
+@pytest.mark.parametrize("cap", [4096, 1], ids=["fits", "overflow"])
+def test_compact_bounces_on_the_card(cuda, cap):
+    """Lane-compacted bounce rounds through K1's ray-input form, bit-equal
+    to block and full-width rounds; capacity 1 (one 1024-lane tile) overflows
+    at 256x192 and takes the full-width rounds, counted."""
+    import dataclasses
+
+    tp, ts = pack_scene(flagship_standin(T, 256, 192), device=cuda)
+    ts = dataclasses.replace(ts, aa_enabled=False, bounce_capacity=cap)
+    frames = {}
+    for mode in ("block", "full", "compact"):
+        F.compact_overflows = R.ray_launches = 0
+        frames[mode] = F.build_flagship_renderer(dataclasses.replace(ts, bounce_mode=mode), 256, 192)(tp)
+        assert R.ray_launches > 0
+        assert F.compact_overflows == (cap == 1 and mode == "compact")
+    assert torch.equal(frames["compact"], frames["block"]) and torch.equal(frames["compact"], frames["full"])
+
+
+@pytest.mark.parametrize("cap", [None, 160 * 120, 1], ids=["default", "fits", "overflow"])
+def test_texel_tap_reuse_on_the_card(cuda, cap):
+    """AA taps 1-4 reusing the base tap's texel quads: the flagship frame and
+    the rows renderer's slices bit-equal to reuse off, with the changed lanes
+    re-gathered lane-compacted (capacity n) or in a full gather (capacity 1)."""
+    import dataclasses
+
+    tp, ts = pack_scene(flagship_standin(T, 160, 120), device=cuda)
+    on = dataclasses.replace(ts, texel_tap_reuse=True, texel_reuse_capacity=cap)
+    F.reuse_taps = F.reuse_overflows = 0
+    assert torch.equal(F.build_flagship_renderer(on, 160, 120)(tp), F.build_flagship_renderer(ts, 160, 120)(tp))
+    assert F.reuse_taps == 4 and F.reuse_overflows == {1: 4, 160 * 120: 0}.get(cap, F.reuse_overflows)
+    rows_on, rows_off = F.build_rows_renderer(on, 160, 120, 9600), F.build_rows_renderer(ts, 160, 120, 9600)
+    for base in (0, 9600):
+        assert torch.equal(rows_on(tp, base), rows_off(tp, base))
+
+
+def test_texel_grad_modes_on_the_card(cuda):
+    """The step's atlas gradient under "sorted" and "scatter" (torch
+    scatters, no K2) against "histogram" (K2): atol 1e-6, rtol 1e-4
+    (tests/test_inverse.py:219-241); every other leaf at f32 rounding."""
+    import dataclasses
+
+    tp, ts = pack_scene(flagship_standin(T, 160, 120), device=cuda)
+    ts = dataclasses.replace(ts, aa_enabled=False)
+    grads = {}
+    for mode in ("histogram", "sorted", "scatter"):
+        xs = [x.detach().clone().requires_grad_() for x in leaves(tp)]
+        K2.launches = 0
+        st = dataclasses.replace(ts, texel_grad_mode=mode)
+        (F.build_flagship_renderer(st, 160, 120)(from_leaves(xs)) ** 2).mean().backward()
+        assert bool(K2.launches) == (mode == "histogram")
+        grads[mode] = {k: x.grad for k, x in zip(LEAF_NAMES, xs)}
+    hist = grads["histogram"]
+    assert bool(hist["bitmap_atlas"].any())
+    for mode in ("sorted", "scatter"):
+        for k, g in grads[mode].items():
+            if k == "bitmap_atlas":
+                torch.testing.assert_close(g, hist[k], rtol=1e-4, atol=1e-6)
+            elif g is not None:  # the mode moves only the atlas; atomics elsewhere may reorder sums
+                torch.testing.assert_close(g, hist[k], rtol=1e-5, atol=1e-7 + 1e-5 * hist[k].abs().max().item())
