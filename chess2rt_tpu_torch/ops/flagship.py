@@ -45,9 +45,12 @@ them:
 
 Where JAX decided "all rounds dead", "compacted buffer overflows" and
 "flagged pixels fit" on the device with ``lax.cond``, this port reads the
-counts on the host (``.item()``): one device sync per bounce round, per tap
-and per adaptive frame.  That is acceptable in bring-up; a later PR can
-keep the decisions on the device.
+counts on the host: one device sync per bounce round, per tap and per
+adaptive frame, each through ``utils/spans.read_any`` or ``read_count``,
+which count it by site (``spans.syncs``).  That is acceptable in bring-up;
+a later PR can keep the decisions on the device.  Under a running
+``torch.profiler`` the taps, bounce rounds, gathers and reads carry
+``c2rt.*`` spans (utils/spans.py).
 
 Every round-0 call goes through one function, ``trace``: the wrapper
 ``round0`` by default (the CUDA kernel for CUDA tensors), or its plain
@@ -74,6 +77,7 @@ from .env import cubemap_plan, cubemap_quads, sample_cubemap
 from .round0 import BOUNCE_BLOCK, TILE_N, exact_lane_base, layout, round0, supports
 from .bump_round0 import bump_round0
 from .round0_grad import _gen_rays_lin, diff_round0
+from ..utils.spans import read_any, read_count, span
 
 # bounce rounds run (each is one round-0 call); callers zero and read it
 bounce_rounds = 0
@@ -100,7 +104,7 @@ def _reused_quads(static: SceneStatic, quads, key, texel_reuse):
     n = key.shape[0]
     cap = min(static.texel_reuse_capacity or -(-n // 8), n)
     changed = key != key0
-    count = int(changed.sum())  # host sync: JAX's lax.cond predicate
+    count = read_count("flagship.reuse_count", changed)  # JAX's lax.cond predicate
     reuse_taps += 1
     reuse_changed += count
     if count > cap:
@@ -140,9 +144,10 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
     plan = None
 
     def gather(quads, key):
-        if texel_reuse is not None:
-            return _reused_quads(static, quads, key, texel_reuse)
-        return S.quad_gather_flat(quads, key, static.texel_grad_mode)
+        with span("c2rt.gather"):
+            if texel_reuse is not None:
+                return _reused_quads(static, quads, key, texel_reuse)
+            return S.quad_gather_flat(quads, key, static.texel_grad_mode)
 
     if has_bitmap and use_env:
         quads_t, key_t, p_t, q_t = S.bitmap_plan(packed, static, winc, o["u"], o["v"], onehot)
@@ -218,15 +223,16 @@ def _round(packed, static, lay, prm, carry, call):
     """One bounce round through the ray-input kernel."""
     global bounce_rounds
     bounce_rounds += 1
-    color, at, a, o3, d3 = carry
-    o = call(lay, prm, o3.contiguous(), d3.contiguous())
-    c, cont, mult, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
-    color = color + torch.where(a[..., None], at * c, 0.0)
-    cont = cont & a
-    at = at * torch.where(cont[..., None], mult, 1.0)
-    o3 = torch.where(cont[..., None], ro, o3)
-    d3 = torch.where(cont[..., None], rd, d3)
-    return color, at, cont, o3, d3
+    with span("c2rt.round"):
+        color, at, a, o3, d3 = carry
+        o = call(lay, prm, o3.contiguous(), d3.contiguous())
+        c, cont, mult, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
+        color = color + torch.where(a[..., None], at * c, 0.0)
+        cont = cont & a
+        at = at * torch.where(cont[..., None], mult, 1.0)
+        o3 = torch.where(cont[..., None], ro, o3)
+        d3 = torch.where(cont[..., None], rd, d3)
+        return color, at, cont, o3, d3
 
 
 def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes: int, is_slab: bool = False):
@@ -265,7 +271,7 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         """Bounce rounds at full width; all-dead rounds are skipped."""
         carry = (color, atten, alive, orig, dir)
         for _ in range(n_rounds):
-            if not bool(carry[2].any()):  # host sync (see module docstring)
+            if not read_any("flagship.full_alive", carry[2]):
                 break
             carry = _round(packed, static, lay, prm, carry, call)
         return carry[0]
@@ -281,22 +287,23 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         every live lane, and nothing for the junk ones."""
         B = BOUNCE_BLOCK
         blk_alive = alive.reshape(nblk, B).any(dim=1)
-        count = int(blk_alive.sum())  # host sync (see module docstring)
+        count = read_count("flagship.block_count", blk_alive)
         if count > cap_blk:
             return fullwidth_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call)
         if count == 0:
             return color
-        sel = compact_indices(blk_alive, nblk, cap_blk)[:count].long()
 
         def slab(x):
             return x.reshape((nblk, B) + x.shape[1:])[sel].reshape((count * B,) + x.shape[1:])
 
-        carry = (
-            torch.zeros((count * B, 3), dtype=color.dtype, device=color.device),
-            slab(atten0), slab(alive), slab(orig), slab(dir),
-        )
+        with span("c2rt.gather"):
+            sel = compact_indices(blk_alive, nblk, cap_blk)[:count].long()
+            carry = (
+                torch.zeros((count * B, 3), dtype=color.dtype, device=color.device),
+                slab(atten0), slab(alive), slab(orig), slab(dir),
+            )
         for _ in range(n_rounds):
-            if not bool(carry[2].any()):  # host sync (see module docstring)
+            if not read_any("flagship.block_alive", carry[2]):
                 break
             carry = _round(packed, static, lay, prm, carry, call)
         out = color.reshape(nblk, B, 3).clone()
@@ -310,19 +317,20 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         count dead), the colors added back at the live lanes in ascending
         order.  More live lanes than ``cap``: full-width rounds, counted."""
         global compact_overflows
-        count = int(alive.sum())  # host sync: JAX's lax.cond predicate
+        count = read_count("flagship.compact_count", alive)  # JAX's lax.cond predicate
         if count > cap:
             compact_overflows += 1
             return fullwidth_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call)
         if count == 0:
             return color
-        sel = compact_indices(alive, n, cap).long()
-        g = torch.cat([atten0, orig, dir], dim=-1)[sel.clamp_max(n - 1)]  # junk slots clamp onto the last lane
+        with span("c2rt.gather"):
+            sel = compact_indices(alive, n, cap).long()
+            g = torch.cat([atten0, orig, dir], dim=-1)[sel.clamp_max(n - 1)]  # junk slots clamp onto the last lane
         lane_live = torch.arange(cap, device=alive.device) < count
         carry = (torch.zeros((cap, 3), dtype=color.dtype, device=color.device), g[:, 0:3], lane_live, g[:, 3:6],
                  g[:, 6:9])
         for _ in range(n_rounds):
-            if not bool(carry[2].any()):  # host sync (see module docstring)
+            if not read_any("flagship.compact_alive", carry[2]):
                 break
             carry = _round(packed, static, lay, prm, carry, call)
         return color.index_add(0, sel[:count], carry[0][:count])
@@ -380,14 +388,15 @@ def _ray_tap(packed, static, lay, prm0, finish, lin, aa, call):
     ([C] integers) plus the offset ``aa``: ``screen_rays``, round 0,
     combine, bounce rounds -> [C, 3]."""
     W, H = lay.width, lay.height
-    frame = begin_frame(packed.camera, W / H)
-    dt = packed.dtype
-    xs = (lin % W).to(dt) + aa[0]
-    ys = (lin // W).to(dt) + aa[1]
-    o3, d3 = screen_rays(packed.camera, frame, float(W), float(H), xs, ys)
-    o = call(lay, prm0, o3.contiguous(), d3.contiguous())
-    color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
-    return finish(packed, prm0, color, cont, atten, ro, rd, call)
+    with span("c2rt.tap"):
+        frame = begin_frame(packed.camera, W / H)
+        dt = packed.dtype
+        xs = (lin % W).to(dt) + aa[0]
+        ys = (lin // W).to(dt) + aa[1]
+        o3, d3 = screen_rays(packed.camera, frame, float(W), float(H), xs, ys)
+        o = call(lay, prm0, o3.contiguous(), d3.contiguous())
+        color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
+        return finish(packed, prm0, color, cont, atten, ro, rd, call)
 
 
 def _adaptive_taps(base, mask, full_taps, compact):
@@ -401,15 +410,16 @@ def _adaptive_taps(base, mask, full_taps, compact):
     from ..render.pipeline import AA_KERNEL, compact_indices
 
     n = mask.shape[0]
-    count = int(mask.sum()) if compact is not None else None  # host sync (see module docstring)
+    count = read_count("flagship.aa_count", mask) if compact is not None else None
     if compact is None or count > compact[0]:
         return torch.where(mask[:, None], full_taps(base) / 5.0, base)
     if count == 0:
         return base
     cap_aa, tap = compact
-    sel = compact_indices(mask, n, cap_aa).long()
-    selc = sel.clamp_max(n - 1)  # junk slots re-render the last lane and are dropped
-    acc = base[selc]
+    with span("c2rt.gather"):
+        sel = compact_indices(mask, n, cap_aa).long()
+        selc = sel.clamp_max(n - 1)  # junk slots re-render the last lane and are dropped
+        acc = base[selc]
     for aa in AA_KERNEL:
         acc = acc + tap(selc, aa)
     # every compacted lane is flagged; an out-of-place scatter, since the
@@ -446,15 +456,16 @@ def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=
         def render_tap(packed: ScenePacked, prm0, prm_tap, call, plan=False, texel_reuse=None):
             """One tap [n, 3]; with ``plan`` also its texel plan (for the
             taps that reuse it), with ``texel_reuse`` a base tap's plan."""
-            o = call(lay, prm_tap)
-            # the miss rays' directions for the environment term, recomputed
-            # in torch (the JAX package's ``_tap_dirs``)
-            dirs = None
-            if static.has_env:
-                dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), 0, n)[1]
-            out = combine_outputs(packed, static, o, dirs, plan, texel_reuse)
-            img = finish(packed, prm0, *out[:5], call)
-            return (img, out[5]) if plan else img
+            with span("c2rt.tap"):
+                o = call(lay, prm_tap)
+                # the miss rays' directions for the environment term,
+                # recomputed in torch (the JAX package's ``_tap_dirs``)
+                dirs = None
+                if static.has_env:
+                    dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), 0, n)[1]
+                out = combine_outputs(packed, static, o, dirs, plan, texel_reuse)
+                img = finish(packed, prm0, *out[:5], call)
+                return (img, out[5]) if plan else img
 
     else:
         # memory-bounded: the frame in S slabs of C lanes, rays from
@@ -539,9 +550,10 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
         finish_mc = build_bounce_finisher(static, width, height, n)
 
         def trace_rays(packed, prm0, orig, dir, call):
-            o = call(lay, prm0, orig.contiguous(), dir.contiguous())
-            color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, dir))
-            return finish_mc(packed, prm0, color, cont, atten, ro, rd, call)
+            with span("c2rt.tap"):
+                o = call(lay, prm0, orig.contiguous(), dir.contiguous())
+                color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, dir))
+                return finish_mc(packed, prm0, color, cont, atten, ro, rd, call)
 
     else:
         C, n_slabs = slabs
@@ -554,10 +566,11 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
                 dir = torch.cat([dir, dir[-1:].expand(pad, 3)])
             out = []
             for s in range(n_slabs):
-                d3 = dir[s * C:(s + 1) * C]
-                o = call(lay, prm0, orig[s * C:(s + 1) * C].contiguous(), d3.contiguous())
-                color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
-                out.append(finish_slab(packed, prm0, color, cont, atten, ro, rd, call))
+                with span("c2rt.tap"):
+                    d3 = dir[s * C:(s + 1) * C]
+                    o = call(lay, prm0, orig[s * C:(s + 1) * C].contiguous(), d3.contiguous())
+                    color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
+                    out.append(finish_slab(packed, prm0, color, cont, atten, ro, rd, call))
             return torch.cat(out)[:n]
 
     aa_mc_fast = static.aa_enabled and static.aa_adaptive and static.dof and not static.stereo and slabs is None
@@ -618,19 +631,21 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
         if not static.aa_adaptive:
             return full_taps(img, key).reshape(height, width, 3)
         mask = aa_detect(img.reshape(height, width, 3)).reshape(-1)
-        count = int(mask.sum()) if aa_mc_fast else None  # host sync (see module docstring)
+        count = read_count("flagship.mc_aa_count", mask) if aa_mc_fast else None
         if count is None or count > cap_mc:
             return torch.where(mask[:, None], full_taps(img, key), img).reshape(height, width, 3)
         if count == 0:
             return img.reshape(height, width, 3)
-        sel = compact_indices(mask, n, cap_mc).long()
-        selc = sel.clamp_max(n - 1)  # junk slots re-render the last lane and are dropped
+        with span("c2rt.gather"):
+            sel = compact_indices(mask, n, cap_mc).long()
+            selc = sel.clamp_max(n - 1)  # junk slots re-render the last lane and are dropped
         xs0, ys0 = (selc % width).to(dt), (selc // width).to(dt)
 
         def trace_c(o3, d3):
-            o = call(lay, prm0, o3.contiguous(), d3.contiguous())
-            color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
-            return finish_aa_mc(packed, prm0, color, cont, atten, ro, rd, call)
+            with span("c2rt.tap"):
+                o = call(lay, prm0, o3.contiguous(), d3.contiguous())
+                color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
+                return finish_aa_mc(packed, prm0, color, cont, atten, ro, rd, call)
 
         def samples_c(xx, yy, k):
             """The DoF loop on the compacted lanes with the FULL-WIDTH
@@ -694,15 +709,16 @@ def build_rows_renderer(static: SceneStatic, width: int, height: int, n_lanes: i
     def lin_tap(packed, prm0, prm_tap, base, lanes, finish, call, plan=False, texel_reuse=None):
         """One tap of ``lanes`` pixels from ``base`` through the lin-input
         form (``plan`` and ``texel_reuse`` as in the flagship renderer's tap)."""
-        prm = prm_tap.clone()
-        prm[l0] = float(exact_lane_base(base))
-        o = call(lay, prm, lin=(base, lanes))
-        dirs = None
-        if static.has_env:  # the JAX package's ``_lin_dirs``
-            dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), base, lanes)[1]
-        out = combine_outputs(packed, static, o, dirs, plan, texel_reuse)
-        img = finish(packed, prm0, *out[:5], call)
-        return (img, out[5]) if plan else img
+        with span("c2rt.tap"):
+            prm = prm_tap.clone()
+            prm[l0] = float(exact_lane_base(base))
+            o = call(lay, prm, lin=(base, lanes))
+            dirs = None
+            if static.has_env:  # the JAX package's ``_lin_dirs``
+                dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), base, lanes)[1]
+            out = combine_outputs(packed, static, o, dirs, plan, texel_reuse)
+            img = finish(packed, prm0, *out[:5], call)
+            return (img, out[5]) if plan else img
 
     if slabs is None:
         finish = build_bounce_finisher(static, width, height, n, is_slab=n < width * height)

@@ -35,9 +35,11 @@ so the two agree to the kernel's float differences.
 
 Where JAX skipped an all-dead bounce with ``lax.cond``, the port reads the
 alive mask on the host: one ``.any()`` per bounce after the first, over all
-K * C lanes.  When a gradient is recorded, each K1 call goes through
-``round0_grad.diff_round0`` (K1's residual form forward, the leaf-pinned
-re-shade backward, which also recomputes the hit rows), and
+K * C lanes (``utils/spans.read_any``, counted by site).  Under a running
+``torch.profiler`` each batch of K paths carries a ``c2rt.tap`` span and
+each bounce a ``c2rt.round`` span.  When a gradient is recorded, each K1
+call goes through ``round0_grad.diff_round0`` (K1's residual form forward,
+the leaf-pinned re-shade backward, which also recomputes the hit rows), and
 ``gi_remat_paths`` wraps each batch of K paths in
 ``torch.utils.checkpoint`` (recomputed in the backward instead of keeping
 every bounce's rows; keys are host values and every decision is
@@ -58,6 +60,7 @@ from . import shade as S
 from .camera import begin_frame, screen_rays
 from .round0 import layout, round0, supports_gi
 from .round0_grad import diff_round0
+from ..utils.spans import read_any, span
 
 # GI bounce rounds run (each is one round-0 call); callers zero and read it
 bounce_rounds = 0
@@ -115,30 +118,31 @@ def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, 
         mult = torch.ones_like(orig)
         alive = torch.ones(orig.shape[:-1], dtype=torch.bool, device=orig.device)
         for r in range(static.max_trace_depth + 1):
-            if r and not bool(alive.any()):  # host sync: JAX's lax.cond predicate
+            if r and not read_any("gi.alive", alive):  # JAX's lax.cond predicate
                 break
             bounce_rounds += 1
-            rays = (orig.contiguous(), dir.contiguous())
-            o = diff_round0(lay, prm, packed, *rays, trace=trace)  # the plain call when nothing requires grad
-            win, normal, diffuse, L = hit_of(packed, o)
-            hitmask = alive & (win >= 0)
-            N = S.faceforward(dir, normal)
-            mult_eff = torch.ones_like(mult) if static.gi_multiplier_quirk else mult
-            if static.has_env:
-                acc = acc + env_miss_term(packed, static, alive, win, dir, mult_eff)
-            if static.gi_point_light_direct:
-                nee = diffuse * (1.0 / torch.pi) * (L - packed.ambient)
-                acc = acc + torch.where(hitmask[..., None], mult_eff * nee, 0.0)
-            sp = np.stack([prng.split(k, 3) for k in keys])  # per slab: its chain, u's key, v's key
-            keys = sp[:, 0]
-            u = _draw(uniform, sp[:, 1], C, orig.dtype, orig.device)
-            v = _draw(uniform, sp[:, 2], C, orig.dtype, orig.device)
-            w, mult = hemisphere_bounce(mult, N, diffuse, u, v)
-            ts = torch.where(hitmask, o["t"], 0.0)
-            p = orig + dir * ts[..., None]
-            orig = torch.where(hitmask[..., None], p + N * eps, orig)
-            dir = torch.where(hitmask[..., None], w, dir)
-            alive = hitmask
+            with span("c2rt.round"):
+                rays = (orig.contiguous(), dir.contiguous())
+                o = diff_round0(lay, prm, packed, *rays, trace=trace)  # the plain call when nothing requires grad
+                win, normal, diffuse, L = hit_of(packed, o)
+                hitmask = alive & (win >= 0)
+                N = S.faceforward(dir, normal)
+                mult_eff = torch.ones_like(mult) if static.gi_multiplier_quirk else mult
+                if static.has_env:
+                    acc = acc + env_miss_term(packed, static, alive, win, dir, mult_eff)
+                if static.gi_point_light_direct:
+                    nee = diffuse * (1.0 / torch.pi) * (L - packed.ambient)
+                    acc = acc + torch.where(hitmask[..., None], mult_eff * nee, 0.0)
+                sp = np.stack([prng.split(k, 3) for k in keys])  # per slab: its chain, u's key, v's key
+                keys = sp[:, 0]
+                u = _draw(uniform, sp[:, 1], C, orig.dtype, orig.device)
+                v = _draw(uniform, sp[:, 2], C, orig.dtype, orig.device)
+                w, mult = hemisphere_bounce(mult, N, diffuse, u, v)
+                ts = torch.where(hitmask, o["t"], 0.0)
+                p = orig + dir * ts[..., None]
+                orig = torch.where(hitmask[..., None], p + N * eps, orig)
+                dir = torch.where(hitmask[..., None], w, dir)
+                alive = hitmask
         return acc
 
     tracer.layout = lay
@@ -178,11 +182,12 @@ def build_gi_renderer(static: SceneStatic, width: int, height: int, trace=round0
         def batch(xx, yy, kj, kj2, kr):
             """K paths of the C pixels (xx, yy): K jittered slabs traced in
             one call, summed over the slabs."""
-            jx = (xx + _draw(uniform, kj, C, dt, dev).reshape(K, C)).reshape(K * C)
-            jy = (yy + _draw(uniform, kj2, C, dt, dev).reshape(K, C)).reshape(K * C)
-            o3, d3 = screen_rays(packed.camera, frame, float(width), float(height), jx, jy, 0.0)
-            out = tracer(packed, o3, d3, kr, prm)
-            return out if K == 1 else out.reshape(K, C, 3).sum(0)
+            with span("c2rt.tap"):
+                jx = (xx + _draw(uniform, kj, C, dt, dev).reshape(K, C)).reshape(K * C)
+                jy = (yy + _draw(uniform, kj2, C, dt, dev).reshape(K, C)).reshape(K * C)
+                o3, d3 = screen_rays(packed.camera, frame, float(width), float(height), jx, jy, 0.0)
+                out = tracer(packed, o3, d3, kr, prm)
+                return out if K == 1 else out.reshape(K, C, 3).sum(0)
 
         def samples(xx, yy, k):
             acc = torch.zeros(xx.shape + (3,), dtype=dt, device=dev)

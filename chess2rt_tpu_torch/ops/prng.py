@@ -37,6 +37,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from ..utils.spans import span
+
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -153,11 +155,12 @@ def uniform(key, shape: Union[int, Sequence[int]], dtype=torch.float32, *, devic
     on the CPU.  There is no fallback between the two."""
     _check_dtype(dtype)
     dev = torch.device(device)
-    if dev.type == "cpu":
-        return uniform_reference(key, shape, dtype, device=dev)
-    if dev.type != "cuda":
-        raise RuntimeError(f"uniform: no kernel for device {dev}")
-    return _uniform_cuda(key, _shape(shape), dtype, dev)
+    with span("c2rt.draw"):
+        if dev.type == "cpu":
+            return uniform_reference(key, shape, dtype, device=dev)
+        if dev.type != "cuda":
+            raise RuntimeError(f"uniform: no kernel for device {dev}")
+        return _uniform_cuda(key, _shape(shape), dtype, dev)
 
 
 def _uniform_cuda(key, shape, dtype, dev):
@@ -199,13 +202,14 @@ def uniform_keys(keys, C: int, dtype=torch.float32, *, device) -> torch.Tensor:
     _check_dtype(dtype)
     keys = as_keys(keys)
     dev = torch.device(device)
-    if dev.type == "cpu":
-        return uniform_keys_reference(keys, C, dtype, device=dev)
-    if dev.type != "cuda":
-        raise RuntimeError(f"uniform_keys: no kernel for device {dev}")
-    if keys.shape[0] > MAX_KEYS:
-        raise ValueError(f"uniform_keys: at most {MAX_KEYS} keys per draw, got {keys.shape[0]}")
-    return _uniform_keys_cuda(keys, int(C), dtype, dev)
+    with span("c2rt.draw"):
+        if dev.type == "cpu":
+            return uniform_keys_reference(keys, C, dtype, device=dev)
+        if dev.type != "cuda":
+            raise RuntimeError(f"uniform_keys: no kernel for device {dev}")
+        if keys.shape[0] > MAX_KEYS:
+            raise ValueError(f"uniform_keys: at most {MAX_KEYS} keys per draw, got {keys.shape[0]}")
+        return _uniform_keys_cuda(keys, int(C), dtype, dev)
 
 
 def _uniform_keys_cuda(keys, C, dtype, dev):

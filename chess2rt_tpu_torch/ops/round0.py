@@ -47,6 +47,7 @@ from ..models.packed import (
     SceneStatic,
 )
 from .camera import begin_frame
+from ..utils.spans import span
 
 # lane granularity the JAX package pads to (its (8, 128) tile); kept for the
 # bounce-capacity rounding, which both packages must share to take the same
@@ -1179,7 +1180,8 @@ def round0(
 
     ``prm`` on a CUDA device launches csrc/round0.cu (or raises); on the
     CPU it runs ``round0_reference``.  There is no fallback between the two.
-    Returns the same dict as ``round0_reference``."""
+    Returns the same dict as ``round0_reference``.  Under a running
+    ``torch.profiler`` the call is the span ``c2rt.k1``."""
     if want_hit or want_vis:
         lay = layout(lay.static, lay.width, lay.height, lay.want_hit or want_hit, lay.want_vis or want_vis)
     if (orig is None) != (dir is None):
@@ -1189,11 +1191,12 @@ def round0(
     n = _lane_count(lay, lin_input, n_lanes) if orig is None else None
     if placement not in (None, "shared", "global"):
         raise ValueError(f"round0: placement must be 'shared' or 'global', got {placement!r}")
-    if prm.device.type == "cpu":
-        return round0_reference(lay, prm, orig, dir, lin_input=lin_input, n_lanes=n_lanes)
-    if prm.device.type != "cuda":
-        raise RuntimeError(f"round0: no kernel for device {prm.device}")
-    return _round0_cuda(lay, prm, orig, dir, n, lin_input, placement)
+    with span("c2rt.k1"):
+        if prm.device.type == "cpu":
+            return round0_reference(lay, prm, orig, dir, lin_input=lin_input, n_lanes=n_lanes)
+        if prm.device.type != "cuda":
+            raise RuntimeError(f"round0: no kernel for device {prm.device}")
+        return _round0_cuda(lay, prm, orig, dir, n, lin_input, placement)
 
 
 def _check(name, t, dtype, shape, device):

@@ -64,6 +64,7 @@ from . import geometry as G
 from . import shade as S
 from .camera import begin_frame, screen_rays
 from .round0 import EPS_SHADOW, INF, Round0Layout, _rsqrt, layout, round0
+from ..utils.spans import span
 
 _norm = G._norm
 dot = G.dot
@@ -493,23 +494,25 @@ class _DiffRound0(torch.autograd.Function):
         result = [None] * len(tensors)
         if not pairs or not any(need):
             return (None,) * 7 + tuple(result)
-        with torch.enable_grad():
+        with span("c2rt.bwd.k1"), torch.enable_grad():
             xs = [t.detach().requires_grad_(nd) for t, nd in zip(tensors, need)]
             packed = from_leaves(xs[2 if ctx.ray_input else 0:])
             orig, dir = form_rays(packed, lay, prm, ctx.form, xs)
             rec_pins = None
             if ctx.leaf_pins:
-                with torch.no_grad():
+                with span("c2rt.bwd.pins"), torch.no_grad():
                     rec_pins = (*compute_leaf_pins(packed, static, orig, dir, win, t_pin), n_pin)
             # the caller's layout had the hit rows when its names hold "t"
-            out = reshade(packed, static, orig, dir, win, list(vis.unbind(0)), rec_pins,
-                          want_hit="t" in ctx.names, bump=ctx.bump)
+            with span("c2rt.bwd.reshade"):
+                out = reshade(packed, static, orig, dir, win, list(vis.unbind(0)), rec_pins,
+                              want_hit="t" in ctx.names, bump=ctx.bump)
             pairs = [(out[k], g) for k, g in pairs if out[k].requires_grad]
             wanted = [i for i, x in enumerate(xs) if x.requires_grad]
             if pairs:
-                got = torch.autograd.grad(
-                    [o for o, _ in pairs], [xs[i] for i in wanted], [g for _, g in pairs], allow_unused=True
-                )
+                with span("c2rt.bwd.vjp"):
+                    got = torch.autograd.grad(
+                        [o for o, _ in pairs], [xs[i] for i in wanted], [g for _, g in pairs], allow_unused=True
+                    )
                 for i, g in zip(wanted, got):
                     result[i] = g
         return (None,) * 7 + tuple(result)

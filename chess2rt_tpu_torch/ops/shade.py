@@ -33,6 +33,7 @@ import torch
 from ..models.packed import PHONG, TEX_BITMAP, TEX_CHECKER, TEX_PROC2, ScenePacked, SceneStatic
 from . import geometry as G
 from .texel_hist import texel_histogram
+from ..utils.spans import span
 
 
 def _norm(v):
@@ -178,15 +179,16 @@ class _QuadGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (key,) = ctx.saved_tensors
-        kf = key.reshape(-1)
-        gf = g.reshape(kf.shape[0], g.shape[-1])
-        if ctx.mode != "scatter":
-            sk, perm = torch.sort(kf, stable=True)
-            kf, gf = sk, gf[perm].contiguous()
-            if ctx.mode == "histogram" and g.dtype == torch.float32:
-                return texel_histogram(kf, gf, ctx.n_rows), None, None
-        out = torch.zeros((ctx.n_rows, g.shape[-1]), dtype=g.dtype, device=g.device)
-        return out.index_add_(0, kf.long(), gf), None, None
+        with span("c2rt.bwd.texel"):
+            kf = key.reshape(-1)
+            gf = g.reshape(kf.shape[0], g.shape[-1])
+            if ctx.mode != "scatter":
+                sk, perm = torch.sort(kf, stable=True)
+                kf, gf = sk, gf[perm].contiguous()
+                if ctx.mode == "histogram" and g.dtype == torch.float32:
+                    return texel_histogram(kf, gf, ctx.n_rows), None, None
+            out = torch.zeros((ctx.n_rows, g.shape[-1]), dtype=g.dtype, device=g.device)
+            return out.index_add_(0, kf.long(), gf), None, None
 
 
 def quad_gather_flat(table, key, mode="histogram"):

@@ -21,7 +21,8 @@ The JAX package's round loops translate as: ``lax.scan`` over rounds -> a Python
 that skips a round whose wavefront is all dead (one host read of the
 alive mask per round), ``fast_forward``'s ``while_loop`` -> the same loop
 stopping at the first dead round, ``lax.cond`` compaction in
-``continue_bounces`` -> a host decision on the live count.
+``continue_bounces`` -> a host decision on the live count.  Each host read
+goes through ``utils/spans.read_any`` or ``read_count``, counted by site.
 ``remat_rounds`` becomes ``torch.utils.checkpoint`` around each round when
 a gradient is recorded (recomputed in the backward, shadow scans included:
 torch has no counterpart of the JAX policy that saves only the shadow bits).
@@ -69,6 +70,7 @@ from ..ops import prng
 from ..ops import shade as S
 from ..ops.camera import begin_frame, screen_rays
 from ..ops.env import sample_cubemap
+from ..utils.spans import read_any, read_count, span
 
 INF = G.INF
 
@@ -223,7 +225,7 @@ def _run_rounds(packed, static, carry, n_rounds):
     run = _one_round(packed, static)
     remat = static.remat_rounds and torch.is_grad_enabled()
     for _ in range(n_rounds):
-        if not bool(carry[2].any()):
+        if not read_any("pipeline.rounds_alive", carry[2]):
             if static.fast_forward:
                 break
             continue
@@ -249,14 +251,15 @@ def continue_bounces(packed, static, color, atten, alive, orig, dir, n_rounds):
     if n_rounds <= 0:
         return color
     n, cap = orig.shape[0], static.bounce_capacity
-    count = int(alive.sum()) if _compacts(static, orig) else None  # host sync: JAX's lax.cond predicate
+    count = read_count("pipeline.compact_count", alive) if _compacts(static, orig) else None  # JAX's lax.cond
     if count is None or count > cap:
         out = _run_rounds(packed, static, (torch.zeros_like(color), atten, alive, orig, dir), n_rounds)
         return color + out[0]
-    sel = compact_indices(alive, n, cap).long()
     lane_live = torch.arange(cap, device=alive.device) < count  # slots past the live set are dead
-    # one merged row gather; junk slots clamp onto the last lane, as JAX's gather does
-    g = torch.cat([atten, orig, dir], dim=-1)[sel.clamp_max(n - 1)]
+    with span("c2rt.gather"):
+        sel = compact_indices(alive, n, cap).long()
+        # one merged row gather; junk slots clamp onto the last lane, as JAX's gather does
+        g = torch.cat([atten, orig, dir], dim=-1)[sel.clamp_max(n - 1)]
     sub = (torch.zeros((cap, 3), dtype=color.dtype, device=color.device), g[:, 0:3], lane_live, g[:, 3:6], g[:, 6:9])
     out = _run_rounds(packed, static, sub, n_rounds)
     # the live slots scatter back; the junk ones (JAX's dropped out-of-range updates) are left out
@@ -324,7 +327,7 @@ def trace_path(packed: ScenePacked, static: SceneStatic, orig, dir, key):
     alive = torch.ones(orig.shape[:-1], dtype=torch.bool, device=orig.device)
     key = prng.as_key(key)
     for r in range(static.max_trace_depth + 1):
-        if r and not bool(alive.any()):  # host sync: the rest of the bounces are no-ops
+        if r and not read_any("pipeline.path_alive", alive):  # the rest of the bounces are no-ops
             break
         hit, win = G.scene_closest(packed, static, orig, dir)
         hitmask = alive & (win >= 0)
@@ -529,18 +532,21 @@ def render_frame(packed: ScenePacked, static: SceneStatic, key=None):
     ``ops/round0.supports_gi`` covers; the eager twin
     (``render_frame_wavefront``, ``trace_path`` for GI) for every other
     frame it renders, float64 included.  ``key`` (a threefry key of
-    ops/prng.py; None is ``PRNGKey(0)``) seeds the Monte-Carlo frames."""
+    ops/prng.py; None is ``PRNGKey(0)``) seeds the Monte-Carlo frames.
+    Under a running ``torch.profiler`` the call is the span ``c2rt.frame``
+    (utils/spans.py)."""
     from ..ops.round0 import supports, supports_gi
 
-    if packed.dtype == torch.float32 and supports(static):
-        from ..ops.flagship import build_flagship_renderer
+    with span("c2rt.frame"):
+        if packed.dtype == torch.float32 and supports(static):
+            from ..ops.flagship import build_flagship_renderer
 
-        return build_flagship_renderer(static, static.width, static.height)(packed, key)
-    if packed.dtype == torch.float32 and supports_gi(static):
-        from ..ops.gi import build_gi_renderer
+            return build_flagship_renderer(static, static.width, static.height)(packed, key)
+        if packed.dtype == torch.float32 and supports_gi(static):
+            from ..ops.gi import build_gi_renderer
 
-        return build_gi_renderer(static, static.width, static.height)(packed, key)
-    return render_frame_wavefront(packed, static, key)
+            return build_gi_renderer(static, static.width, static.height)(packed, key)
+        return render_frame_wavefront(packed, static, key)
 
 
 def render_scene(scene, dtype=torch.float32, key=None, fix=None, device=None):

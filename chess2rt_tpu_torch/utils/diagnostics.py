@@ -14,7 +14,8 @@ introspection is a click-to-inspect pixel dump and wall-clock runs; here:
   ``jax_debug_nans``), and ``torch.autograd.detect_anomaly`` watches a
   backward run inside;
 * ``profile_trace``: ``torch.profiler`` around a call, with a Chrome trace
-  written to a directory.
+  written to a directory; the trace carries the program's ``c2rt.*`` spans
+  (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -130,7 +131,19 @@ def nan_sweep(packed: ScenePacked, static: SceneStatic, key=None):
 def profile_trace(fn, *args, logdir=None):
     """Run ``fn(*args)`` under ``torch.profiler`` (the card's activity too
     when there is one) and write its Chrome trace into ``logdir`` (a new
-    temporary directory when None); returns (result, logdir)."""
+    temporary directory when None); returns (result, logdir).
+
+    Beside the aten ops and the card's kernels, the trace holds the
+    program's own spans (utils/spans.py), host events on the same clock:
+    ``c2rt.frame`` (a ``render_frame`` call), ``c2rt.tap`` (an AA tap or a
+    pass of rays, a GI batch of paths), ``c2rt.round`` (a bounce round),
+    ``c2rt.k1`` (K1's call), ``c2rt.gather``, ``c2rt.draw``,
+    ``c2rt.sync.<site>`` (a host read of device data that waits for the
+    card) and the backward's ``c2rt.bwd.k1`` (with ``c2rt.bwd.pins``,
+    ``c2rt.bwd.reshade``, ``c2rt.bwd.vjp``) and ``c2rt.bwd.texel``.  Open
+    ``trace.json`` in Perfetto or ``chrome://tracing`` and filter by
+    ``c2rt.``: a gap in the card's row under a span is host time of that
+    part of the program, a gap under ``c2rt.sync.*`` a wait for the card."""
     from torch.profiler import ProfilerActivity, profile
 
     logdir = logdir or tempfile.mkdtemp(prefix="chess2rt_profile_")

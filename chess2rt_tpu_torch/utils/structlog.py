@@ -27,7 +27,7 @@ from typing import Any, Dict, List, Optional
 
 
 class StructLogger:
-    """JSON-lines event logger with an in-memory ring for tests/summaries."""
+    """JSON-lines event logger with an in-memory ring of recent records."""
 
     def __init__(self, stream=None, keep: int = 256):
         self.stream = stream  # None = silent (records still kept)
@@ -59,21 +59,6 @@ class StructLogger:
         finally:
             rec["wall_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
             self.emit("frame", **rec)
-
-    def summary(self, event: str = "frame") -> Dict[str, Any]:
-        """Aggregate stats over kept records of one event kind."""
-        rs = [r for r in self.records if r["event"] == event]
-        if not rs:
-            return {"count": 0}
-        walls = [r["wall_ms"] for r in rs if "wall_ms" in r]
-        out: Dict[str, Any] = {"count": len(rs)}
-        if walls:
-            out["wall_ms_mean"] = sum(walls) / len(walls)
-            out["wall_ms_min"] = min(walls)
-        rays = [r["rays"] for r in rs if "rays" in r]
-        if rays and walls:
-            out["rays_per_sec"] = sum(rays) / (sum(walls) / 1e3)
-        return out
 
 
 _default: Optional[StructLogger] = None

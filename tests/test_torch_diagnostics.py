@@ -14,6 +14,7 @@ compile once each.
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -139,3 +140,6 @@ def test_profile_trace_writes_a_trace(tmp_path):
     with torch.no_grad():
         out, logdir = TD.profile_trace(lambda: TD.render_frame(tp, ts), logdir=str(tmp_path / "prof"))
     assert out.shape == (6, 8, 3) and os.path.getsize(os.path.join(logdir, "trace.json")) > 0
+    with open(os.path.join(logdir, "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"c2rt.frame", "c2rt.tap", "c2rt.k1"} <= names
