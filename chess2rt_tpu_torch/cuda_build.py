@@ -5,14 +5,18 @@ The pattern of chess2rt_tpu/native.py without its numpy fallback: each
 library is built at first use into ``build/``, named by a hash of its
 source and its flags, and loaded once per process.  A source can give
 several libraries: the stage probes (K3) are csrc/round0.cu compiled with
-``-DC2RT_STAGE=k``.  The missing libraries are built together, one ``nvcc``
-per library, all started at once.  Nothing is built or loaded at import time.  A missing
+``-DC2RT_STAGE=k``.  A library's name hashes its source, the headers of
+csrc/ (``threefry.cuh``) and its flags.  The missing libraries are built
+together, one ``nvcc`` per library, all started at once.  Nothing is built
+or loaded at import time.  A missing
 ``nvcc`` or a failed build raises: there is no CUDA path without the kernel.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` (a plain C interface, so no PyTorch headers and no
 ninja).  No ``--use_fast_math``: it changes division, sqrt and sin, and
-moves knife-edge winners.
+moves knife-edge winners.  csrc/gi_bounce.cu adds ``-fmad=false``: it
+mirrors torch glue whose every op is a kernel of its own, so no product
+is fused into an add there.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ SOURCES = {
     "round0": ("round0.cu", ()),
     "texel_hist": ("texel_hist.cu", ()),
     "threefry": ("threefry.cu", ()),
+    "gi_bounce": ("gi_bounce.cu", ("-fmad=false",)),
     **{f"round0_{stage}": ("round0.cu", (f"-DC2RT_STAGE={k}",)) for stage, k in STAGES.items()},
 }
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -58,6 +63,11 @@ _EXPORTS = {
     "threefry": (
         ("c2rt_uniform", [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _vp, _ci, _vp], _ci),
         ("c2rt_uniform_keys", [_vp, _ci, ctypes.c_longlong, _vp, _ci, _vp], _ci),
+        ("c2rt_error_string", [_ci], ctypes.c_char_p),
+    ),
+    "gi_bounce": (
+        ("c2rt_gi_bounce", [_vp, _vp, _ci, ctypes.c_longlong, _vp, ctypes.c_longlong, _vp, ctypes.c_float, _ci, _vp],
+         _ci),
         ("c2rt_error_string", [_ci], ctypes.c_char_p),
     ),
 }
@@ -85,8 +95,9 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> str:
     source, flags = SOURCES[name]
     h = hashlib.sha256()
-    with open(os.path.join(_CSRC, source), "rb") as f:
-        h.update(f.read())
+    for part in (source, *sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))):
+        with open(os.path.join(_CSRC, part), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(ARCH_FLAGS + BASE_FLAGS + flags).encode())
     return os.path.join(BUILD_DIR, f"libc2rt_{name}_{h.hexdigest()[:16]}.so")
 

@@ -1,4 +1,5 @@
-"""The fused GI renderer: K1's want_hit ray-input form per bounce + torch glue.
+"""The fused GI renderer: K1's want_hit ray-input form per bounce, then one
+fused bounce kernel (or its torch glue).
 
 Counterpart of chess2rt_tpu/ops/pallas_trace.py:2144-2434 (``supports_gi``,
 here ``ops/round0.supports_gi``; ``build_gi_tracer``; ``build_gi_renderer``):
@@ -8,9 +9,12 @@ so the two agree to the kernel's float differences.
 
     per path:    jittered camera rays (screen_rays)  ->  per bounce:
                  round0 (ray-input, want_hit: win, t, raw normal, diffuse,
-                 light sum)  ->  deferred bitmap texels, the environment's
-                 miss term, the NEE term diffuse / pi * (L - ambient), the
-                 hemisphere sample and the path's next ray in torch
+                 light sum)  ->  deferred bitmap texels and the
+                 environment's miss term in torch  ->  the NEE term
+                 diffuse / pi * (L - ambient), the two draws, the
+                 hemisphere sample and the path's next ray: one launch of
+                 csrc/gi_bounce.cu (``gi_bounce``), or the torch glue
+                 (``bounce_reference``)
 
 * ``build_gi_tracer``: the kernel-backed ``trace_path`` for K path-slabs
   of C rays with a key each ([K * C, 3] rays, keys [K, 2]): each bounce one
@@ -20,6 +24,13 @@ so the two agree to the kernel's float differences.
   ``prng.uniform_keys``).  K1's light sum L includes the ambient term
   (``shade_direct``'s base) and uses the same faceforward normal and shadow
   origin as the twin's NEE, so the NEE term is diffuse / pi * (L - ambient).
+* The bounce after K1 takes the fused kernel ``gi_bounce`` when the rays
+  are on a CUDA device, ``trace`` is ``round0``, ``uniform`` is None and no
+  gradient is recorded (``diff_round0``'s own test: grad mode on and a ray
+  or a scene leaf requiring grad); it draws u and v inline, bit-equal to
+  ``prng.uniform_keys``, and updates the path state in place.  Otherwise
+  ``bounce_reference``, the same arithmetic as differentiable torch ops
+  (the CPU, the plain frame, the GI step, ``gi_remat_paths``' recompute).
 * ``build_gi_renderer``: the Monte-Carlo loop over ``paths_per_pixel``
   paths (each ``split(key, 4)``: the x and y jitter and the path), quirk AA
   (5 taps everywhere) or adaptive AA (the 4 extra taps at full width, the
@@ -36,8 +47,9 @@ so the two agree to the kernel's float differences.
 Where JAX skipped an all-dead bounce with ``lax.cond``, the port reads the
 alive mask on the host: one ``.any()`` per bounce after the first, over all
 K * C lanes (``utils/spans.read_any``, counted by site).  Under a running
-``torch.profiler`` each batch of K paths carries a ``c2rt.tap`` span and
-each bounce a ``c2rt.round`` span.  When a gradient is recorded, each K1
+``torch.profiler`` each batch of K paths carries a ``c2rt.tap`` span, each
+bounce a ``c2rt.round`` span and each fused bounce kernel a
+``c2rt.gi_bounce`` span.  When a gradient is recorded, each K1
 call goes through ``round0_grad.diff_round0`` (K1's residual form forward,
 the leaf-pinned re-shade backward, which also recomputes the hit rows), and
 ``gi_remat_paths`` wraps each batch of K paths in
@@ -45,7 +57,8 @@ the leaf-pinned re-shade backward, which also recomputes the hit rows), and
 every bounce's rows; keys are host values and every decision is
 deterministic, so the recompute takes the same branches and draws the same
 bits).  ``bounce_rounds`` counts the bounce rounds run (one K1 call each),
-so a K-path batch counts its rounds once.
+so a K-path batch counts its rounds once; ``bounce_kernels`` and
+``glue_bounces`` split them by the path that finished them.
 """
 
 from __future__ import annotations
@@ -54,7 +67,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models.packed import TEX_BITMAP, ScenePacked, SceneStatic
+from ..models.packed import TEX_BITMAP, ScenePacked, SceneStatic, leaves
 from . import prng
 from . import shade as S
 from .camera import begin_frame, screen_rays
@@ -62,8 +75,12 @@ from .round0 import layout, round0, supports_gi
 from .round0_grad import diff_round0
 from ..utils.spans import read_any, span
 
-# GI bounce rounds run (each is one round-0 call); callers zero and read it
+# GI bounce rounds run (each is one round-0 call), and of them the rounds
+# finished by csrc/gi_bounce.cu (one launch each) and by the torch glue:
+# bounce_rounds == bounce_kernels + glue_bounces.  Callers zero and read them.
 bounce_rounds = 0
+bounce_kernels = 0
+glue_bounces = 0
 
 
 def _draw(uniform, keys, C, dtype, device):
@@ -77,6 +94,96 @@ def _draw(uniform, keys, C, dtype, device):
     return torch.cat([uniform(k, (C,), dtype, device=device) for k in keys])
 
 
+def bounce_reference(static: SceneStatic, o, diffuse, ambient, orig, dir, mult, acc, alive, u, v, eps: float):
+    """One bounce round after K1 in torch, the plain version of
+    ``gi_bounce``: from K1's rows ``o`` (``diffuse`` the [n, 3] albedo with
+    the bitmap texels gathered, or None for K1's rows), the scene's
+    ``ambient``, the path state (orig, dir, mult, acc [n, 3], alive [n]) and
+    the uniforms ``u``, ``v`` [n]: the NEE term of the lanes that hit
+    (``gi_point_light_direct``), the hemisphere sample and its weight (every
+    lane) and the next ray of the lanes that hit.  Returns the new (orig,
+    dir, mult, acc, alive); differentiable, nothing in place."""
+    global glue_bounces
+    from ..render.pipeline import hemisphere_bounce
+
+    glue_bounces += 1
+    normal = torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1)
+    if diffuse is None:
+        diffuse = torch.stack([o["dr"], o["dg"], o["db"]], dim=-1)
+    hitmask = alive & (o["win"] >= 0)
+    N = S.faceforward(dir, normal)
+    if static.gi_point_light_direct:
+        mult_eff = torch.ones_like(mult) if static.gi_multiplier_quirk else mult
+        nee = diffuse * (1.0 / torch.pi) * (torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1) - ambient)
+        acc = acc + torch.where(hitmask[..., None], mult_eff * nee, 0.0)
+    w, mult = hemisphere_bounce(mult, N, diffuse, u, v)
+    ts = torch.where(hitmask, o["t"], 0.0)
+    p = orig + dir * ts[..., None]
+    orig = torch.where(hitmask[..., None], p + N * eps, orig)
+    dir = torch.where(hitmask[..., None], w, dir)
+    return orig, dir, mult, acc, hitmask
+
+
+# K1's rows that csrc/gi_bounce.cu reads, in its order (then the albedo, win
+# and the ambient colour)
+_ROWS = ("t", "nx", "ny", "nz", "lr", "lg", "lb")
+
+
+def gi_bounce(static: SceneStatic, o, diffuse, ambient, orig, dir, mult, acc, alive, keys_u, keys_v, eps: float):
+    """``bounce_reference`` in one launch of csrc/gi_bounce.cu, with the
+    draws inline: u and v are ``prng.uniform_keys(keys_u, C)`` and
+    ``prng.uniform_keys(keys_v, C)`` ([K, 2] keys, C = n / K lanes a slab),
+    bit for bit.  Float32 CUDA tensors, K1's rows as ``round0`` returns
+    them; the path state (orig, dir, mult, acc [n, 3], contiguous; alive
+    [n] bool) is updated in place and returned as ``bounce_reference``
+    returns it.  Records nothing for autograd: the tracer calls it only
+    when no gradient is recorded.  A ``c2rt.gi_bounce`` span under a
+    running profiler; ``bounce_kernels`` counts the launches."""
+    global bounce_kernels
+    from .. import cuda_build
+
+    with span("c2rt.gi_bounce"):
+        args, _hold = bounce_args(static, o, diffuse, ambient, orig, dir, mult, acc, alive, keys_u, keys_v, eps)
+        lib = cuda_build.load("gi_bounce")
+        with torch.cuda.device(orig.device):
+            err = lib.c2rt_gi_bounce(*args, torch.cuda.current_stream(orig.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gi_bounce: kernel launch failed: {cuda_build.error_string('gi_bounce', err)}")
+        bounce_kernels += 1
+    return orig, dir, mult, acc, alive
+
+
+def bounce_args(static: SceneStatic, o, diffuse, ambient, orig, dir, mult, acc, alive, keys_u, keys_v, eps: float):
+    """``gi_bounce``'s inputs checked and marshalled for csrc/gi_bounce.cu:
+    (``c2rt_gi_bounce``'s arguments but the stream, the host arrays and
+    tensors they point into, to be held until the launch)."""
+    ku, kv = np.asarray(keys_u, dtype=np.uint32), np.asarray(keys_v, dtype=np.uint32)
+    K, n, dev = ku.shape[0] if ku.ndim == 2 else 0, orig.shape[0], orig.device
+    if ku.shape != (K, 2) or kv.shape != (K, 2) or not 1 <= K <= prng.MAX_KEYS or n % K:
+        raise ValueError(f"gi_bounce: {n} lanes and keys {ku.shape}, {kv.shape}: want two [K, 2] tables, "
+                         f"1 <= K <= {prng.MAX_KEYS} dividing the lanes")
+    state = (orig, dir, mult, acc, alive)
+    for name, x in zip(("orig", "dir", "mult", "acc", "alive"), state):
+        shape, dtype = ((n,), torch.bool) if name == "alive" else ((n, 3), torch.float32)
+        if x.dtype != dtype or x.shape != shape or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"gi_bounce: {name} must be a contiguous {list(shape)} {dtype} tensor on {dev}")
+    if diffuse is None:
+        albedo, stride = [o[k].data_ptr() for k in ("dr", "dg", "db")], 1
+    elif diffuse.dtype != torch.float32 or diffuse.shape != (n, 3) or not diffuse.is_contiguous():
+        raise ValueError(f"gi_bounce: diffuse must be a contiguous [{n}, 3] float32 tensor")
+    else:
+        albedo, stride = [diffuse.data_ptr() + 4 * k for k in range(3)], 3
+    ambient = ambient.to(device=dev, dtype=torch.float32).contiguous()
+    # K1's rows, the albedo, win and the ambient colour (12), then the path state (5)
+    ptrs = np.array([o[k].data_ptr() for k in _ROWS] + albedo + [o["win"].data_ptr(), ambient.data_ptr()]
+                    + [x.data_ptr() for x in state], dtype=np.uint64)
+    keys = np.array([ku, kv])  # [2, K, 2]: u's table, then v's
+    flags = int(static.gi_multiplier_quirk) | 2 * int(static.gi_point_light_direct)
+    at = keys.ctypes.data, ptrs.ctypes.data
+    args = (at[0], at[0] + 8 * K, K, n // K, at[1], stride, at[1] + 8 * 12, eps, flags)
+    return args, (keys, ptrs, ambient)
+
+
 def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, uniform=None):
     """The kernel-backed ``trace_path``: ``tracer(packed, orig, dir, keys,
     prm=None) -> [K * C, 3]`` for K path-slabs of C rays, one path each,
@@ -85,25 +192,22 @@ def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, 
     packed on each call when None).  ``trace`` is K1's call (``round0``, or
     its plain version ``round0_reference``), ``uniform`` the draw (None:
     ``prng.uniform``, batched ``prng.uniform_keys``; with the plain version
-    ``prng.uniform_reference``, its draws concatenated)."""
-    from ..render.pipeline import env_miss_term, hemisphere_bounce
+    ``prng.uniform_reference``, its draws concatenated).  Each bounce ends
+    in ``gi_bounce`` or ``bounce_reference``, as the module docstring says."""
+    from ..render.pipeline import env_miss_term
 
     if not supports_gi(static):
         raise ValueError("build_gi_tracer: all-Lambert GI scenes without DoF only (see supports_gi())")
     lay = layout(static, width, height, want_hit=True)
     has_bitmap = TEX_BITMAP in static.tex_kinds_present
 
-    def hit_of(packed, o):
-        """Kernel rows -> (win, raw normal, diffuse albedo, light sum); the
-        bitmap texels are gathered here (K1 defers them)."""
-        win = o["win"]
-        normal = torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1)
+    def bitmap_diffuse(packed, o):
+        """The diffuse albedo [n, 3] with the bitmap texels gathered (K1
+        defers them)."""
+        winc = torch.clamp_min(o["win"], 0)
+        tex = S.bitmap_color(packed, static, winc, o["u"], o["v"], S.node_onehot(static, winc))
         diffuse = torch.stack([o["dr"], o["dg"], o["db"]], dim=-1)
-        if has_bitmap:
-            winc = torch.clamp_min(win, 0)
-            tex = S.bitmap_color(packed, static, winc, o["u"], o["v"], S.node_onehot(static, winc))
-            diffuse = torch.where((S.tex_kind_of(static, winc) == TEX_BITMAP)[..., None], tex, diffuse)
-        return win, normal, diffuse, torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1)
+        return torch.where((S.tex_kind_of(static, winc) == TEX_BITMAP)[..., None], tex, diffuse)
 
     def tracer(packed: ScenePacked, orig, dir, keys, prm=None):
         global bounce_rounds
@@ -114,6 +218,10 @@ def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, 
         C = orig.shape[0] // keys.shape[0]
         prm = lay.pack(packed) if prm is None else prm
         eps = S.shadow_eps(orig.dtype)
+        fused = (orig.is_cuda and trace is round0 and uniform is None
+                 and not (torch.is_grad_enabled() and any(t.requires_grad for t in (orig, dir, *leaves(packed)))))
+        if fused:  # the path's own rays: the kernel updates them in place
+            orig, dir = (x.clone(memory_format=torch.contiguous_format) for x in (orig, dir))
         acc = torch.zeros_like(orig)
         mult = torch.ones_like(orig)
         alive = torch.ones(orig.shape[:-1], dtype=torch.bool, device=orig.device)
@@ -124,25 +232,20 @@ def build_gi_tracer(static: SceneStatic, width: int, height: int, trace=round0, 
             with span("c2rt.round"):
                 rays = (orig.contiguous(), dir.contiguous())
                 o = diff_round0(lay, prm, packed, *rays, trace=trace)  # the plain call when nothing requires grad
-                win, normal, diffuse, L = hit_of(packed, o)
-                hitmask = alive & (win >= 0)
-                N = S.faceforward(dir, normal)
-                mult_eff = torch.ones_like(mult) if static.gi_multiplier_quirk else mult
+                diffuse = bitmap_diffuse(packed, o) if has_bitmap else None
                 if static.has_env:
-                    acc = acc + env_miss_term(packed, static, alive, win, dir, mult_eff)
-                if static.gi_point_light_direct:
-                    nee = diffuse * (1.0 / torch.pi) * (L - packed.ambient)
-                    acc = acc + torch.where(hitmask[..., None], mult_eff * nee, 0.0)
+                    mult_eff = torch.ones_like(mult) if static.gi_multiplier_quirk else mult
+                    acc = acc + env_miss_term(packed, static, alive, o["win"], dir, mult_eff)
                 sp = np.stack([prng.split(k, 3) for k in keys])  # per slab: its chain, u's key, v's key
                 keys = sp[:, 0]
-                u = _draw(uniform, sp[:, 1], C, orig.dtype, orig.device)
-                v = _draw(uniform, sp[:, 2], C, orig.dtype, orig.device)
-                w, mult = hemisphere_bounce(mult, N, diffuse, u, v)
-                ts = torch.where(hitmask, o["t"], 0.0)
-                p = orig + dir * ts[..., None]
-                orig = torch.where(hitmask[..., None], p + N * eps, orig)
-                dir = torch.where(hitmask[..., None], w, dir)
-                alive = hitmask
+                state = (orig, dir, mult, acc, alive)
+                if fused:
+                    state = gi_bounce(static, o, diffuse, packed.ambient, *state, sp[:, 1], sp[:, 2], eps)
+                else:
+                    u = _draw(uniform, sp[:, 1], C, orig.dtype, orig.device)
+                    v = _draw(uniform, sp[:, 2], C, orig.dtype, orig.device)
+                    state = bounce_reference(static, o, diffuse, packed.ambient, *state, u, v, eps)
+                orig, dir, mult, acc, alive = state
         return acc
 
     tracer.layout = lay

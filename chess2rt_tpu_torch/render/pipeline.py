@@ -283,7 +283,9 @@ def hemisphere_bounce(mult, N, diffuse, u, v):
     """Lambert.spawnRay (shader.d:118-135): the uniform hemisphere direction
     ``w`` about ``N`` from the uniforms ``u``, ``v``, and the path
     multiplier times its BRDF weight, color_eval / pdf (diffuse / pi * cos
-    over 1 / (2 pi)), in the JAX package's op order: (w, new mult)."""
+    over 1 / (2 pi)), in the JAX package's op order: (w, new mult).  The
+    fused GI tracer's bounce kernel (csrc/gi_bounce.cu) computes the same,
+    op for op in float32."""
     theta = 2 * torch.pi * u
     phi = torch.arccos(torch.clamp(2 * v - 1, -1.0, 1.0)) - torch.pi / 2
     w = torch.stack([torch.cos(theta) * torch.cos(phi), torch.sin(phi), torch.sin(theta) * torch.cos(phi)], dim=-1)

@@ -406,6 +406,14 @@ GI_SIZE, GI_PATHS, GI_SMALL_PATHS, GI_CHUNK, GI_LONG_STEP_S = (640, 480), 40, 4,
 # Hopper's 32-bit integer rate (NVIDIA H100 SXM: half the f32 rate), the
 # rate the threefry draw's work runs at; its bound is stated against both
 PEAK_INT32 = 33.5e12
+# the GI bounce kernel (csrc/gi_bounce.cu) per lane: bytes read (K1's 11
+# rows, orig, dir, mult and acc, alive) and written (orig, dir, mult, acc,
+# alive), and its f32 operations besides the two draws (faceforward 8, NEE
+# 15, the sample's arithmetic 36 and its acos, two cos and two sin, ~20
+# each, the weight and the next ray 24)
+BOUNCE_BYTES, OPS_BOUNCE = (44 + 48 + 1) + (48 + 1), 183
+# phase 48: the bounce kernel's widths, one path and gi_path_batch 8
+BOUNCE_KS = (1, 8)
 
 
 T0 = time.perf_counter()
@@ -988,6 +996,7 @@ def main(argv) -> int:
     kernels += skybox_phases(argv, card, dev)
     bench_phases(argv, card, dev)
     kernels += engine_phases(argv, card, dev)
+    kernels += bounce_phases(argv, card, dev)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -2005,12 +2014,13 @@ def gi_phases(argv, card, dev):
 
     def zero_counts():
         R.launches = R.resid_launches = R.hit_launches = R.ray_launches = R.lin_launches = 0
-        prng.launches = gi.bounce_rounds = K2.launches = 0
+        prng.launches = gi.bounce_rounds = gi.bounce_kernels = gi.glue_bounces = K2.launches = 0
 
     def counts():
         torch.cuda.synchronize()
         return {"k1": R.launches, "k1_hit": R.hit_launches, "k1_resid": R.resid_launches, "k1_ray": R.ray_launches,
-                "draws": prng.launches, "bounce_rounds": gi.bounce_rounds, "k2": K2.launches}
+                "draws": prng.launches, "bounce_rounds": gi.bounce_rounds, "bounce_kernels": gi.bounce_kernels,
+                "glue_bounces": gi.glue_bounces, "k2": K2.launches}
 
     def gi_scene(paths, **knobs):
         tp, ts = pack_scene(gi_standin(T, w, h, paths=paths), device=dev)
@@ -2018,15 +2028,20 @@ def gi_phases(argv, card, dev):
 
     def check_frame_counts(label, c, ts, passes, step=False):
         """One K1 launch per bounce round, the want_hit form alone (with the
-        vis rows under a gradient), two draws per path pass and per bounce
-        round, at most maxTraceDepth + 1 rounds per pass; a step's backward
-        runs K2 once per bounce round (each gathers the box's texels)."""
+        vis rows under a gradient), at most maxTraceDepth + 1 rounds per
+        pass, each finished by the bounce kernel (a frame) or the glue (a
+        step); two draws per path pass and per glue round (the kernel draws
+        inline); a step's backward runs K2 once per bounce round (each
+        gathers the box's texels)."""
         rounds = c["bounce_rounds"]
         form = c["k1_resid"] if step else c["k1_hit"]
+        glue = rounds if step else 0
         ok = (c["k1"] == c["k1_ray"] == form == rounds and passes <= rounds <= passes * (ts.max_trace_depth + 1)
-              and c["draws"] == 2 * passes + 2 * rounds and c["k2"] == (rounds if step else 0))
+              and c["glue_bounces"] == glue and c["bounce_kernels"] == rounds - glue
+              and c["draws"] == 2 * passes + 2 * glue and c["k2"] == (rounds if step else 0))
         log(f"  {label}: K1 launches {c['k1']} (want_hit alone {c['k1_hit']}, residual {c['k1_resid']}, "
-            f"ray-input {c['k1_ray']}), bounce rounds {rounds}, draws {c['draws']}, K2 {c['k2']}")
+            f"ray-input {c['k1_ray']}), bounce rounds {rounds} (bounce kernel {c['bounce_kernels']}, glue "
+            f"{c['glue_bounces']}), draws {c['draws']}, K2 {c['k2']}")
         if not ok:
             raise AssertionError(f"{label}: launch counts {c} for {passes} path passes")
 
@@ -2085,7 +2100,7 @@ def gi_phases(argv, card, dev):
         raise AssertionError(f"only {lit_px:.2%} of the GI frame's pixels are lit")
     zero_counts()
     plain = plain_gi(ts)(tp, key)
-    if any(v for k, v in counts().items() if k != "bounce_rounds"):
+    if any(v for k, v in counts().items() if k not in ("bounce_rounds", "glue_bounces")):
         raise AssertionError("the plain GI path launched a kernel")
     gi_err = compare_frames(f"GI {GI_SMALL_PATHS} paths kernel frame vs plain frame", img, plain)
     twin_err = compare_frames(f"GI {GI_SMALL_PATHS} paths kernel frame vs the twin", img,
@@ -2507,7 +2522,7 @@ def zero_counts():
 
     R.launches = R.resid_launches = R.hit_launches = R.ray_launches = R.lin_launches = 0
     F.bounce_rounds = gi.bounce_rounds = prng.launches = K2.launches = P.wavefront_frames = 0
-    F.compact_overflows = 0
+    F.compact_overflows = gi.bounce_kernels = gi.glue_bounces = 0
 
 
 def counts():
@@ -2523,7 +2538,7 @@ def counts():
     return {"k1": R.launches, "k1_ray": R.ray_launches, "k1_hit": R.hit_launches, "k1_resid": R.resid_launches,
             "k1_lin": R.lin_launches, "bounce_rounds": F.bounce_rounds, "gi_rounds": gi.bounce_rounds,
             "draws": prng.launches, "k2": K2.launches, "twin_frames": P.wavefront_frames,
-            "compact_overflows": F.compact_overflows}
+            "compact_overflows": F.compact_overflows, "gi_kernels": gi.bounce_kernels, "gi_glue": gi.glue_bounces}
 
 
 def dist_phases(argv, card, dev, phase5_frame_ms):
@@ -2715,8 +2730,10 @@ def dist_phases(argv, card, dev, phase5_frame_ms):
         rounds = c["gi_rounds"]
         form = c["k1_resid"] if step else c["k1_hit"]
         log(f"  {label}: K1 launches {c['k1']} (want_hit alone {c['k1_hit']}, residual {c['k1_resid']}), bounce "
-            f"rounds {rounds}, draws {c['draws']}, K2 {c['k2']}")
-        if not (c["k1"] == c["k1_ray"] == form == rounds and c["draws"] == 2 * passes + 2 * rounds):
+            f"rounds {rounds} (bounce kernel {c['gi_kernels']}, glue {c['gi_glue']}), draws {c['draws']}, K2 {c['k2']}")
+        glue = rounds if step else 0  # a frame's rounds end in the bounce kernel, which draws inline
+        if not (c["k1"] == c["k1_ray"] == form == rounds and c["gi_glue"] == glue
+                and c["gi_kernels"] == rounds - glue and c["draws"] == 2 * passes + 2 * glue):
             raise AssertionError(f"{label}: launch counts {c} for {passes} shard path passes")
 
     tp, ts = gi_scene(GI_SMALL_PATHS)
@@ -3557,12 +3574,14 @@ def engine_phases(argv, card, dev):
         return tp, dataclasses.replace(ts, gi_point_light_direct=True, **knobs)
 
     def gi_counts(label, c, ts, batches):
-        """One K1 launch (want_hit alone) per bounce round over the batch's K
-        slabs; two draws per batch of paths and per bounce round."""
+        """One K1 launch (want_hit alone) and one bounce kernel per bounce
+        round over the batch's K slabs; two draws per batch of paths (the
+        bounce kernel draws inline)."""
         rounds = c["gi_rounds"]
-        log(f"  {label}: K1 launches {c['k1']} (want_hit alone {c['k1_hit']}), bounce rounds {rounds}, draws "
-            f"{c['draws']} for {batches} batches of paths")
-        if not (c["k1"] == c["k1_hit"] == c["k1_ray"] == rounds and c["draws"] == 2 * batches + 2 * rounds
+        log(f"  {label}: K1 launches {c['k1']} (want_hit alone {c['k1_hit']}), bounce rounds {rounds} (bounce "
+            f"kernel {c['gi_kernels']}), draws {c['draws']} for {batches} batches of paths")
+        if not (c["k1"] == c["k1_hit"] == c["k1_ray"] == c["gi_kernels"] == rounds and c["gi_glue"] == 0
+                and c["draws"] == 2 * batches
                 and batches <= rounds <= batches * (ts.max_trace_depth + 1) and not c["twin_frames"]):
             raise AssertionError(f"{label}: launch counts {c}")
 
@@ -3731,6 +3750,90 @@ def engine_phases(argv, card, dev):
                         f"{n_wide} rays)", K1_SOURCE, K1_REPLACES, gi_runs[f"K={K}"]["counts"]["k1_hit"], wide_err,
                         wide_ms, wide_plain_ms, *wide_bound), "queued_ms": wide_q},
     ]
+
+
+def bounce_phases(argv, card, dev):
+    """Phase 48: the GI bounce kernel (csrc/gi_bounce.cu) against its plain
+    version ``gi.bounce_reference`` (with the draws it replaces) on the
+    second bounce round of the 640x480 GI stand-in, one path and K = 8
+    path-slabs; its time per call, queued and against its bound, and its
+    launches in a 40-path frame.  Returns its kernels-line entries."""
+    import torch
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import TEX_BITMAP, pack_scene
+    from chess2rt_tpu_torch.ops import gi, prng
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.ops import shade as S
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+    from chess2rt_tpu_torch.scenes import gi_standin
+
+    w, h = GI_SIZE
+    C = w * h
+    busy = torch.ones((8192, 8192), dtype=torch.float32, device=dev)
+    tp, ts = pack_scene(gi_standin(T, w, h, paths=GI_PATHS), device=dev)
+    ts = dataclasses.replace(ts, gi_point_light_direct=True)
+    lay = R.layout(ts, w, h, want_hit=True)
+    prm = lay.pack(tp)
+    zero_counts()
+    render_frame(tp, ts, prng.PRNGKey(48))
+    frame_counts = counts()
+    log(f"phase 48 the GI bounce kernel against bounce_reference on the GI stand-in {w}x{h}, NEE; a {GI_PATHS}-path "
+        f"frame: {frame_counts['gi_kernels']} bounce kernels, {frame_counts['gi_glue']} glue rounds of "
+        f"{frame_counts['gi_rounds']}")
+    if not frame_counts["gi_kernels"] == frame_counts["gi_rounds"] > 0 or frame_counts["gi_glue"]:
+        raise AssertionError(f"the GI frame's bounce rounds did not all take the kernel: {frame_counts}")
+    entries, out = [], {}
+    for K in BOUNCE_KS:
+        n = K * C
+        rays = [gi_camera_rays(tp, w, h, 480 + j) for j in range(K)]
+        orig, dir = (torch.cat([r[i] for r in rays]).contiguous() for i in (0, 1))
+        keys = prng.split(prng.PRNGKey(48 + K), 4 * K)
+        state = (orig, dir, torch.ones_like(orig), torch.zeros_like(orig), torch.ones(n, dtype=torch.bool, device=dev))
+        o = R.round0(lay, prm, orig, dir)
+        u, v = prng.uniform_keys(keys[:K], C, device=dev), prng.uniform_keys(keys[K:2 * K], C, device=dev)
+        state = tuple(x.contiguous() for x in gi.bounce_reference(ts, o, None, tp.ambient, *state, u, v, 1e-3))
+        o = R.round0(lay, prm, state[0], state[1])
+        winc = torch.clamp_min(o["win"], 0)
+        tex = S.bitmap_color(tp, ts, winc, o["u"], o["v"], S.node_onehot(ts, winc))
+        diffuse = torch.where((S.tex_kind_of(ts, winc) == TEX_BITMAP)[:, None], tex,
+                              torch.stack([o["dr"], o["dg"], o["db"]], -1)).contiguous()
+        ku, kv = keys[2 * K:3 * K], keys[3 * K:]
+
+        def plain(i):
+            uu, vv = prng.uniform_keys(ku, C, device=dev), prng.uniform_keys(kv, C, device=dev)
+            return gi.bounce_reference(ts, o, diffuse, tp.ambient, *state, uu, vv, 1e-3)
+
+        want = plain(0)
+        got = gi.gi_bounce(ts, o, diffuse, tp.ambient, *(x.clone() for x in state), ku, kv, 1e-3)
+        torch.cuda.synchronize()
+        unequal = {name: int((bits(a) != bits(b)).any(-1).sum()) if a.dtype == torch.float32 else int((a != b).sum())
+                   for name, a, b in zip(("orig", "dir", "mult", "acc", "alive"), got, want)}
+        err = {name: ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+               for name, a, b in zip(("orig", "dir", "mult", "acc"), got, want)}
+        log(f"  {n} lanes ({K} x {C}): lanes not bit-equal {unequal}; max |d| / max(|plain|, 1) "
+            f"{ {k: float(f'{e:.3e}') for k, e in err.items()} }")
+        if unequal["alive"] or max(err.values()) > 1e-5:
+            raise AssertionError(f"the bounce kernel against bounce_reference at {n} lanes: {unequal}, {err}")
+        scratch = tuple(x.clone() for x in state)
+        ms, _ = time_events(lambda i: gi.gi_bounce(ts, o, diffuse, tp.ambient, *scratch, ku, kv, 1e-3), 20, 3)
+        q = queued_ms(lambda: gi.gi_bounce(ts, o, diffuse, tp.ambient, *scratch, ku, kv, 1e-3), 20, busy)
+        plain_ms, _ = time_events(plain, 20, 3)
+        plain_q = queued_ms(lambda: plain(0), 20, busy)
+        b = bound(n * BOUNCE_BYTES, n * (OPS_BOUNCE + 2 * OPS_THREEFRY))
+        log(f"  {n} lanes: {ms:.4f} ms per call, {q:.4f} ms queued; plain (bounce_reference and its two draws) "
+            f"{plain_ms:.4f} ms per call, {plain_q:.4f} ms queued; bound {b[0]:.4f} ms ({b[1]}; bytes {b[2]:.4f}, "
+            f"operations {b[3]:.4f}): {100 * b[0] / q:.1f}% of it queued")
+        out[n] = {"ms": ms, "queued_ms": q, "plain_ms": plain_ms, "plain_queued_ms": plain_q, "bound_ms": b[0],
+                  "unequal_lanes": unequal, "max_rel_err": err}
+        entries.append({**kernel_entry(
+            f"gi_bounce (the GI bounce round after K1: NEE, two draws, hemisphere sample, next ray; {K} x {C} lanes)",
+            "chess2rt_tpu_torch/csrc/gi_bounce.cu",
+            "none: the GI tracer's glue (chess2rt_tpu/ops/pallas_trace.py:2159 build_gi_tracer, XLA)",
+            frame_counts["gi_kernels"] if K == 1 else None, max(err.values()), ms, plain_ms, *b),
+            "queued_ms": q, "plain_queued_ms": plain_q})
+        del rays, orig, dir, state, o, diffuse, want, got, scratch
+    log(json.dumps({"gi_bounce": out}))
+    return entries
 
 
 if __name__ == "__main__":

@@ -9,9 +9,11 @@ gradient through each form, the threefry draw (csrc/threefry.cu) bit for
 bit, and the sharded, chunked, adaptive, DoF, stereo and GI frames and
 the GI gradient step at small sizes; the per-shard sampler's DoF, stereo
 and GI frames, ``pin_mode="node"``, two ranks sharing the card, the
-bench twin's gate (``python -m chess2rt_tpu_torch.bench --check``), and the
+bench twin's gate (``python -m chess2rt_tpu_torch.bench --check``), the
 engine modes: the batched threefry draw, ``gi_path_batch``,
-``bounce_mode="compact"``, ``texel_tap_reuse`` and ``texel_grad_mode``.
+``bounce_mode="compact"``, ``texel_tap_reuse`` and ``texel_grad_mode``, and
+the GI bounce kernel (csrc/gi_bounce.cu) against ``gi.bounce_reference`` for
+one round and over the GI cell's 640x480 frame.
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -517,10 +519,11 @@ def _gi_scene(w, h, paths):
 
 @pytest.mark.parametrize("mode", ["plain", "chunked", "adaptive"])
 def test_gi_frame_matches_plain_frame(cuda, mode):
-    """The fused GI frame through K1's want_hit ray-input form and the
-    threefry draw against the plain path (plain K1, plain draws): the frame
-    limits; one K1 launch per bounce round, two draws per bounce round and
-    per path."""
+    """The fused GI frame through K1's want_hit ray-input form, the bounce
+    kernel and the threefry draw against the plain path (plain K1, plain
+    draws, the glue): the frame limits; one K1 launch and one bounce kernel
+    per bounce round, two draws per path (the bounce kernel draws inline),
+    and every round of the plain path the glue's."""
     import dataclasses
 
     from chess2rt_tpu_torch.ops import gi
@@ -532,11 +535,15 @@ def test_gi_frame_matches_plain_frame(cuda, mode):
         ts = dataclasses.replace(ts, aa_enabled=True, aa_adaptive=True)
     key = prng.PRNGKey(5)
     R.launches = R.ray_launches = R.hit_launches = prng.launches = gi.bounce_rounds = 0
+    gi.bounce_kernels = gi.glue_bounces = 0
     img = gi.build_gi_renderer(ts, 96, 72)(tp, key)
-    assert R.launches == R.ray_launches == R.hit_launches == gi.bounce_rounds > 0
+    assert R.launches == R.ray_launches == R.hit_launches == gi.bounce_rounds == gi.bounce_kernels > 0
+    assert gi.glue_bounces == 0
     passes = (5 if mode == "adaptive" else 1) * (-(-96 * 72 // 2048) if mode == "chunked" else 1) * ts.paths_per_pixel
-    assert prng.launches == 2 * passes + 2 * gi.bounce_rounds
+    assert prng.launches == 2 * passes
+    gi.bounce_rounds = gi.bounce_kernels = gi.glue_bounces = 0
     ref = gi.build_gi_renderer(ts, 96, 72, trace=R.round0_reference, uniform=prng.uniform_reference)(tp, key)
+    assert gi.glue_bounces == gi.bounce_rounds > 0 and gi.bounce_kernels == 0
     _frame_close(img, ref)
     assert img.max().item() > 0.01
 
@@ -553,7 +560,9 @@ def test_gi_step_matches_plain_step(cuda):
     out = []
     for trace, draw in ((R.round0, None), (R.round0_reference, prng.uniform_reference)):
         xs = [x.detach().clone().requires_grad_() for x in leaves(tp)]
+        gi.bounce_rounds = gi.bounce_kernels = gi.glue_bounces = 0
         loss = (gi.build_gi_renderer(ts, 64, 48, trace=trace, uniform=draw)(from_leaves(xs), key) ** 2).mean()
+        assert gi.glue_bounces == gi.bounce_rounds > 0 and gi.bounce_kernels == 0  # a recorded gradient: the glue
         loss.backward()
         out.append((loss.item(), {k: x.grad for k, x in zip(LEAF_NAMES, xs)}))
     assert out[0][0] == pytest.approx(out[1][0], rel=1e-3)
@@ -859,8 +868,9 @@ def test_batched_draw_matches_plain_bit_for_bit(cuda, dtype, K, c):
 
 def test_gi_path_batch_frame_on_the_card(cuda):
     """K = 4 paths per K1 launch: within 1e-5 of one path per launch, the
-    draws batched (2 per batch and per bounce round), and the kernel path at
-    the frame limits of the plain path (plain K1, plain draws)."""
+    jitter's draws batched (2 per batch), one bounce kernel per bounce round
+    over the K slabs, and the kernel path at the frame limits of the plain
+    path (plain K1, plain draws)."""
     import dataclasses
 
     from chess2rt_tpu_torch.ops import gi
@@ -870,10 +880,10 @@ def test_gi_path_batch_frame_on_the_card(cuda):
     frames = []
     for K in (None, 4):
         st = dataclasses.replace(ts, gi_path_batch=K)
-        R.launches = R.hit_launches = prng.launches = gi.bounce_rounds = 0
+        R.launches = R.hit_launches = prng.launches = gi.bounce_rounds = gi.bounce_kernels = 0
         frames.append(gi.build_gi_renderer(st, 96, 72)(tp, key))
-        assert R.launches == R.hit_launches == gi.bounce_rounds > 0
-        assert prng.launches == 2 * 8 // (K or 1) + 2 * gi.bounce_rounds
+        assert R.launches == R.hit_launches == gi.bounce_rounds == gi.bounce_kernels > 0
+        assert prng.launches == 2 * 8 // (K or 1)
     torch.testing.assert_close(frames[1], frames[0], rtol=1e-5, atol=1e-5)
     st = dataclasses.replace(ts, gi_path_batch=4)
     ref = gi.build_gi_renderer(st, 96, 72, trace=R.round0_reference, uniform=prng.uniform_reference)(tp, key)
@@ -939,3 +949,125 @@ def test_texel_grad_modes_on_the_card(cuda):
                 torch.testing.assert_close(g, hist[k], rtol=1e-4, atol=1e-6)
             elif g is not None:  # the mode moves only the atlas; atomics elsewhere may reorder sums
                 torch.testing.assert_close(g, hist[k], rtol=1e-5, atol=1e-7 + 1e-5 * hist[k].abs().max().item())
+
+
+# --- the GI bounce kernel (csrc/gi_bounce.cu) ---
+
+
+def _bounce_inputs(dev, K, nee, quirk, w=160, h=120):
+    """The second bounce round of K jittered camera slabs of the GI stand-in
+    under the sky cubemap (its bitmap box, CSG node and cubemap) at w x h:
+    (packed, static, K1's rows, the albedo with the bitmap texels gathered,
+    the path state after one glue round)."""
+    from chess2rt_tpu_torch.models.packed import TEX_BITMAP
+    from chess2rt_tpu_torch.ops import gi
+    from chess2rt_tpu_torch.ops import shade as S
+    from chess2rt_tpu_torch.ops.camera import begin_frame, screen_rays
+
+    tp, ts = pack_scene(gi_standin(T, w, h, paths=K, env=True), device=dev)
+    ts = dataclasses.replace(ts, gi_point_light_direct=nee, gi_multiplier_quirk=quirk)
+    lay = R.layout(ts, w, h, want_hit=True)
+    prm = lay.pack(tp)
+    n = w * h
+    lin = torch.arange(n, device=dev)
+    keys = prng.split(prng.PRNGKey(1900 + K), 4)
+    x = torch.cat([(lin % w).float() + prng.uniform(prng.fold_in(keys[0], j), (n,), device=dev) for j in range(K)])
+    y = torch.cat([(lin // w).float() + prng.uniform(prng.fold_in(keys[1], j), (n,), device=dev) for j in range(K)])
+    orig, dir = (r.contiguous() for r in screen_rays(tp.camera, begin_frame(tp.camera, w / h), float(w), float(h),
+                                                     x, y, 0.0))
+    state = (orig, dir, torch.ones_like(orig), torch.zeros_like(orig), torch.ones(K * n, dtype=torch.bool, device=dev))
+    o = R.round0(lay, prm, orig, dir)
+    u, v = (prng.uniform_keys(prng.split(k, K), n, device=dev) for k in keys[2:])
+    state = tuple(x.contiguous() for x in gi.bounce_reference(ts, o, None, tp.ambient, *state, u, v, 1e-3))
+    o = R.round0(lay, prm, state[0], state[1])
+    winc = torch.clamp_min(o["win"], 0)
+    tex = S.bitmap_color(tp, ts, winc, o["u"], o["v"], S.node_onehot(ts, winc))
+    diffuse = torch.where((S.tex_kind_of(ts, winc) == TEX_BITMAP)[:, None], tex,
+                          torch.stack([o["dr"], o["dg"], o["db"]], -1)).contiguous()
+    return tp, ts, o, diffuse, state
+
+
+@pytest.mark.parametrize("albedo", ["gathered", "k1_rows"])
+@pytest.mark.parametrize("nee,quirk", [(True, True), (True, False), (False, True), (False, False)],
+                         ids=["nee", "nee_no_quirk", "no_nee", "no_nee_no_quirk"])
+@pytest.mark.parametrize("K", [1, 8])
+def test_gi_bounce_matches_bounce_reference(cuda, K, nee, quirk, albedo):
+    """One bounce round: csrc/gi_bounce.cu against ``gi.bounce_reference``
+    on the same K1 rows and path state, the reference's draws through
+    ``prng.uniform_keys``: one launch, the state updated in place; alive
+    equal; dir bit-equal on all but 1e-4 of the lanes (so the inline draws
+    are ``uniform_keys``' bits: a draw one ulp off moves most lanes'
+    directions); orig, dir, mult and acc within 4 float32 ulps of
+    max(|reference|, 1), and mult within 4 ulps of its value at cosine 1."""
+    from chess2rt_tpu_torch.ops import gi
+
+    tp, ts, o, diffuse, state = _bounce_inputs(cuda, K, nee, quirk)
+    diffuse = diffuse if albedo == "gathered" else None
+    C = o["t"].shape[0] // K
+    ku, kv = prng.split(prng.PRNGKey(1910 + K), K), prng.split(prng.PRNGKey(1920 + K), K)
+    u, v = prng.uniform_keys(ku, C, device=cuda), prng.uniform_keys(kv, C, device=cuda)
+    want = gi.bounce_reference(ts, o, diffuse, tp.ambient, *state, u, v, 1e-3)
+    got = tuple(x.clone() for x in state)
+    before, draws = gi.bounce_kernels, prng.launches
+    out = gi.gi_bounce(ts, o, diffuse, tp.ambient, *got, ku, kv, 1e-3)
+    assert gi.bounce_kernels == before + 1 and prng.launches == draws
+    assert all(a is b for a, b in zip(out, got))
+    albedo_rows = torch.stack([o["dr"], o["dg"], o["db"]], -1) if diffuse is None else diffuse
+    ulp = torch.finfo(torch.float32).eps
+    report = {}
+    for name, a, b in zip(("orig", "dir", "mult", "acc"), got[:4], want[:4]):
+        d = (a - b).abs()
+        scale = b.abs().clamp_min(1.0)
+        if name == "mult":
+            scale = b.abs() + 2 * (state[2] * albedo_rows).abs()
+        err = torch.where(d == 0, 0.0, d / scale).max().item()
+        report[name] = (int((a != b).any(-1).sum()), err)
+        assert bool(torch.isfinite(a).all() == torch.isfinite(b).all()), name
+        assert err <= 4 * ulp, (name, report)
+    assert torch.equal(got[4], want[4])
+    assert report["dir"][0] <= 1e-4 * K * C, report
+    print(json.dumps({"K": K, "nee": nee, "quirk": quirk, "albedo": albedo, "unequal_lanes_and_err": report}))
+
+
+def _cell_scene(dev):
+    """The GI cell's scene (BENCHMARK.json's lecture4-gi-standin, bench.py
+    build_gi): the lecture4 stand-in (``gi_standin(gi=False)``: the
+    checkered floor, one light), GI on, 40 paths, depth 5, AA off, the far
+    bounce wall, NEE, at 640x480."""
+    from chess2rt_tpu_torch.scenes import GI_WALL
+
+    sc = gi_standin(T, 640, 480, paths=40, gi=False)
+    sc.settings.GIEnabled = True
+    center, r, white = GI_WALL
+    wall = T.Node(name="wall", geometry=T.Sphere(name="w", center=center, R=r), shader=T.Lambert(name="white",
+                                                                                                color=white))
+    sc.nodes.append(wall)
+    sc.geometries.append(wall.geometry)
+    sc.shaders.append(wall.shader)
+    tp, ts = pack_scene(sc, device=dev)
+    return tp, dataclasses.replace(ts, gi_point_light_direct=True)
+
+
+def test_gi_cell_frame_through_the_bounce_kernel(cuda):
+    """The GI cell's 640x480 40-path frame through the bounce kernel against
+    the same frame through the glue with the same bits
+    (``uniform=prng.uniform``): ``px_off``, the share of pixels whose
+    largest channel differs by more than 2e-3 (rtbench/check.py), under the
+    cell's limit 0.005; 240 bounce rounds, every one the kernel's on the
+    first path and the glue's on the second."""
+    from chess2rt_tpu_torch.ops import gi
+
+    tp, ts = _cell_scene(cuda)
+    key = prng.PRNGKey(1930)
+    frames, rounds = [], []
+    for kw in ({}, {"uniform": prng.uniform}):
+        gi.bounce_rounds = gi.bounce_kernels = gi.glue_bounces = 0
+        with torch.no_grad():
+            frames.append(gi.build_gi_renderer(ts, 640, 480, **kw)(tp, key))
+        rounds.append((gi.bounce_rounds, gi.bounce_kernels, gi.glue_bounces))
+    assert rounds == [(240, 240, 0), (240, 0, 240)]
+    d = (frames[0].double() - frames[1].double()).abs().amax(-1)
+    px_off = (d > 2e-3).double().mean().item()
+    print(json.dumps({"px_off": px_off, "max_abs": d.max().item(), "unequal_pixels": (d > 0).double().mean().item()}))
+    assert bool(torch.isfinite(frames[0]).all()) and frames[0].max().item() > 0.01
+    assert px_off < 0.005

@@ -157,7 +157,8 @@ def host_uniform(tmp_path_factory):
     text = (Path(cuda_build.__file__).parent / "csrc" / cuda_build.SOURCES["threefry"][0]).read_text()
     (tmp / "threefry_host.cpp").write_text(text[: text.index("// ---- host side")] + HARNESS)
     lib = tmp / "libthreefry_host.so"
-    res = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{tmp}", "-o", str(lib),
+    res = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{tmp}",
+                          f"-I{Path(cuda_build.__file__).parent / 'csrc'}", "-o", str(lib),
                           str(tmp / "threefry_host.cpp")], capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     fn = ctypes.CDLL(str(lib)).host_uniform
