@@ -50,7 +50,10 @@ adaptive frame, each through ``utils/spans.read_any`` or ``read_count``,
 which count it by site (``spans.syncs``).  That is acceptable in bring-up;
 a later PR can keep the decisions on the device.  Under a running
 ``torch.profiler`` the taps, bounce rounds, gathers and reads carry
-``c2rt.*`` spans (utils/spans.py).
+``c2rt.*`` spans (utils/spans.py); a Monte-Carlo frame's passes, their
+ray generation and the environment's share of ``combine_outputs`` have
+theirs too (``c2rt.mc_pass``, ``c2rt.raygen``, ``c2rt.env``), counted by
+``mc_passes`` and ``env_gathers``.
 
 Every round-0 call goes through one function, ``trace``: the wrapper
 ``round0`` by default (the CUDA kernel for CUDA tensors), or its plain
@@ -87,6 +90,19 @@ compact_overflows = 0
 # AA taps that reused the base tap's texel quads, the lanes they re-gathered
 # and those that overflowed the reuse capacity (a full gather)
 reuse_taps = reuse_changed = reuse_overflows = 0
+# Monte-Carlo passes run (a DoF sample, or a tap of a frame without DoF;
+# both eyes of a stereo pair are one pass)
+mc_passes = 0
+# ``combine_outputs`` calls that read the cubemap (the merged bitmap+cubemap
+# gather, or the cubemap alone)
+env_gathers = 0
+
+
+def _mc_pass():
+    """The context of one Monte-Carlo pass: counted, and spanned."""
+    global mc_passes
+    mc_passes += 1
+    return span("c2rt.mc_pass")
 
 
 def _reused_quads(static: SceneStatic, quads, key, texel_reuse):
@@ -134,6 +150,7 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
     ``texel_plan=True`` appends this tap's plan, (texel keys, gathered
     [n, 12] quads), to the tuple (None without bitmaps); ``texel_reuse``
     takes a base tap's plan and gathers through ``_reused_quads``."""
+    global env_gathers
     has_bitmap = TEX_BITMAP in static.tex_kinds_present
     has_refl = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
     use_env = static.has_env and dirs_or_none is not None
@@ -149,20 +166,23 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
                 return _reused_quads(static, quads, key, texel_reuse)
             return S.quad_gather_flat(quads, key, static.texel_grad_mode)
 
+    if use_env:
+        env_gathers += 1
     if has_bitmap and use_env:
-        quads_t, key_t, p_t, q_t = S.bitmap_plan(packed, static, winc, o["u"], o["v"], onehot)
-        quads_e = cubemap_quads(packed.env_cubemap)
-        key_e, p_e, q_e = cubemap_plan(packed.env_cubemap, dirs_or_none)
-        miss = win < 0
-        missc = miss[..., None]
-        key = torch.where(miss, quads_t.shape[0] + key_e, key_t)
-        g = gather(torch.cat([quads_t, quads_e]), key)
-        plan = (key, g)
-        out3 = S.bilerp_quad(g, torch.where(missc, p_e, p_t), torch.where(missc, q_e, q_t))
-        L = torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1)
-        is_bmp = (S.tex_kind_of(static, winc) == TEX_BITMAP) & (win >= 0)
-        w3 = torch.where(is_bmp[..., None], L, 0.0) + torch.where(missc, 1.0, 0.0)
-        color = color + out3 * w3
+        with span("c2rt.env"):
+            quads_t, key_t, p_t, q_t = S.bitmap_plan(packed, static, winc, o["u"], o["v"], onehot)
+            quads_e = cubemap_quads(packed.env_cubemap)
+            key_e, p_e, q_e = cubemap_plan(packed.env_cubemap, dirs_or_none)
+            miss = win < 0
+            missc = miss[..., None]
+            key = torch.where(miss, quads_t.shape[0] + key_e, key_t)
+            g = gather(torch.cat([quads_t, quads_e]), key)
+            plan = (key, g)
+            out3 = S.bilerp_quad(g, torch.where(missc, p_e, p_t), torch.where(missc, q_e, q_t))
+            L = torch.stack([o["lr"], o["lg"], o["lb"]], dim=-1)
+            is_bmp = (S.tex_kind_of(static, winc) == TEX_BITMAP) & (win >= 0)
+            w3 = torch.where(is_bmp[..., None], L, 0.0) + torch.where(missc, 1.0, 0.0)
+            color = color + out3 * w3
     elif has_bitmap:  # ``S.bitmap_color``, its gather kept as the plan
         quads_t, key_t, p_t, q_t = S.bitmap_plan(packed, static, winc, o["u"], o["v"], onehot)
         g = gather(quads_t, key_t)
@@ -172,8 +192,9 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
         is_bmp = (S.tex_kind_of(static, winc) == TEX_BITMAP) & (win >= 0)
         color = color + torch.where(is_bmp[..., None], tex * L, 0.0)
     elif use_env:
-        env = sample_cubemap(packed.env_cubemap, dirs_or_none)
-        color = color + torch.where((win < 0)[..., None], env, 0.0)
+        with span("c2rt.env"):
+            env = sample_cubemap(packed.env_cubemap, dirs_or_none)
+            color = color + torch.where((win < 0)[..., None], env, 0.0)
     if not has_refl:
         out = (color, None, None, None, None)
     else:
@@ -596,25 +617,33 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
             k1, k2 = prng.split(k)
             return draw(k1, like.shape, dt, device=dev), draw(k2, like.shape, dt, device=dev)
 
-        def trace_one(xx, yy, k):
+        def rays(xx, yy, k):
+            """A pass's (orig, dir), one pair per eye."""
             uv = disc(k, xx) if static.dof else None  # both eyes draw the same
-            if static.stereo:
-                ol, dl = screen_rays(cam, frame, W, H, xx, yy, -1.0, dof=static.dof, disc_uv=uv)
-                orr, drr = screen_rays(cam, frame, W, H, xx, yy, +1.0, dof=static.dof, disc_uv=uv)
-                left = trace_rays(packed, prm0, ol, dl, call)
-                return _combine_stereo(left, trace_rays(packed, prm0, orr, drr, call))
-            o3, d3 = screen_rays(cam, frame, W, H, xx, yy, 0.0, dof=static.dof, disc_uv=uv)
-            return trace_rays(packed, prm0, o3, d3, call)
+            eyes = (-1.0, +1.0) if static.stereo else (0.0,)
+            return [screen_rays(cam, frame, W, H, xx, yy, e, dof=static.dof, disc_uv=uv) for e in eyes]
+
+        def trace_eyes(eyes):
+            out = [trace_rays(packed, prm0, o3, d3, call) for o3, d3 in eyes]
+            return _combine_stereo(*out) if static.stereo else out[0]
 
         def samples(xx, yy, k):
+            """The pixels' passes: one, or ``dof_samples`` under DoF, each
+            its ray-gen (everything before its first K1 call) and trace."""
             if not static.dof:
-                return trace_one(xx, yy, k)
+                with _mc_pass():
+                    with span("c2rt.raygen"):
+                        eyes = rays(xx, yy, k)
+                    return trace_eyes(eyes)
             acc = torch.zeros(xx.shape + (3,), dtype=dt, device=dev)
             for _ in range(static.dof_samples):
-                k, kj, kj2, kr = prng.split(k, 4)
-                jx = xx + draw(kj, xx.shape, dt, device=dev)
-                jy = yy + draw(kj2, yy.shape, dt, device=dev)
-                acc = acc + trace_one(jx, jy, kr)
+                with _mc_pass():
+                    with span("c2rt.raygen"):
+                        k, kj, kj2, kr = prng.split(k, 4)
+                        jx = xx + draw(kj, xx.shape, dt, device=dev)
+                        jy = yy + draw(kj2, yy.shape, dt, device=dev)
+                        eyes = rays(jx, jy, kr)
+                    acc = acc + trace_eyes(eyes)
             return acc / static.dof_samples
 
         def full_taps(img, key):
@@ -652,13 +681,15 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
             stream: each uniform drawn at (n,) and gathered at ``selc``."""
             acc = torch.zeros((cap_mc, 3), dtype=dt, device=dev)
             for _ in range(static.dof_samples):
-                k, kj, kj2, kr = prng.split(k, 4)
-                jx = xx + draw(kj, (n,), dt, device=dev)[selc]
-                jy = yy + draw(kj2, (n,), dt, device=dev)[selc]
-                k1, k2 = prng.split(kr)
-                uv = draw(k1, (n,), dt, device=dev)[selc], draw(k2, (n,), dt, device=dev)[selc]
-                o3, d3 = screen_rays(cam, frame, W, H, jx, jy, 0.0, dof=True, disc_uv=uv)
-                acc = acc + trace_c(o3, d3)
+                with _mc_pass():
+                    with span("c2rt.raygen"):
+                        k, kj, kj2, kr = prng.split(k, 4)
+                        jx = xx + draw(kj, (n,), dt, device=dev)[selc]
+                        jy = yy + draw(kj2, (n,), dt, device=dev)[selc]
+                        k1, k2 = prng.split(kr)
+                        uv = draw(k1, (n,), dt, device=dev)[selc], draw(k2, (n,), dt, device=dev)[selc]
+                        o3, d3 = screen_rays(cam, frame, W, H, jx, jy, 0.0, dof=True, disc_uv=uv)
+                    acc = acc + trace_c(o3, d3)
             return acc / static.dof_samples
 
         acc = img[selc]

@@ -1,7 +1,8 @@
 """Spans and host-sync counts on the torch profiler's clock.
 
 ``span(name)`` marks a range of the program's host work (a frame, an AA
-tap, a bounce round, K1's call, a draw, a gather, the backward's parts) in
+tap, a Monte-Carlo pass and its ray-gen, a bounce round, K1's call, a draw,
+a gather, the environment's share of a gather, the backward's parts) in
 the trace of a running ``torch.profiler.profile``, on the clock of the
 device's kernels, so a reader of the trace can say in which part of the
 program the host was while the device sat idle.  While no profiler records,
