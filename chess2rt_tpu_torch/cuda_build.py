@@ -14,9 +14,9 @@ or loaded at import time.  A missing
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` (a plain C interface, so no PyTorch headers and no
 ninja).  No ``--use_fast_math``: it changes division, sqrt and sin, and
-moves knife-edge winners.  csrc/gi_bounce.cu adds ``-fmad=false``: it
-mirrors torch glue whose every op is a kernel of its own, so no product
-is fused into an add there.
+moves knife-edge winners.  csrc/gi_bounce.cu and csrc/combine.cu add
+``-fmad=false``: they mirror torch glue whose every op is a kernel of its
+own, so no product is fused into an add there.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ SOURCES = {
     "texel_hist": ("texel_hist.cu", ()),
     "threefry": ("threefry.cu", ()),
     "gi_bounce": ("gi_bounce.cu", ("-fmad=false",)),
+    "combine": ("combine.cu", ("-fmad=false",)),
     **{f"round0_{stage}": ("round0.cu", (f"-DC2RT_STAGE={k}",)) for stage, k in STAGES.items()},
 }
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -68,6 +69,10 @@ _EXPORTS = {
     "gi_bounce": (
         ("c2rt_gi_bounce", [_vp, _vp, _ci, ctypes.c_longlong, _vp, ctypes.c_longlong, _vp, ctypes.c_float, _ci, _vp],
          _ci),
+        ("c2rt_error_string", [_ci], ctypes.c_char_p),
+    ),
+    "combine": (
+        ("c2rt_combine", [_vp, _ci, _vp, _ci, _vp, ctypes.c_longlong, _vp, _vp, _vp, _ci, _vp], _ci),
         ("c2rt_error_string", [_ci], ctypes.c_char_p),
     ),
 }

@@ -6,7 +6,9 @@ Counterpart of the renderer half of chess2rt_tpu/ops/pallas_trace.py
 Monte-Carlo (depth of field, stereo):
 
     for each AA tap:   round0 (screen-tap)  ->  combine_outputs (deferred
-                       bitmap quad gather, continuation carry)  ->  bounce
+                       bitmap and cubemap texels, continuation carry: one
+                       launch of csrc/combine.cu on a forward float32
+                       frame on the card, else the torch glue)  ->  bounce
                        rounds: round0 (ray-input) on a block-compacted
                        buffer, full width when it overflows
 
@@ -53,7 +55,9 @@ a later PR can keep the decisions on the device.  Under a running
 ``c2rt.*`` spans (utils/spans.py); a Monte-Carlo frame's passes, their
 ray generation and the environment's share of ``combine_outputs`` have
 theirs too (``c2rt.mc_pass``, ``c2rt.raygen``, ``c2rt.env``), counted by
-``mc_passes`` and ``env_gathers``.
+``mc_passes`` and ``env_gathers``; the combine kernel's launch is
+``c2rt.combine``, and ``combine_kernels`` and ``combine_glue`` count the
+calls each path took.
 
 Every round-0 call goes through one function, ``trace``: the wrapper
 ``round0`` by default (the CUDA kernel for CUDA tensors), or its plain
@@ -70,6 +74,9 @@ many kernel launches a frame should have made.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..models.packed import REFLECTION, REFRACTION, TEX_BITMAP, ScenePacked, SceneStatic, leaves
@@ -96,6 +103,9 @@ mc_passes = 0
 # ``combine_outputs`` calls that read the cubemap (the merged bitmap+cubemap
 # gather, or the cubemap alone)
 env_gathers = 0
+# ``combine_outputs`` calls finished by csrc/combine.cu (one launch each)
+# and by the torch glue: their sum is every call
+combine_kernels = combine_glue = 0
 
 
 def _mc_pass():
@@ -138,9 +148,47 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
                     texel_reuse=None):
     """Kernel outputs -> (direct color incl. deferred bitmap texels and the
     environment, continuation mask, attenuation factor, refl orig, refl
-    dir).  ``dirs_or_none``: the rays' directions, for the cubemap sample of
-    the lanes that missed (a scene with ``has_env``; None leaves misses
-    black).
+    dir); the last four None without a Reflection or Refraction shader.
+    ``dirs_or_none``: the rays' directions, for the cubemap sample of the
+    lanes that missed (a scene with ``has_env``; None leaves misses black).
+    ``texel_plan`` and ``texel_reuse`` as in ``combine_reference``.
+
+    One launch of csrc/combine.cu (``combine_kernel``) when K1's rows are
+    on a CUDA device, no gradient is recorded (grad mode on and a row, the
+    directions or a table the call reads requiring grad) and no texel plan
+    is asked for or reused; otherwise ``combine_reference``, the torch glue
+    (the CPU, gradient steps, ``texel_tap_reuse``).  Both give the same
+    bits.  On the card the kernel takes float32 rows only and raises on
+    others, as K1 does.  A call that reads the cubemap counts in
+    ``env_gathers`` and runs in a ``c2rt.env`` span on either path: on the
+    kernel's the whole call, on the glue's the branch that reads it."""
+    global env_gathers
+    use_env = static.has_env and dirs_or_none is not None
+    if use_env:
+        env_gathers += 1
+    if not _combine_on_kernel(packed, o, dirs_or_none, texel_plan, texel_reuse):
+        return combine_reference(packed, static, o, dirs_or_none, texel_plan, texel_reuse)
+    if use_env:
+        with span("c2rt.env"):
+            return combine_kernel(packed, static, o, dirs_or_none)
+    return combine_kernel(packed, static, o, dirs_or_none)
+
+
+def _combine_on_kernel(packed: ScenePacked, o, dirs, texel_plan, texel_reuse) -> bool:
+    """``combine_outputs``' choice of ``combine_kernel`` (its docstring)."""
+    if texel_plan or texel_reuse is not None or not o["win"].is_cuda:
+        return False
+    if torch.is_grad_enabled():
+        read = (*o.values(), packed.bitmap_atlas, packed.bitmap_scaling, packed.mat_color, packed.env_cubemap)
+        if any(t.requires_grad for t in read) or (dirs is not None and dirs.requires_grad):
+            return False
+    return True
+
+
+def combine_reference(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=None, texel_plan=False,
+                      texel_reuse=None):
+    """``combine_outputs`` in torch, the plain version of
+    ``combine_kernel``; differentiable.  ``combine_glue`` counts its calls.
 
     With both bitmaps and a cubemap the two gathers merge into one: the
     bitmap quad table and the cubemap's concatenated, one key per lane (a
@@ -150,7 +198,8 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
     ``texel_plan=True`` appends this tap's plan, (texel keys, gathered
     [n, 12] quads), to the tuple (None without bitmaps); ``texel_reuse``
     takes a base tap's plan and gathers through ``_reused_quads``."""
-    global env_gathers
+    global combine_glue
+    combine_glue += 1
     has_bitmap = TEX_BITMAP in static.tex_kinds_present
     has_refl = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
     use_env = static.has_env and dirs_or_none is not None
@@ -166,8 +215,6 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
                 return _reused_quads(static, quads, key, texel_reuse)
             return S.quad_gather_flat(quads, key, static.texel_grad_mode)
 
-    if use_env:
-        env_gathers += 1
     if has_bitmap and use_env:
         with span("c2rt.env"):
             quads_t, key_t, p_t, q_t = S.bitmap_plan(packed, static, winc, o["u"], o["v"], onehot)
@@ -205,6 +252,119 @@ def combine_outputs(packed: ScenePacked, static: SceneStatic, o, dirs_or_none=No
         rd = torch.stack([o["rdx"], o["rdy"], o["rdz"]], dim=-1)
         out = (color, cont, atten, ro, rd)
     return out + (plan,) if texel_plan else out
+
+
+def combine_kernel(packed: ScenePacked, static: SceneStatic, o, dirs=None):
+    """``combine_reference`` (without a texel plan) in one launch of
+    csrc/combine.cu: K1's rows as ``round0`` returns them (float32 rows of
+    any stride, ``win`` int32), ``dirs`` the [n, 3] directions (None leaves
+    misses black).  Records nothing for autograd.  A ``c2rt.combine`` span
+    under a running profiler; ``combine_kernels`` counts the launches."""
+    global combine_kernels
+    from .. import cuda_build
+
+    with span("c2rt.combine"):
+        args, out, _hold = combine_args(packed, static, o, dirs)
+        dev = o["win"].device
+        lib = cuda_build.load("combine")
+        with torch.cuda.device(dev):
+            err = lib.c2rt_combine(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"combine: kernel launch failed: {cuda_build.error_string('combine', err)}")
+        combine_kernels += 1
+    return out
+
+
+# K1's rows that csrc/combine.cu reads, in its order (after win; then the
+# directions' three columns)
+_COMBINE_ROWS = ("r", "g", "b", "lr", "lg", "lb", "u", "v", "rox", "roy", "roz", "rdx", "rdy", "rdz")
+
+
+@functools.lru_cache(maxsize=64)
+def _combine_tables(static: SceneStatic):
+    """The scene's constants for csrc/combine.cu: (one int32 array of the
+    node words [Nn] and the textures' (h, w, first row of the flat bitmap
+    quad table) [T, 3], Nn, T, the table's rows, flags)."""
+    has_bitmap = TEX_BITMAP in static.tex_kinds_present
+    if has_bitmap and static.texel_grad_mode not in S.TEXEL_GRAD_MODES:  # as the glue's gather refuses it
+        raise ValueError(f"texel_grad_mode {static.texel_grad_mode!r}: one of {S.TEXEL_GRAD_MODES}")
+    sizes = static.bitmap_sizes
+    tex = np.zeros((len(sizes), 3), dtype=np.int64)
+    row = 0
+    for t, (h, w) in enumerate(sizes):
+        tex[t] = h, w, row
+        row += h * w
+    nodes = np.zeros(len(static.nodes), dtype=np.int64)
+    for j, ns in enumerate(static.nodes):
+        b = max(ns.bitmap_idx, 0)
+        if has_bitmap and b >= len(sizes):
+            raise ValueError(f"combine: node {j} names bitmap {b} of {len(sizes)}")
+        nodes[j] = (int(ns.shader_kind in (REFLECTION, REFRACTION)) | 2 * int(ns.tex_kind == TEX_BITMAP)
+                    | b << 2)
+    words = np.concatenate([nodes, tex.reshape(-1)]).astype(np.uint32).view(np.int32)
+    flags = int(has_bitmap) | 2 * int(static.has_env) | 4 * bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
+    return words, len(nodes), len(sizes), row, flags
+
+
+@functools.lru_cache(maxsize=64)
+def _combine_table(static: SceneStatic, device: torch.device) -> torch.Tensor:
+    """``_combine_tables``' words on ``device``, once per scene."""
+    return torch.from_numpy(_combine_tables(static)[0]).to(device)
+
+
+def combine_args(packed: ScenePacked, static: SceneStatic, o, dirs=None):
+    """``combine_kernel``'s inputs checked and marshalled for
+    csrc/combine.cu: (``c2rt_combine``'s arguments but the stream, the
+    outputs ``combine_reference`` returns, the host arrays and tensors to
+    hold until the launch)."""
+    _, n_nodes, n_tex, bitmap_rows, flags = _combine_tables(static)
+    if dirs is None:
+        flags &= ~2
+    win = o["win"]
+    n, dev = win.shape[0], win.device
+    if win.dtype != torch.int32 or win.dim() != 1:
+        raise ValueError(f"combine: win must be an [n] int32 tensor, got {list(win.shape)} {win.dtype}")
+    table = _combine_table(static, dev)
+    # the kernel's 22 input pointers (win, the 14 rows, the directions' 3
+    # columns, the 4 tables) and 5 outputs; the rows' strides
+    ptrs, strides = [0] * 27, [0] * 18
+    ptrs[0], strides[0] = win.data_ptr(), win.stride(0)
+    used = (0, 1, 2) + ((3, 4, 5, 6, 7) if flags & 1 else ()) + (tuple(range(8, 14)) if flags & 4 else ())
+    for j in used:
+        x = o[_COMBINE_ROWS[j]]
+        if x.dtype != torch.float32 or x.shape != (n,) or x.device != dev:
+            raise ValueError(f"combine: row {_COMBINE_ROWS[j]} must be an [{n}] float32 tensor on {dev}")
+        ptrs[1 + j], strides[1 + j] = x.data_ptr(), x.stride(0)
+    if flags & 2:
+        if dirs.dtype != torch.float32 or dirs.shape != (n, 3) or dirs.device != dev:
+            raise ValueError(f"combine: dirs must be an [{n}, 3] float32 tensor on {dev}")
+        for k in range(3):
+            ptrs[15 + k], strides[15 + k] = dirs.data_ptr() + 4 * k * dirs.stride(1), dirs.stride(0)
+    tables = (packed.bitmap_atlas if flags & 1 else None, packed.bitmap_scaling if flags & 1 else None,
+              packed.mat_color if flags & 4 else None, packed.env_cubemap if flags & 2 else None)
+    for j, (name, x) in enumerate(zip(("bitmap_atlas", "bitmap_scaling", "mat_color", "env_cubemap"), tables)):
+        if x is None:
+            continue
+        if x.dtype != torch.float32 or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"combine: {name} must be a contiguous float32 tensor on {dev}")
+        ptrs[18 + j] = x.data_ptr()
+    if flags & 1 and packed.bitmap_scaling.shape != (n_nodes,) or flags & 4 and packed.mat_color.shape != (n_nodes, 3):
+        raise ValueError(f"combine: bitmap_scaling and mat_color must have a row per node ({n_nodes})")
+    atlas = packed.bitmap_atlas
+    dims = np.array([bitmap_rows, atlas.shape[1] if flags & 1 else 0, atlas.shape[2] if flags & 1 else 0,
+                     packed.env_cubemap.shape[1] if flags & 2 else 0], dtype=np.int32)
+    refl = flags & 4
+    out = (torch.empty((n, 3), dtype=torch.float32, device=dev),
+           torch.empty((n,), dtype=torch.bool, device=dev) if refl else None,
+           *(torch.empty((n, 3), dtype=torch.float32, device=dev) if refl else None for _ in range(3)))
+    for j, x in enumerate(out):
+        if x is not None:
+            ptrs[22 + j] = x.data_ptr()
+    ptrs, strides = np.array(ptrs, dtype=np.uint64), np.array(strides, dtype=np.int64)
+    at = ptrs.ctypes.data
+    args = (table.data_ptr(), n_nodes, table.data_ptr() + 4 * n_nodes, n_tex, dims.ctypes.data, n, at,
+            strides.ctypes.data, at + 8 * 22, flags)
+    return args, out, (table, dims, ptrs, strides, dirs, tables)
 
 
 def round0_call(packed: ScenePacked, trace=round0):

@@ -285,6 +285,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     histogram, sorted and scatter: K2 in histogram's backward only, the
     atlas gradients within atol 1e-6 rtol 1e-4 of histogram's
     (tests/test_inverse.py:219-241), ms interleaved.
+49. the combine kernel (csrc/combine.cu) against ``combine_reference`` on
+    the 1080p DoF + cubemap frame's first pass and its bounce round, bit
+    for bit, also with missed lanes, NaN u and v and zero directions
+    planted; per call and queued ms against its byte bound and the glue's;
+    every ``combine_outputs`` call of the 1080p DoF + cubemap and AA5
+    frames on the kernel.
 
 Every kernels-line entry carries ``bound_ms``, the least time the card could
 take: the larger of ``bound_bytes_ms``, the bytes the call must move (inputs
@@ -414,6 +420,11 @@ PEAK_INT32 = 33.5e12
 BOUNCE_BYTES, OPS_BOUNCE = (44 + 48 + 1) + (48 + 1), 183
 # phase 48: the bounce kernel's widths, one path and gi_path_batch 8
 BOUNCE_KS = (1, 8)
+# the combine kernel (csrc/combine.cu) per lane: bytes read (win, K1's 14
+# float rows, the direction) and written (colour, cont, atten, ro, rd), and
+# its f32 operations (the bitmap plan 18, the cubemap plan 19, the bilerp
+# 35, the blend 9)
+COMBINE_BYTES, OPS_COMBINE = (4 + 56 + 12) + (12 + 1 + 36), 81
 
 
 T0 = time.perf_counter()
@@ -997,6 +1008,7 @@ def main(argv) -> int:
     bench_phases(argv, card, dev)
     kernels += engine_phases(argv, card, dev)
     kernels += bounce_phases(argv, card, dev)
+    kernels += combine_phases(argv, card, dev)
     log(json.dumps({"frame_ms": kernel_ms, "frame_plain_ms": plain_ms, "frame_max_abs_err": frame_err}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -3833,6 +3845,107 @@ def bounce_phases(argv, card, dev):
             "queued_ms": q, "plain_queued_ms": plain_q})
         del rays, orig, dir, state, o, diffuse, want, got, scratch
     log(json.dumps({"gi_bounce": out}))
+    return entries
+
+
+def combine_phases(argv, card, dev):
+    """Phase 49: the combine kernel (csrc/combine.cu) against its plain
+    version ``flagship.combine_reference`` on the 1080p DoF + cubemap
+    frame's first pass (its 2,073,600 rays through K1's ray-input form) and
+    on that pass's block-compacted bounce round, bit for bit, also with
+    missed lanes, NaN u and v and zero directions planted; its time per
+    call, queued and against its bound; and which path ran each
+    ``combine_outputs`` call of a 1080p DoF + cubemap frame and of the
+    1080p AA5 stand-in frame.  Returns its kernels-line entries."""
+    import torch
+    from chess2rt_tpu_torch.models import types as T
+    from chess2rt_tpu_torch.models.packed import pack_scene
+    from chess2rt_tpu_torch.ops import flagship as F
+    from chess2rt_tpu_torch.ops import prng
+    from chess2rt_tpu_torch.ops import round0 as R
+    from chess2rt_tpu_torch.ops.camera import begin_frame, screen_rays
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+    from chess2rt_tpu_torch.scenes import flagship_standin
+
+    busy = torch.ones((8192, 8192), dtype=torch.float32, device=dev)
+    key = prng.PRNGKey(49)
+    tp, ts = pack_scene(flagship_standin(T, WIDTH, HEIGHT, dof=True, env=True), device=dev)
+    log(f"phase 49 the combine kernel against combine_reference on the DoF + cubemap frame's first pass "
+        f"({WIDTH}x{HEIGHT}) and its bounce round; the paths of the 1080p frames' calls")
+    scenes = {"DoF + cubemap": (tp, ts), "AA5 stand-in": pack_scene(flagship_standin(T, WIDTH, HEIGHT), device=dev)}
+    calls = {}
+    for label, (p, s) in scenes.items():
+        F.combine_kernels = F.combine_glue = F.bounce_rounds = 0
+        render_frame(p, s, key)
+        torch.cuda.synchronize()
+        calls[label] = {"kernel": F.combine_kernels, "glue": F.combine_glue, "bounce_rounds": F.bounce_rounds}
+        taps = 5 * (s.dof_samples if s.dof else 1)
+        log(f"  {label} frame: {calls[label]} over {taps} passes")
+        if F.combine_glue or F.combine_kernels != taps + F.bounce_rounds:
+            raise AssertionError(f"the {label} frame's combine_outputs calls did not all take the kernel: {calls}")
+
+    frame = begin_frame(tp.camera, WIDTH / HEIGHT)
+    lin = torch.arange(MC_LANES, device=dev)
+    _, k0 = prng.split(key)
+    _, kj, kj2, kr = prng.split(k0, 4)
+    k1, k2 = prng.split(kr)
+    draw = lambda k: prng.uniform(k, (MC_LANES,), device=dev)  # noqa: E731
+    o3, d3 = screen_rays(tp.camera, frame, float(WIDTH), float(HEIGHT), (lin % WIDTH).float() + draw(kj),
+                         (lin // WIDTH).float() + draw(kj2), 0.0, dof=True, disc_uv=(draw(k1), draw(k2)))
+    o3, d3 = o3.contiguous(), d3.contiguous()
+    lay = R.layout(ts, WIDTH, HEIGHT)
+    prm0 = lay.pack(tp)
+    tap = R.round0(lay, prm0, o3, d3)
+    _, cont, _, ro, rd = F.combine_reference(tp, ts, tap, d3)
+    blk = cont.reshape(-1, R.BOUNCE_BLOCK).any(1).nonzero().squeeze(1)
+    bo3, bd3 = (x.reshape(-1, R.BOUNCE_BLOCK, 3)[blk].reshape(-1, 3).contiguous() for x in (ro, rd))
+    bounce = R.round0(lay, prm0, bo3, bd3)
+    del o3, lin, cont, ro, rd, bo3
+
+    def planted(o, dirs):
+        o = {k: v.clone() for k, v in o.items()}
+        o["win"][::13] = -1
+        o["u"][3::7] = float("nan")
+        o["v"][5::11] = float("nan")
+        dirs = dirs.clone()
+        dirs[::5] = 0.0
+        return o, dirs
+
+    entries, out = [], {}
+    for label, o, dirs in (("first pass", tap, d3), ("bounce round", bounce, bd3)):
+        n = dirs.shape[0]
+        unequal = {}
+        for case, (oo, dd) in (("rows", (o, dirs)), ("planted", planted(o, dirs))):
+            want = F.combine_reference(tp, ts, oo, dd)
+            got = F.combine_kernel(tp, ts, oo, dd)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("color", "cont", "atten", "ro", "rd"), got, want):
+                if a.dtype == torch.bool:
+                    bad = a != b
+                else:
+                    bad = ((bits(a) != bits(b)) & ~(torch.isnan(a) & torch.isnan(b))).any(-1)
+                unequal[f"{case} {name}"] = int(bad.sum())
+        log(f"  {label} ({n} lanes): lanes not bit-equal {unequal}")
+        if any(unequal.values()):
+            raise AssertionError(f"the combine kernel against combine_reference on the {label}: {unequal}")
+        ms, _ = time_events(lambda i: F.combine_kernel(tp, ts, o, dirs), 20, 3)
+        q = queued_ms(lambda: F.combine_kernel(tp, ts, o, dirs), 20, busy)
+        plain_ms, _ = time_events(lambda i: F.combine_reference(tp, ts, o, dirs), 20, 3)
+        plain_q = queued_ms(lambda: F.combine_reference(tp, ts, o, dirs), 20, busy)
+        b = bound(n * COMBINE_BYTES, n * OPS_COMBINE)
+        log(f"  {label}: {ms:.4f} ms per call, {q:.4f} ms queued; plain (combine_reference) {plain_ms:.4f} ms per "
+            f"call, {plain_q:.4f} ms queued; bound {b[0]:.4f} ms ({b[1]}; bytes {b[2]:.4f}, operations {b[3]:.4f}): "
+            f"{100 * b[0] / q:.1f}% of it queued")
+        out[label] = {"lanes": n, "ms": ms, "queued_ms": q, "plain_ms": plain_ms, "plain_queued_ms": plain_q,
+                      "bound_ms": b[0]}
+        entries.append({**kernel_entry(
+            f"combine (combine_outputs after K1: bitmap and cubemap texels planned, fetched and blended, the "
+            f"bounce state; the DoF + cubemap frame's {label}, {n} lanes)",
+            "chess2rt_tpu_torch/csrc/combine.cu",
+            "none: the renderers' glue after K1 (chess2rt_tpu/ops/pallas_trace.py combine_outputs, XLA)",
+            calls["DoF + cubemap"]["kernel"] if label == "first pass" else None, 0.0, ms, plain_ms, *b),
+            "queued_ms": q, "plain_queued_ms": plain_q})
+    log(json.dumps({"combine": out, "calls": calls}))
     return entries
 
 

@@ -13,7 +13,9 @@ bench twin's gate (``python -m chess2rt_tpu_torch.bench --check``), the
 engine modes: the batched threefry draw, ``gi_path_batch``,
 ``bounce_mode="compact"``, ``texel_tap_reuse`` and ``texel_grad_mode``, and
 the GI bounce kernel (csrc/gi_bounce.cu) against ``gi.bounce_reference`` for
-one round and over the GI cell's 640x480 frame.
+one round and over the GI cell's 640x480 frame, and the combine kernel
+(csrc/combine.cu) against ``flagship.combine_reference`` bit for bit on one
+call and over DoF + cubemap and AA5 frames.
 
 These tests need an NVIDIA card and nvcc; they carry the ``gpu`` marker and
 skip elsewhere.  They import no JAX (the machine with the card has none),
@@ -1071,3 +1073,122 @@ def test_gi_cell_frame_through_the_bounce_kernel(cuda):
     print(json.dumps({"px_off": px_off, "max_abs": d.max().item(), "unequal_pixels": (d > 0).double().mean().item()}))
     assert bool(torch.isfinite(frames[0]).all()) and frames[0].max().item() > 0.01
     assert px_off < 0.005
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, a NaN matching a NaN."""
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(a.view(torch.int32)[~na], b.view(torch.int32)[~nb]))
+
+
+@pytest.mark.parametrize("rows", ["pass", "bounce", "planted"])
+def test_combine_kernel_is_combine_reference(cuda, rows):
+    """csrc/combine.cu against ``flagship.combine_reference`` bit for bit
+    (a NaN matching a NaN) on the 1080p DoF + cubemap frame's first pass
+    (2,073,600 rays through K1's ray-input form), on that pass's
+    block-compacted bounce round, and on the bounce round with missed
+    lanes, NaN u and v, zero directions and negative zeros planted; one
+    launch, counted."""
+    from chess2rt_tpu_torch.ops.camera import begin_frame, screen_rays
+
+    w, h = 1920, 1080
+    tp, ts = pack_scene(flagship_standin(T, w, h, dof=True, env=True), device=cuda)
+    n = w * h
+    lin = torch.arange(n, device=cuda)
+    kj, kj2, k1, k2 = prng.split(prng.PRNGKey(2101), 4)
+    draw = lambda k: prng.uniform(k, (n,), device=cuda)  # noqa: E731
+    o3, d3 = screen_rays(tp.camera, begin_frame(tp.camera, w / h), float(w), float(h), (lin % w).float() + draw(kj),
+                         (lin // w).float() + draw(kj2), 0.0, dof=True, disc_uv=(draw(k1), draw(k2)))
+    lay = R.layout(ts, w, h)
+    prm = lay.pack(tp)
+    o, dirs = R.round0(lay, prm, o3.contiguous(), d3.contiguous()), d3.contiguous()
+    if rows != "pass":
+        _, cont, _, ro, rd = F.combine_reference(tp, ts, o, dirs)
+        blk = cont.reshape(-1, R.BOUNCE_BLOCK).any(1).nonzero().squeeze(1)
+        bo3, dirs = (x.reshape(-1, R.BOUNCE_BLOCK, 3)[blk].reshape(-1, 3).contiguous() for x in (ro, rd))
+        o = R.round0(lay, prm, bo3, dirs)
+        assert 0 < dirs.shape[0] < n
+    if rows == "planted":
+        o = {k: v.clone() for k, v in o.items()}
+        o["win"][::13] = -1
+        o["u"][3::7] = float("nan")
+        o["v"][5::11] = float("nan")
+        o["r"][3::19] = o["lr"][3::19] = -0.0
+        dirs = dirs.clone()
+        dirs[::5] = 0.0
+    want = F.combine_reference(tp, ts, o, dirs)
+    before = F.combine_kernels
+    got = F.combine_kernel(tp, ts, o, dirs)
+    torch.cuda.synchronize()
+    assert F.combine_kernels == before + 1
+    for name, a, b in zip(("color", "cont", "atten", "ro", "rd"), got, want):
+        assert _same_bits(a, b), name
+    win = o["win"]
+    assert bool((win < 0).any()) and bool(want[1].any())
+    if rows == "planted":
+        assert bool(torch.isnan(want[0]).any())
+
+
+@pytest.mark.parametrize("scene", ["dof_sky", "aa5_1080p"])
+def test_frames_through_the_combine_kernel_are_the_glue_frames(cuda, monkeypatch, scene):
+    """Frames through ``render_frame`` with every ``combine_outputs`` call
+    on csrc/combine.cu against the same frames with the calls routed to
+    ``combine_reference``, bit for bit: the DoF + cubemap frame at 640x360
+    (25 samples, AA 5) and the 1080p AA5 stand-in frame."""
+    from chess2rt_tpu_torch.render.pipeline import render_frame
+
+    if scene == "dof_sky":
+        tp, ts = pack_scene(flagship_standin(T, 640, 360, dof=True, env=True), device=cuda)
+        taps = 125
+    else:
+        tp, ts = pack_scene(flagship_standin(T, 1920, 1080), device=cuda)
+        taps = 5
+    key = prng.PRNGKey(2102)
+    F.combine_kernels = F.combine_glue = F.bounce_rounds = 0
+    got = render_frame(tp, ts, key)
+    assert (F.combine_kernels, F.combine_glue) == (taps + F.bounce_rounds, 0)
+    monkeypatch.setattr(F, "combine_outputs", F.combine_reference)
+    F.combine_kernels = F.combine_glue = F.bounce_rounds = 0
+    want = render_frame(tp, ts, key)
+    assert (F.combine_kernels, F.combine_glue) == (0, taps + F.bounce_rounds)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+
+
+def test_combine_kernel_takes_scenes_of_any_size(cuda):
+    """The combine kernel on a scene of 1,106 nodes and 72 bitmaps (the
+    stand-in under its sky with 1,100 small spheres, 70 with a bitmap of
+    their own) against ``combine_reference`` bit for bit on random rows:
+    its node and texture tables go by device pointer, so no size of scene
+    leaves the card for the glue."""
+    rng = np.random.default_rng(21)
+    sc = flagship_standin(T, 64, 48, env=True)
+    mirror = next(n.shader for n in sc.nodes if n.name == "mirror_ball")
+    plain = next(n.shader for n in sc.nodes if n.name == "diff")
+    for j in range(1100):
+        if j < 70:
+            data = rng.random((2 + j % 7, 3 + j % 5, 3)).astype(np.float32)
+            tex = T.BitmapTexture(name=f"tex{j}", scaling=float(rng.uniform(0.01, 0.5)), data=data)
+            shader = T.Lambert(name=f"sh{j}", color=(1.0, 1.0, 1.0), texture=tex)
+        else:
+            shader = mirror if j % 3 == 0 else plain
+        geom = T.Sphere(name=f"ball{j}", center=tuple(rng.uniform(-100, 100, 3)), R=1.0)
+        sc.nodes.append(T.Node(name=f"ball{j}", geometry=geom, shader=shader))
+    tp, ts = pack_scene(sc, device=cuda)
+    assert (len(ts.nodes), len(ts.bitmap_sizes)) == (1106, 72)
+    n = 1 << 20
+    g = torch.Generator(device=cuda).manual_seed(2121)
+    o = {k: torch.rand(n, generator=g, device=cuda) for k in F._COMBINE_ROWS}
+    for k in ("u", "v"):
+        o[k] = o[k] * 6 - 3
+        o[k][5::23] = float("nan")
+    o["win"] = torch.randint(-1, len(ts.nodes), (n,), generator=g, device=cuda, dtype=torch.int32)
+    dirs = torch.randn(n, 3, generator=g, device=cuda)
+    dirs[::9] = 0.0
+    F.combine_kernels = F.combine_glue = 0
+    got = F.combine_outputs(tp, ts, o, dirs)
+    assert (F.combine_kernels, F.combine_glue) == (1, 0)
+    want = F.combine_reference(tp, ts, o, dirs)
+    for name, a, b in zip(("color", "cont", "atten", "ro", "rd"), got, want):
+        assert _same_bits(a, b), name
