@@ -29,6 +29,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -164,6 +166,17 @@ def load_all() -> None:
 
 def error_string(name: str, err: int) -> str:
     return f"{err} ({load(name).c2rt_error_string(err).decode()})"
+
+
+def launch(name: str, symbol: str, device, *args) -> None:
+    """Call ``symbol`` of library ``name`` (built and loaded on first use)
+    with ``args`` and the current stream of the CUDA ``device`` appended,
+    that device current; a non-zero return raises with the library's error
+    string.  Every kernel wrapper launches through here."""
+    with torch.cuda.device(device):
+        err = getattr(load(name), symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}.{symbol}: kernel launch failed: {error_string(name, err)}")
 
 
 def ptxas_usage(name: str):

@@ -199,3 +199,16 @@ def screen_rays(cam: CameraPacked, frame, width: float, height: float, x, y, ste
     orig = frame["pos"] + orig_off
     dir = _norm(T_rel - orig_off)
     return orig, dir
+
+
+def pixel_rays(cam: CameraPacked, width: int, height: int, lin, aa):
+    """The pinhole rays of the flat pixel indices ``lin`` (an integer
+    tensor, row-major over the ``width`` x ``height`` frame) moved by the
+    sub-pixel offset ``aa`` (two numbers, or a 2-vector): the twin of K1's
+    in-kernel ray-gen (``screen_rays``' op order) -> (orig, dir), each
+    [..., 3] in the camera's dtype."""
+    frame = begin_frame(cam, width / height)
+    dt = cam.pos.dtype
+    xs = (lin % width).to(dt) + aa[0]
+    ys = (lin // width).to(dt) + aa[1]
+    return screen_rays(cam, frame, float(width), float(height), xs, ys)

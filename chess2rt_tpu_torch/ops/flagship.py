@@ -29,21 +29,33 @@ them:
   renderer;
 * ``texel_grad_mode``: passed to every texel gather (ops/shade.py).
 
-* ``build_flagship_renderer``: the whole frame on one device, un-chunked or
-  in ``chunk_pixels`` slabs (rays from ``screen_rays`` into the ray-input
-  form at slab width, so peak memory follows the slab), with quirk AA (5
-  taps everywhere) or adaptive AA (4 more taps only on the pixels
-  ``aa_detect`` flags, lane-compacted through the ray-input form).
+Every batch of rays goes through one tracer, ``trace_batch``: K1's call,
+``combine_outputs`` with the rays' directions (for the environment), the
+bounce finisher, in one ``c2rt.tap`` span.  ``trace_rays`` feeds it K1's
+ray-input form; the screen-tap and lin-input forms feed it their own
+calls.  Its callers:
+
+* ``build_flagship_renderer``: the whole frame on one device, un-chunked
+  (the screen-tap form) or in ``chunk_pixels`` slabs (rays from
+  ``camera.pixel_rays`` into the ray-input form at slab width, so peak
+  memory follows the slab), with quirk AA (5 taps everywhere) or adaptive
+  AA (4 more taps only on the pixels ``aa_detect`` flags, lane-compacted
+  through the ray-input form).
 * the Monte-Carlo renderer of ``build_flagship_renderer`` (DoF, stereo):
-  the rays come from ``screen_rays`` with the JAX package's random streams
-  (ops/prng.py: the same keys, the same bits) and go through K1's
-  ray-input form at full width, in ``chunk_pixels`` slabs, or, for the 4
-  adaptive-AA taps of a DoF frame, lane-compacted to the flagged pixels
-  (their uniforms drawn at full width and gathered, since a draw is
-  positional);
+  one sampler draws the rays with the JAX package's random streams
+  (ops/prng.py: the same keys, the same bits) into ``screen_rays`` and
+  traces them through the ray-input form at full width, in
+  ``chunk_pixels`` slabs, or, for the 4 adaptive-AA taps of a DoF frame,
+  lane-compacted to the flagged pixels (their uniforms drawn at full width
+  and gathered, since a draw is positional);
 * ``build_rows_renderer``: one contiguous slice of the flat pixel grid
   through K1's lin-input form (ray-gen in the kernel from the slice's lane
-  base): the per-shard body of parallel/mesh.py.
+  base): the per-shard body of parallel/mesh.py, whose per-shard sampler
+  traces its Monte-Carlo rays through ``trace_rays`` too.
+
+The deterministic renderers share one AA loop (``_deterministic_aa``); all
+three share one chunk-slab loop (``_over_slabs``) and one adaptive-AA
+blend (``_adaptive_taps``).
 
 Where JAX decided "all rounds dead", "compacted buffer overflows" and
 "flagged pixels fit" on the device with ``lax.cond``, this port reads the
@@ -82,11 +94,11 @@ import torch
 from ..models.packed import REFLECTION, REFRACTION, TEX_BITMAP, ScenePacked, SceneStatic, leaves
 from . import prng
 from . import shade as S
-from .camera import begin_frame, screen_rays
+from .camera import begin_frame, pixel_rays, screen_rays
 from .env import cubemap_plan, cubemap_quads, sample_cubemap
 from .round0 import BOUNCE_BLOCK, TILE_N, exact_lane_base, layout, round0, supports
 from .bump_round0 import bump_round0
-from .round0_grad import _gen_rays_lin, diff_round0
+from .round0_grad import diff_round0, form_rays
 from ..utils.spans import read_any, read_count, span
 
 # bounce rounds run (each is one round-0 call); callers zero and read it
@@ -265,12 +277,7 @@ def combine_kernel(packed: ScenePacked, static: SceneStatic, o, dirs=None):
 
     with span("c2rt.combine"):
         args, out, _hold = combine_args(packed, static, o, dirs)
-        dev = o["win"].device
-        lib = cuda_build.load("combine")
-        with torch.cuda.device(dev):
-            err = lib.c2rt_combine(*args, torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"combine: kernel launch failed: {cuda_build.error_string('combine', err)}")
+        cuda_build.launch("combine", "c2rt_combine", o["win"].device, *args)
         combine_kernels += 1
     return out
 
@@ -379,25 +386,16 @@ def round0_call(packed: ScenePacked, trace=round0):
     diff = torch.is_grad_enabled() and any(x.requires_grad for x in leaves(packed))
 
     def call(lay, prm, *rays, lin=None):
+        kw = {} if lin is None else {"lin_input": True, "lin_base": lin[0], "n_lanes": lin[1]}
         if lay.static.has_bump:
-            if lin is not None:
-                return bump_round0(lay, prm, packed, trace=trace, lin_input=True, lin_base=lin[0], n_lanes=lin[1])
-            return bump_round0(lay, prm, packed, *rays, trace=trace)
-        if lin is not None:
-            if diff:
-                return diff_round0(lay, prm, packed, trace=trace, lin_input=True, lin_base=lin[0], n_lanes=lin[1])
-            return trace(lay, prm, lin_input=True, n_lanes=lin[1])
+            return bump_round0(lay, prm, packed, *rays, trace=trace, **kw)
         if diff:
-            return diff_round0(lay, prm, packed, *rays, trace=trace)
+            return diff_round0(lay, prm, packed, *rays, trace=trace, **kw)
+        if lin is not None:
+            return trace(lay, prm, lin_input=True, n_lanes=lin[1])
         return trace(lay, prm, *rays)
 
     return call
-
-
-def _env_dirs(static: SceneStatic, dirs):
-    """The directions ``combine_outputs`` samples the cubemap by: ``dirs``
-    for a scene with an environment, else None."""
-    return dirs if static.has_env else None
 
 
 def _round(packed, static, lay, prm, carry, call):
@@ -407,7 +405,7 @@ def _round(packed, static, lay, prm, carry, call):
     with span("c2rt.round"):
         color, at, a, o3, d3 = carry
         o = call(lay, prm, o3.contiguous(), d3.contiguous())
-        c, cont, mult, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
+        c, cont, mult, ro, rd = combine_outputs(packed, static, o, d3 if static.has_env else None)
         color = color + torch.where(a[..., None], at * c, 0.0)
         cont = cont & a
         at = at * torch.where(cont[..., None], mult, 1.0)
@@ -427,14 +425,14 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
     layout gives every lane the same values."""
     from ..render.pipeline import compact_indices
 
-    has_refl = bool({REFLECTION, REFRACTION} & static.shader_kinds_present)
-    rounds = (static.max_trace_depth + 1) if has_refl else 1
+    if not {REFLECTION, REFRACTION} & static.shader_kinds_present:
+        return lambda packed, prm, color, *_: color  # no bounce rounds
+    rounds = static.max_trace_depth + 1
     n = n_lanes
     lay = layout(static, width, height)
-    full_bounce = has_refl and static.bounce_mode == "full"
-    block_bounce = has_refl and static.bounce_mode == "block" and n % BOUNCE_BLOCK == 0
+    block_bounce = static.bounce_mode == "block" and n % BOUNCE_BLOCK == 0
     cap = static.bounce_capacity
-    compact_bounce = bool(has_refl and cap and cap < n and static.bounce_mode not in ("block", "full"))
+    compact_bounce = bool(cap and cap < n and static.bounce_mode not in ("block", "full"))
     if compact_bounce:
         cap = -(-cap // TILE_N) * TILE_N  # whole kernel tiles, as JAX's kernel width
     if block_bounce:
@@ -448,16 +446,22 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         cap_blk = static.bounce_block_capacity or -(-nblk // (4 if is_slab else 12))
         cap_blk = max(lanes_per_tile, -(-cap_blk // lanes_per_tile) * lanes_per_tile)
 
-    def fullwidth_bounces(packed, prm, color, atten, alive, orig, dir, n_rounds, call):
-        """Bounce rounds at full width; all-dead rounds are skipped."""
-        carry = (color, atten, alive, orig, dir)
-        for _ in range(n_rounds):
-            if not read_any("flagship.full_alive", carry[2]):
+    def run_rounds(packed, prm, carry, call, site):
+        """The rounds on ``carry``, the list [color, atten, alive, orig,
+        dir], each round's state replacing the last's in it (so a caller's
+        list holds no stale buffers); a round with no live lane (read on the
+        host at ``site``) ends them.  -> the color."""
+        for _ in range(rounds - 1):
+            if not read_any(site, carry[2]):
                 break
-            carry = _round(packed, static, lay, prm, carry, call)
+            carry[:] = _round(packed, static, lay, prm, carry, call)
         return carry[0]
 
-    def block_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call):
+    def fullwidth_bounces(packed, prm, color, alive, atten, orig, dir, call):
+        """Bounce rounds at full width; all-dead rounds are skipped."""
+        return run_rounds(packed, prm, [color, atten, alive, orig, dir], call, "flagship.full_alive")
+
+    def block_bounces(packed, prm, color, alive, atten0, orig, dir, call):
         """Bounce rounds on a BLOCK-compacted buffer: whole 128-lane blocks
         with any live lane are gathered, rounds run through the ray-input
         kernel at that width, and results add back into their blocks.
@@ -470,7 +474,7 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         blk_alive = alive.reshape(nblk, B).any(dim=1)
         count = read_count("flagship.block_count", blk_alive)
         if count > cap_blk:
-            return fullwidth_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call)
+            return fullwidth_bounces(packed, prm, color, alive, atten0, orig, dir, call)
         if count == 0:
             return color
 
@@ -479,19 +483,16 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
 
         with span("c2rt.gather"):
             sel = compact_indices(blk_alive, nblk, cap_blk)[:count].long()
-            carry = (
+            carry = [
                 torch.zeros((count * B, 3), dtype=color.dtype, device=color.device),
                 slab(atten0), slab(alive), slab(orig), slab(dir),
-            )
-        for _ in range(n_rounds):
-            if not read_any("flagship.block_alive", carry[2]):
-                break
-            carry = _round(packed, static, lay, prm, carry, call)
+            ]
+        added = run_rounds(packed, prm, carry, call, "flagship.block_alive")
         out = color.reshape(nblk, B, 3).clone()
-        out.index_add_(0, sel, carry[0].reshape(count, B, 3))
+        out.index_add_(0, sel, added.reshape(count, B, 3))
         return out.reshape(n, 3)
 
-    def compact_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call):
+    def compact_bounces(packed, prm, color, alive, atten0, orig, dir, call):
         """Bounce rounds on a LANE-compacted buffer of ``cap`` lanes: the
         live lanes' (atten, orig, dir) in one merged row gather, the rounds
         through the ray-input kernel at ``cap`` width (slots past the live
@@ -501,33 +502,60 @@ def build_bounce_finisher(static: SceneStatic, width: int, height: int, n_lanes:
         count = read_count("flagship.compact_count", alive)  # JAX's lax.cond predicate
         if count > cap:
             compact_overflows += 1
-            return fullwidth_bounces(packed, prm, color, atten0, alive, orig, dir, n_rounds, call)
+            return fullwidth_bounces(packed, prm, color, alive, atten0, orig, dir, call)
         if count == 0:
             return color
         with span("c2rt.gather"):
             sel = compact_indices(alive, n, cap).long()
             g = torch.cat([atten0, orig, dir], dim=-1)[sel.clamp_max(n - 1)]  # junk slots clamp onto the last lane
         lane_live = torch.arange(cap, device=alive.device) < count
-        carry = (torch.zeros((cap, 3), dtype=color.dtype, device=color.device), g[:, 0:3], lane_live, g[:, 3:6],
-                 g[:, 6:9])
-        for _ in range(n_rounds):
-            if not read_any("flagship.compact_alive", carry[2]):
-                break
-            carry = _round(packed, static, lay, prm, carry, call)
-        return color.index_add(0, sel[:count], carry[0][:count])
+        carry = [torch.zeros((cap, 3), dtype=color.dtype, device=color.device), g[:, 0:3], lane_live, g[:, 3:6],
+                 g[:, 6:9]]
+        return color.index_add(0, sel[:count], run_rounds(packed, prm, carry, call, "flagship.compact_alive")[:count])
 
-    def finish(packed, prm, color, cont, atten, ro, rd, call):
-        if not has_refl:
-            return color
-        if full_bounce:
-            return fullwidth_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
-        if block_bounce:
-            return block_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
-        if compact_bounce:
-            return compact_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
-        return fullwidth_bounces(packed, prm, color, atten, cont, ro, rd, rounds - 1, call)
+    # each is finish(packed, prm, color, cont, atten, ro, rd, call)
+    return block_bounces if block_bounce else compact_bounces if compact_bounce else fullwidth_bounces
 
-    return finish
+
+def trace_batch(packed: ScenePacked, static: SceneStatic, prm0, finish, call, k1, plan=False, texel_reuse=None):
+    """One batch of rays in one ``c2rt.tap`` span: ``k1()`` makes K1's call
+    for it and returns (its rows, the rays' directions [n, 3] or None), then
+    ``combine_outputs`` (the directions read for a scene with an
+    environment) and ``finish``'s bounce rounds (a ``build_bounce_finisher``
+    of the batch's width; ``prm0`` and ``call`` as there) -> [n, 3]; with
+    ``plan`` also the batch's texel plan, with ``texel_reuse`` a base tap's
+    (``combine_reference``)."""
+    with span("c2rt.tap"):
+        o, dirs = k1()
+        out = combine_outputs(packed, static, o, dirs if static.has_env else None, plan, texel_reuse)
+        img = finish(packed, prm0, *out[:5], call)
+        return (img, out[5]) if plan else img
+
+
+def trace_rays(packed: ScenePacked, static: SceneStatic, lay, prm0, finish, call, rays):
+    """``trace_batch`` through K1's ray-input form: ``rays()`` -> (orig,
+    dir) [n, 3], made inside the batch's span, traced at ``prm0``."""
+
+    def k1():
+        o3, d3 = rays()
+        return call(lay, prm0, o3.contiguous(), d3.contiguous()), d3
+
+    return trace_batch(packed, static, prm0, finish, call, k1)
+
+
+def _pixel_tap(packed, static, lay, prm0, finish, call, lin, aa):
+    """One tap through the ray-input form at the flat pixel indices ``lin``
+    ([C] integers) plus the offset ``aa`` -> [C, 3]."""
+    return trace_rays(packed, static, lay, prm0, finish, call,
+                      lambda: pixel_rays(packed.camera, lay.width, lay.height, lin, aa))
+
+
+def _slice_dirs(packed: ScenePacked, static: SceneStatic, lay, prm, base: int, n: int):
+    """The directions of the rays of pixels [base, base + n) at ``prm``'s aa
+    offset (``round0_grad.form_rays``), for the environment term of K1's
+    screen-tap and lin-input forms (the JAX package's ``_tap_dirs`` and
+    ``_lin_dirs``); None without an environment."""
+    return form_rays(packed, lay, prm.detach(), (base, n), ())[1] if static.has_env else None
 
 
 def _texel_reuse_on(static: SceneStatic, slabs) -> bool:
@@ -548,61 +576,104 @@ def _chunk_slabs(static: SceneStatic, n: int):
     return C, -(-n // C)
 
 
+def _over_slabs(slabs, n: int, batch):
+    """A ``chunk_pixels`` pass (memory-bounded: a slab's temporaries, not
+    the pass's, set the peak): ``batch(s)`` -> [C, 3] for each of the S
+    slabs of ``slabs = (C, S)``, concatenated and cut to the ``n`` lanes
+    (the caller's pad lanes re-trace a lane of the pass)."""
+    return torch.cat([batch(s) for s in range(slabs[1])])[:n]
+
+
+def _pass(static: SceneStatic, width: int, height: int, n: int, is_slab: bool = False):
+    """(K1's layout, ``_chunk_slabs``, the bounce finisher) of an ``n``-lane
+    pass over the frame: the finisher of a slab's width when the pass is
+    chunked, else of the pass's (``is_slab`` as in
+    ``build_bounce_finisher``)."""
+    slabs = _chunk_slabs(static, n)
+    if slabs is not None:
+        n, is_slab = slabs[0], True
+    return layout(static, width, height), slabs, build_bounce_finisher(static, width, height, n, is_slab=is_slab)
+
+
 def _aa_capacity(cap: int) -> int:
     """The lane capacity of the compacted adaptive-AA taps: whole tiles."""
     return max(TILE_N, -(-cap // TILE_N) * TILE_N)
 
 
-def _tap_params(prm0, a0: int):
-    """The 5 AA taps' parameter vectors ([5, n_prm]): ``prm0`` with the aa
-    slot set to (0, 0) and the four AA_KERNEL offsets."""
+def _compacted_taps(static: SceneStatic, width: int, height: int, n: int, slabs):
+    """(capacity, bounce finisher) of an ``n``-lane pass's lane-compacted
+    adaptive-AA taps: the pass's share of the frame's ``aa_capacity`` (or
+    1/32 of its lanes) in whole tiles; (None, None) when its adaptive taps
+    run full width (no adaptive AA, or slabs)."""
+    if not (static.aa_enabled and static.aa_adaptive and slabs is None):
+        return None, None
+    cap = _aa_capacity(-(-static.aa_capacity * n // (width * height)) if static.aa_capacity else -(-n // 32))
+    return cap, build_bounce_finisher(static, width, height, cap, is_slab=True)
+
+
+def _deterministic_aa(static: SceneStatic, n: int, prm0, a0: int, tap, reuse: bool, adaptive):
+    """A deterministic frame (or slice) of ``n`` lanes from ``tap(prm,
+    plan=False, texel_reuse=None)`` -> [n, 3], the tap at the parameters
+    ``prm`` (with ``plan`` also its texel plan, with ``texel_reuse`` a base
+    tap's): the base tap without AA; the reference's quirk AA, every lane
+    the average of the 5 taps (``reuse``: taps 1-4 reuse the base tap's
+    texel quads); or adaptive AA, ``adaptive(base_tap) -> (base, mask, cap,
+    pixel_tap)`` giving the base tap (``base_tap()`` renders it), its
+    needs-AA mask, and the compacted taps' capacity and ray-input tap
+    ``pixel_tap(selc, aa)`` for ``_adaptive_taps`` (``cap`` None: full
+    width)."""
     from ..render.pipeline import AA_KERNEL
 
-    offsets = torch.tensor(((0.0, 0.0),) + AA_KERNEL, dtype=torch.float32, device=prm0.device)
-    prms = prm0.repeat(len(offsets), 1)
-    prms[:, a0:a0 + 2] = offsets
-    return prms
+    if not static.aa_enabled:
+        return tap(prm0)
+    # the 5 taps' parameter vectors ([5, n_prm]) differ only in the aa slot:
+    # (0, 0), then the four AA_KERNEL offsets
+    prms = prm0.repeat(5, 1)
+    prms[:, a0:a0 + 2] = torch.tensor(((0.0, 0.0),) + AA_KERNEL, dtype=torch.float32, device=prm0.device)
+
+    def taps(acc, ks, **plan_kw):
+        for k in ks:
+            acc = acc + tap(prms[k], **plan_kw)
+        return acc
+
+    if static.aa_adaptive:
+        base, mask, cap, pixel_tap = adaptive(lambda: tap(prm0))
+
+        def add_taps(acc, selc=None):
+            if selc is None:
+                return taps(acc, range(1, 5))
+            for aa in AA_KERNEL:
+                acc = acc + pixel_tap(selc, aa)
+            return acc
+
+        return _adaptive_taps(base, mask, add_taps, cap)
+    if reuse:
+        img, plan = tap(prm0, plan=True)
+        return taps(img, range(1, 5), texel_reuse=plan) / 5.0
+    return taps(torch.zeros((n, 3), dtype=torch.float32, device=prm0.device), range(5)) / 5.0
 
 
-def _ray_tap(packed, static, lay, prm0, finish, lin, aa, call):
-    """One tap through the ray-input form at the flat pixel indices ``lin``
-    ([C] integers) plus the offset ``aa``: ``screen_rays``, round 0,
-    combine, bounce rounds -> [C, 3]."""
-    W, H = lay.width, lay.height
-    with span("c2rt.tap"):
-        frame = begin_frame(packed.camera, W / H)
-        dt = packed.dtype
-        xs = (lin % W).to(dt) + aa[0]
-        ys = (lin // W).to(dt) + aa[1]
-        o3, d3 = screen_rays(packed.camera, frame, float(W), float(H), xs, ys)
-        o = call(lay, prm0, o3.contiguous(), d3.contiguous())
-        color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
-        return finish(packed, prm0, color, cont, atten, ro, rd, call)
-
-
-def _adaptive_taps(base, mask, full_taps, compact):
+def _adaptive_taps(base, mask, add_taps, cap=None, site="flagship.aa_count"):
     """The adaptive-AA blend of a base tap ``base`` [n, 3] under the
-    needs-AA ``mask`` [n].  ``compact`` is None (the taps run full width
-    and the mask only selects: ``full_taps(base)`` returns base plus the 4
-    other taps) or ``(cap_aa, tap)``: when the flagged pixels fit in
-    ``cap_aa`` lanes (decided on the host), the 4 taps run lane-compacted,
-    ``tap(selc, aa)`` rendering the flagged lanes ``selc`` at offset ``aa``,
-    and only those pixels are replaced; otherwise full width."""
-    from ..render.pipeline import AA_KERNEL, compact_indices
+    needs-AA ``mask`` [n]; ``add_taps(acc, selc=None)`` adds the 4 other
+    taps to ``acc``.  ``cap`` None: the taps run full width and the mask
+    only selects.  Else, when the flagged pixels fit in ``cap`` lanes (read
+    on the host at the sync ``site``), the 4 taps run lane-compacted,
+    ``add_taps`` rendering only the flagged lanes ``selc``, and only those
+    pixels are replaced; otherwise full width."""
+    from ..render.pipeline import compact_indices
 
     n = mask.shape[0]
-    count = read_count("flagship.aa_count", mask) if compact is not None else None
-    if compact is None or count > compact[0]:
-        return torch.where(mask[:, None], full_taps(base) / 5.0, base)
+    count = read_count(site, mask) if cap is not None else None
+    if cap is None or count > cap:
+        return torch.where(mask[:, None], add_taps(base) / 5.0, base)
     if count == 0:
         return base
-    cap_aa, tap = compact
     with span("c2rt.gather"):
-        sel = compact_indices(mask, n, cap_aa).long()
+        sel = compact_indices(mask, n, cap).long()
         selc = sel.clamp_max(n - 1)  # junk slots re-render the last lane and are dropped
         acc = base[selc]
-    for aa in AA_KERNEL:
-        acc = acc + tap(selc, aa)
+    acc = add_taps(acc, selc)
     # every compacted lane is flagged; an out-of-place scatter, since the
     # graph may hold ``base``
     return base.index_put((sel[:count],), acc[:count] / 5.0)
@@ -626,77 +697,41 @@ def build_flagship_renderer(static: SceneStatic, width: int, height: int, trace=
     if static.dof or static.stereo:
         return _build_mc_renderer(static, width, height, trace, uniform)
     n = width * height
-    lay = layout(static, width, height)
+    lay, slabs, finish = _pass(static, width, height, n)
     a0 = lay.off["aa"]
-    slabs = _chunk_slabs(static, n)
     reuse = _texel_reuse_on(static, slabs)
+    cap_aa, finish_aa = _compacted_taps(static, width, height, n, slabs)
 
-    if slabs is None:
-        finish = build_bounce_finisher(static, width, height, n)
+    def render_tap(packed: ScenePacked, prm0, prm_tap, call, plan=False, texel_reuse=None):
+        """One tap [n, 3] through the screen-tap form; with ``plan`` also its
+        texel plan (for the taps that reuse it), with ``texel_reuse`` a base
+        tap's.  In slabs, rays from ``pixel_rays`` into the ray-input
+        form, pad lanes clamped onto the last pixel."""
+        if slabs is None:
+            return trace_batch(packed, static, prm0, finish, call,
+                               lambda: (call(lay, prm_tap), _slice_dirs(packed, static, lay, prm_tap, 0, n)),
+                               plan, texel_reuse)
+        C, aa = slabs[0], prm_tap[a0:a0 + 2].detach()
 
-        def render_tap(packed: ScenePacked, prm0, prm_tap, call, plan=False, texel_reuse=None):
-            """One tap [n, 3]; with ``plan`` also its texel plan (for the
-            taps that reuse it), with ``texel_reuse`` a base tap's plan."""
-            with span("c2rt.tap"):
-                o = call(lay, prm_tap)
-                # the miss rays' directions for the environment term,
-                # recomputed in torch (the JAX package's ``_tap_dirs``)
-                dirs = None
-                if static.has_env:
-                    dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), 0, n)[1]
-                out = combine_outputs(packed, static, o, dirs, plan, texel_reuse)
-                img = finish(packed, prm0, *out[:5], call)
-                return (img, out[5]) if plan else img
+        def slab(s):  # pad lanes clamp onto the last pixel (recomputed, sliced off)
+            lin = torch.arange(s * C, (s + 1) * C, device=prm0.device).clamp_max(n - 1)
+            return _pixel_tap(packed, static, lay, prm0, finish, call, lin, aa)
 
-    else:
-        # memory-bounded: the frame in S slabs of C lanes, rays from
-        # screen_rays into the ray-input form, so a slab's temporaries (not
-        # the frame's) set the peak.  Each slab runs inside _ray_tap and
-        # leaves only its [C, 3] result behind
-        C, n_slabs = slabs
-        finish_slab = build_bounce_finisher(static, width, height, C, is_slab=True)
-
-        def render_tap(packed: ScenePacked, prm0, prm_tap, call):
-            aa = prm_tap[a0:a0 + 2].detach()
-            out = []
-            for s in range(n_slabs):
-                # pad lanes clamp onto the last pixel (recomputed, sliced off)
-                lin = torch.arange(s * C, (s + 1) * C, device=prm0.device).clamp_max(n - 1)
-                out.append(_ray_tap(packed, static, lay, prm0, finish_slab, lin, aa, call))
-            return torch.cat(out)[:n]
-
-    if static.aa_enabled and static.aa_adaptive and slabs is None:
-        cap_aa = _aa_capacity(static.aa_capacity or -(-n // 32))
-        finish_aa = build_bounce_finisher(static, width, height, cap_aa, is_slab=True)
+        return _over_slabs(slabs, n, slab)
 
     def render(packed: ScenePacked, key=None):
         prm0 = lay.pack(packed)
         call = round0_call(packed, trace)
-        if not static.aa_enabled:
-            return render_tap(packed, prm0, prm0, call).reshape(height, width, 3)
-        # the 5 taps' parameter vectors differ only in the aa slot
-        prms = _tap_params(prm0, a0)
 
-        def taps(acc, ks):
-            for k in ks:
-                acc = acc + render_tap(packed, prm0, prms[k], call)
-            return acc
+        def tap(prm, **plan_kw):
+            return render_tap(packed, prm0, prm, call, **plan_kw)
 
-        if not static.aa_adaptive:
-            if reuse:  # taps 1-4 reuse the base tap's texel quads
-                img, plan = render_tap(packed, prm0, prm0, call, plan=True)
-                for k in range(1, 5):
-                    img = img + render_tap(packed, prm0, prms[k], call, texel_reuse=plan)
-            else:
-                img = taps(torch.zeros((n, 3), dtype=torch.float32, device=prm0.device), range(5))
-            return (img / 5.0).reshape(height, width, 3)
-        base = render_tap(packed, prm0, prm0, call)
-        mask = aa_detect(base.reshape(height, width, 3)).reshape(-1)
-        compact = None
-        if slabs is None:
-            compact = (cap_aa, lambda selc, aa: _ray_tap(packed, static, lay, prm0, finish_aa, selc, aa, call))
-        img = _adaptive_taps(base, mask, lambda b: taps(b, range(1, 5)), compact)
-        return img.reshape(height, width, 3)
+        def adaptive(base_tap):
+            base = base_tap()
+            mask = aa_detect(base.reshape(height, width, 3)).reshape(-1)
+            return base, mask, cap_aa, lambda selc, aa: _pixel_tap(packed, static, lay, prm0, finish_aa, call, selc, aa)
+
+        return _deterministic_aa(static, n, prm0, a0, tap, reuse, adaptive).reshape(height, width, 3)
 
     def tap(packed, aa_offset=(0.0, 0.0)):
         prm0 = lay.pack(packed)
@@ -721,47 +756,25 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
     uniforms drawn at full width and gathered at the flagged lanes; other
     adaptive frames run the taps at full width and blend by the mask.  The
     "fits" decision is made on the host."""
-    from ..render.pipeline import AA_KERNEL, aa_detect, compact_indices
+    from ..render.pipeline import AA_KERNEL, _combine_stereo, aa_detect
 
     n = width * height
-    lay = layout(static, width, height)
-    slabs = _chunk_slabs(static, n)
+    lay, slabs, finish = _pass(static, width, height, n)
     W, H = float(width), float(height)
-    if slabs is None:
-        finish_mc = build_bounce_finisher(static, width, height, n)
+    # a stereo frame runs its adaptive taps at full width
+    cap_mc, finish_aa = (None, None) if static.stereo else _compacted_taps(static, width, height, n, slabs)
 
-        def trace_rays(packed, prm0, orig, dir, call):
-            with span("c2rt.tap"):
-                o = call(lay, prm0, orig.contiguous(), dir.contiguous())
-                color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, dir))
-                return finish_mc(packed, prm0, color, cont, atten, ro, rd, call)
-
-    else:
+    def trace_slabs(packed, prm0, orig, dir, call):
+        """A full-width pass's rays in ``chunk_pixels`` slabs."""
         C, n_slabs = slabs
         pad = n_slabs * C - n
-        finish_slab = build_bounce_finisher(static, width, height, C, is_slab=True)
-
-        def trace_rays(packed, prm0, orig, dir, call):
-            if pad:  # pad lanes re-trace the last ray; sliced off below
-                orig = torch.cat([orig, orig[-1:].expand(pad, 3)])
-                dir = torch.cat([dir, dir[-1:].expand(pad, 3)])
-            out = []
-            for s in range(n_slabs):
-                with span("c2rt.tap"):
-                    d3 = dir[s * C:(s + 1) * C]
-                    o = call(lay, prm0, orig[s * C:(s + 1) * C].contiguous(), d3.contiguous())
-                    color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
-                    out.append(finish_slab(packed, prm0, color, cont, atten, ro, rd, call))
-            return torch.cat(out)[:n]
-
-    aa_mc_fast = static.aa_enabled and static.aa_adaptive and static.dof and not static.stereo and slabs is None
-    if aa_mc_fast:
-        cap_mc = _aa_capacity(static.aa_capacity or -(-n // 32))
-        finish_aa_mc = build_bounce_finisher(static, width, height, cap_mc, is_slab=True)
+        if pad:  # pad lanes re-trace the last ray; sliced off
+            orig = torch.cat([orig, orig[-1:].expand(pad, 3)])
+            dir = torch.cat([dir, dir[-1:].expand(pad, 3)])
+        return _over_slabs(slabs, n, lambda s: trace_rays(packed, static, lay, prm0, finish, call,
+                                                          lambda: (orig[s * C:(s + 1) * C], dir[s * C:(s + 1) * C])))
 
     def render(packed: ScenePacked, key=None):
-        from ..render.pipeline import _combine_stereo
-
         draw = uniform or prng.uniform
         key = prng.as_key(key)
         prm0 = lay.pack(packed)
@@ -771,94 +784,69 @@ def _build_mc_renderer(static: SceneStatic, width: int, height: int, trace, unif
         lin = torch.arange(n, device=dev)
         xf, yf = (lin % width).to(dt), (lin // width).to(dt)
         offsets = torch.tensor(AA_KERNEL, dtype=dt, device=dev)
+        eyes = (-1.0, +1.0) if static.stereo else (0.0,)
 
-        def disc(k, like):
-            """The disc uniforms ``screen_rays`` would draw from ``k``."""
-            k1, k2 = prng.split(k)
-            return draw(k1, like.shape, dt, device=dev), draw(k2, like.shape, dt, device=dev)
-
-        def rays(xx, yy, k):
-            """A pass's (orig, dir), one pair per eye."""
-            uv = disc(k, xx) if static.dof else None  # both eyes draw the same
-            eyes = (-1.0, +1.0) if static.stereo else (0.0,)
-            return [screen_rays(cam, frame, W, H, xx, yy, e, dof=static.dof, disc_uv=uv) for e in eyes]
-
-        def trace_eyes(eyes):
-            out = [trace_rays(packed, prm0, o3, d3, call) for o3, d3 in eyes]
-            return _combine_stereo(*out) if static.stereo else out[0]
-
-        def samples(xx, yy, k):
+        def samples(xx, yy, k, selc=None):
             """The pixels' passes: one, or ``dof_samples`` under DoF, each
-            its ray-gen (everything before its first K1 call) and trace."""
-            if not static.dof:
+            its ray-gen (everything before its first K1 call) and trace.
+            With ``selc`` the pixels are the flagged lanes of the compacted
+            adaptive taps, on the FULL-WIDTH stream: each uniform drawn at
+            (n,) and gathered at ``selc``."""
+
+            def at(kk):
+                u = draw(kk, (n,), dt, device=dev)
+                return u if selc is None else u[selc]
+
+            def trace_eye(o3, d3):
+                if selc is None and slabs is not None:
+                    return trace_slabs(packed, prm0, o3, d3, call)
+                fin = finish if selc is None else finish_aa
+                return trace_rays(packed, static, lay, prm0, fin, call, lambda: (o3, d3))
+
+            def rays():
+                """A pass's (orig, dir), one pair per eye; under DoF the jitter
+                and the disc drawn from the next sample's keys off ``k``."""
+                nonlocal k
+                jx, jy, uv = xx, yy, None
+                if static.dof:
+                    k, kj, kj2, kr = prng.split(k, 4)
+                    jx, jy = xx + at(kj), yy + at(kj2)
+                    uv = tuple(at(kd) for kd in prng.split(kr))  # both eyes draw the same
+                return [screen_rays(cam, frame, W, H, jx, jy, e, dof=static.dof, disc_uv=uv) for e in eyes]
+
+            def one_pass():
                 with _mc_pass():
                     with span("c2rt.raygen"):
-                        eyes = rays(xx, yy, k)
-                    return trace_eyes(eyes)
+                        eye_rays = rays()
+                    out = [trace_eye(o3, d3) for o3, d3 in eye_rays]
+                    return _combine_stereo(*out) if static.stereo else out[0]
+
+            if not static.dof:
+                return one_pass()
             acc = torch.zeros(xx.shape + (3,), dtype=dt, device=dev)
             for _ in range(static.dof_samples):
-                with _mc_pass():
-                    with span("c2rt.raygen"):
-                        k, kj, kj2, kr = prng.split(k, 4)
-                        jx = xx + draw(kj, xx.shape, dt, device=dev)
-                        jy = yy + draw(kj2, yy.shape, dt, device=dev)
-                        eyes = rays(jx, jy, kr)
-                    acc = acc + trace_eyes(eyes)
+                acc = acc + one_pass()
             return acc / static.dof_samples
 
-        def full_taps(img, key):
-            acc = img
+        def add_taps(acc, selc=None):
+            """AA taps 1-4, each from a key split off the frame's: at full
+            width, or on the flagged lanes ``selc``."""
+            xx, yy, k = xf, yf, key
+            if selc is not None:
+                xx, yy = (selc % width).to(dt), (selc // width).to(dt)
             for off in offsets:
-                key, kk = prng.split(key)
-                acc = acc + samples(xf + off[0], yf + off[1], kk)
-            return acc / 5.0
+                k, kk = prng.split(k)
+                acc = acc + samples(xx + off[0], yy + off[1], kk, selc)
+            return acc
 
         key, k0 = prng.split(key)
         img = samples(xf, yf, k0)
         if not static.aa_enabled:
             return img.reshape(height, width, 3)
         if not static.aa_adaptive:
-            return full_taps(img, key).reshape(height, width, 3)
+            return (add_taps(img) / 5.0).reshape(height, width, 3)
         mask = aa_detect(img.reshape(height, width, 3)).reshape(-1)
-        count = read_count("flagship.mc_aa_count", mask) if aa_mc_fast else None
-        if count is None or count > cap_mc:
-            return torch.where(mask[:, None], full_taps(img, key), img).reshape(height, width, 3)
-        if count == 0:
-            return img.reshape(height, width, 3)
-        with span("c2rt.gather"):
-            sel = compact_indices(mask, n, cap_mc).long()
-            selc = sel.clamp_max(n - 1)  # junk slots re-render the last lane and are dropped
-        xs0, ys0 = (selc % width).to(dt), (selc // width).to(dt)
-
-        def trace_c(o3, d3):
-            with span("c2rt.tap"):
-                o = call(lay, prm0, o3.contiguous(), d3.contiguous())
-                color, cont, atten, ro, rd = combine_outputs(packed, static, o, _env_dirs(static, d3))
-                return finish_aa_mc(packed, prm0, color, cont, atten, ro, rd, call)
-
-        def samples_c(xx, yy, k):
-            """The DoF loop on the compacted lanes with the FULL-WIDTH
-            stream: each uniform drawn at (n,) and gathered at ``selc``."""
-            acc = torch.zeros((cap_mc, 3), dtype=dt, device=dev)
-            for _ in range(static.dof_samples):
-                with _mc_pass():
-                    with span("c2rt.raygen"):
-                        k, kj, kj2, kr = prng.split(k, 4)
-                        jx = xx + draw(kj, (n,), dt, device=dev)[selc]
-                        jy = yy + draw(kj2, (n,), dt, device=dev)[selc]
-                        k1, k2 = prng.split(kr)
-                        uv = draw(k1, (n,), dt, device=dev)[selc], draw(k2, (n,), dt, device=dev)[selc]
-                        o3, d3 = screen_rays(cam, frame, W, H, jx, jy, 0.0, dof=True, disc_uv=uv)
-                    acc = acc + trace_c(o3, d3)
-            return acc / static.dof_samples
-
-        acc = img[selc]
-        for off in offsets:
-            key, kk = prng.split(key)
-            acc = acc + samples_c(xs0 + off[0], ys0 + off[1], kk)
-        # every compacted lane below ``count`` is flagged; an out-of-place
-        # scatter, since the graph may hold ``img``
-        return img.index_put((sel[:count],), acc[:count] / 5.0).reshape(height, width, 3)
+        return _adaptive_taps(img, mask, add_taps, cap_mc, "flagship.mc_aa_count").reshape(height, width, 3)
 
     render.tap = None  # a Monte-Carlo frame has no single deterministic tap
     return render
@@ -892,77 +880,43 @@ def build_rows_renderer(static: SceneStatic, width: int, height: int, n_lanes: i
     if not supports(static) or static.dof or static.stereo:
         raise ValueError("build_rows_renderer: deterministic Whitted scenes that the round-0 kernel covers only")
     n = n_lanes
-    lay = layout(static, width, height)
+    lay, slabs, finish = _pass(static, width, height, n, is_slab=n < width * height)
     a0, l0 = lay.off["aa"], lay.off["lin"]
-    slabs = _chunk_slabs(static, n)
     reuse = _texel_reuse_on(static, slabs)
+    cap_aa, finish_aa = _compacted_taps(static, width, height, n, slabs)
 
-    def lin_tap(packed, prm0, prm_tap, base, lanes, finish, call, plan=False, texel_reuse=None):
+    def lin_tap(packed, prm0, prm_tap, base, lanes, call, plan=False, texel_reuse=None):
         """One tap of ``lanes`` pixels from ``base`` through the lin-input
-        form (``plan`` and ``texel_reuse`` as in the flagship renderer's tap)."""
-        with span("c2rt.tap"):
+        form (``plan`` and ``texel_reuse`` as in ``trace_batch``)."""
+
+        def k1():
             prm = prm_tap.clone()
             prm[l0] = float(exact_lane_base(base))
-            o = call(lay, prm, lin=(base, lanes))
-            dirs = None
-            if static.has_env:  # the JAX package's ``_lin_dirs``
-                dirs = _gen_rays_lin(packed, width, height, prm_tap[a0:a0 + 2].detach(), base, lanes)[1]
-            out = combine_outputs(packed, static, o, dirs, plan, texel_reuse)
-            img = finish(packed, prm0, *out[:5], call)
-            return (img, out[5]) if plan else img
+            return call(lay, prm, lin=(base, lanes)), _slice_dirs(packed, static, lay, prm_tap, base, lanes)
 
-    if slabs is None:
-        finish = build_bounce_finisher(static, width, height, n, is_slab=n < width * height)
+        return trace_batch(packed, static, prm0, finish, call, k1, plan, texel_reuse)
 
-        def render_tap(packed, prm0, prm_tap, lin_base, call, **plan_kw):
-            return lin_tap(packed, prm0, prm_tap, lin_base, n, finish, call, **plan_kw)
-
-    else:
-        C, n_slabs = slabs
-        finish_slab = build_bounce_finisher(static, width, height, C, is_slab=True)
-
-        def render_tap(packed, prm0, prm_tap, lin_base, call):
-            out = [lin_tap(packed, prm0, prm_tap, lin_base + C * s, C, finish_slab, call) for s in range(n_slabs)]
-            return torch.cat(out)[:n]
-
-    if static.aa_enabled and static.aa_adaptive and slabs is None:
-        # this slice's share of the frame-level aa_capacity knob
-        if static.aa_capacity:
-            cap_aa = -(-static.aa_capacity * n // (width * height))
-        else:
-            cap_aa = -(-n // 32)
-        cap_aa = _aa_capacity(cap_aa)
-        finish_aa = build_bounce_finisher(static, width, height, cap_aa, is_slab=True)
+    def render_tap(packed, prm0, prm_tap, lin_base, call, **plan_kw):
+        if slabs is None:
+            return lin_tap(packed, prm0, prm_tap, lin_base, n, call, **plan_kw)
+        C = slabs[0]
+        return _over_slabs(slabs, n, lambda s: lin_tap(packed, prm0, prm_tap, lin_base + C * s, C, call))
 
     def rows(packed: ScenePacked, lin_base: int, mask=None, base=None):
         lin_base = exact_lane_base(lin_base)
         prm0 = lay.pack(packed)
         call = round0_call(packed, trace)
-        if not static.aa_enabled:
-            return render_tap(packed, prm0, prm0, lin_base, call)
-        prms = _tap_params(prm0, a0)
 
-        def taps(acc, ks):
-            for k in ks:
-                acc = acc + render_tap(packed, prm0, prms[k], lin_base, call)
-            return acc
+        def tap(prm, **plan_kw):
+            return render_tap(packed, prm0, prm, lin_base, call, **plan_kw)
 
-        if not static.aa_adaptive:
-            # the reference's quirk: every pixel is the average of the 5 taps
-            if reuse:  # taps 1-4 reuse the base tap's texel quads, per slice
-                img, plan = render_tap(packed, prm0, prm0, lin_base, call, plan=True)
-                for k in range(1, 5):
-                    img = img + render_tap(packed, prm0, prms[k], lin_base, call, texel_reuse=plan)
-                return img / 5.0
-            return taps(torch.zeros((n, 3), dtype=torch.float32, device=prm0.device), range(5)) / 5.0
-        if mask is None:
-            raise ValueError("rows: adaptive AA needs this slice of the whole frame's needs-AA mask")
-        if base is None:
-            base = render_tap(packed, prm0, prm0, lin_base, call)
-        compact = None
-        if slabs is None:
-            compact = (cap_aa, lambda selc, aa: _ray_tap(packed, static, lay, prm0, finish_aa, lin_base + selc, aa, call))
-        return _adaptive_taps(base, mask, lambda b: taps(b, range(1, 5)), compact)
+        def adaptive(base_tap):
+            if mask is None:
+                raise ValueError("rows: adaptive AA needs this slice of the whole frame's needs-AA mask")
+            return (base_tap() if base is None else base), mask, cap_aa, lambda selc, aa: _pixel_tap(
+                packed, static, lay, prm0, finish_aa, call, lin_base + selc, aa)
+
+        return _deterministic_aa(static, n, prm0, a0, tap, reuse, adaptive)
 
     def tap(packed, lin_base, aa_offset=(0.0, 0.0)):
         prm0 = lay.pack(packed)

@@ -144,11 +144,7 @@ def gi_bounce(static: SceneStatic, o, diffuse, ambient, orig, dir, mult, acc, al
 
     with span("c2rt.gi_bounce"):
         args, _hold = bounce_args(static, o, diffuse, ambient, orig, dir, mult, acc, alive, keys_u, keys_v, eps)
-        lib = cuda_build.load("gi_bounce")
-        with torch.cuda.device(orig.device):
-            err = lib.c2rt_gi_bounce(*args, torch.cuda.current_stream(orig.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"gi_bounce: kernel launch failed: {cuda_build.error_string('gi_bounce', err)}")
+        cuda_build.launch("gi_bounce", "c2rt_gi_bounce", orig.device, *args)
         bounce_kernels += 1
     return orig, dir, mult, acc, alive
 

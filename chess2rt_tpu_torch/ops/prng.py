@@ -168,12 +168,8 @@ def _uniform_cuda(key, shape, dtype, dev):
     from .. import cuda_build
 
     out = torch.empty(shape, dtype=dtype, device=dev)
-    lib = cuda_build.load("threefry")
-    with torch.cuda.device(dev):
-        err = lib.c2rt_uniform(int(key[0]), int(key[1]), out.numel(), out.data_ptr(), int(dtype == torch.float64),
-                               torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"uniform: kernel launch failed: {cuda_build.error_string('threefry', err)}")
+    cuda_build.launch("threefry", "c2rt_uniform", dev, int(key[0]), int(key[1]), out.numel(), out.data_ptr(),
+                      int(dtype == torch.float64))
     if out.numel():
         launches += 1
     return out
@@ -219,12 +215,8 @@ def _uniform_keys_cuda(keys, C, dtype, dev):
     K = keys.shape[0]
     out = torch.empty((K * C,), dtype=dtype, device=dev)
     table = np.ascontiguousarray(keys, dtype=np.uint32)
-    lib = cuda_build.load("threefry")
-    with torch.cuda.device(dev):
-        err = lib.c2rt_uniform_keys(table.ctypes.data, K, C, out.data_ptr(), int(dtype == torch.float64),
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"uniform_keys: kernel launch failed: {cuda_build.error_string('threefry', err)}")
+    cuda_build.launch("threefry", "c2rt_uniform_keys", dev, table.ctypes.data, K, C, out.data_ptr(),
+                      int(dtype == torch.float64))
     if out.numel():
         launches += 1
     return out

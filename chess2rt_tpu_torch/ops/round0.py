@@ -1244,26 +1244,24 @@ def _round0_cuda(lay, prm, orig=None, dir=None, n=None, lin_input=False, placeme
     out = torch.empty((len(lay.names), n), dtype=torch.float32, device=dev)
     win = torch.empty((n,), dtype=torch.int32, device=dev)
     lists = list_scratch(lay, n, dev, placement)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.c2rt_round0(
-            prm.data_ptr(),
-            prog.data_ptr(),
-            lay.n_prm,
-            prog.numel(),
-            int(lay.program[H_LIST_CAP]),
-            None if orig is None else orig.data_ptr(),
-            None if dir is None else dir.data_ptr(),
-            None if lists is None else lists.data_ptr(),
-            out.data_ptr(),
-            win.data_ptr(),
-            n,
-            lay.width,
-            lay.height,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"round0: kernel launch failed: {cuda_build.error_string("round0", err)}")
+    cuda_build.launch(
+        "round0",
+        "c2rt_round0",
+        dev,
+        prm.data_ptr(),
+        prog.data_ptr(),
+        lay.n_prm,
+        prog.numel(),
+        int(lay.program[H_LIST_CAP]),
+        None if orig is None else orig.data_ptr(),
+        None if dir is None else dir.data_ptr(),
+        None if lists is None else lists.data_ptr(),
+        out.data_ptr(),
+        win.data_ptr(),
+        n,
+        lay.width,
+        lay.height,
+    )
     launches += 1
     resid_launches += lay.residual
     hit_launches += lay.want_hit and not lay.want_vis

@@ -25,8 +25,8 @@ screen-tap, ray-input and lin-input forms, both pin modes):
   node's full intersection (``_pinned_record``: ``geometry.node_closest``
   per node, selected by the pinned ``win``).  Both differentiate the same
   winning closed form.
-  Camera cotangents flow through the ray-gen twin (``_gen_rays``, and
-  ``_gen_rays_lin`` for the lin-input form's pixel slice); the
+  Camera cotangents flow through the ray-gen twin (``camera.pixel_rays``
+  over the frame or the lin-input form's pixel slice); the
   ray-input form also returns cotangents for ``orig`` and ``dir``, so the
   bounce chain is differentiated.
 
@@ -62,7 +62,7 @@ from ..models.packed import (
 )
 from . import geometry as G
 from . import shade as S
-from .camera import begin_frame, screen_rays
+from .camera import pixel_rays
 from .round0 import EPS_SHADOW, INF, Round0Layout, _rsqrt, layout, round0
 from ..utils.spans import span
 
@@ -414,23 +414,6 @@ def _shade_pinned(packed, static, orig, dir, win, vis_list, rec, want_hit=False,
     return out
 
 
-def _gen_rays(packed, width, height, aa):
-    """Twin of K1's in-kernel ray-gen (ops/camera.screen_rays' op order)."""
-    return _gen_rays_lin(packed, width, height, aa, 0, width * height)
-
-
-def _gen_rays_lin(packed, width, height, aa, lin_base: int, n: int):
-    """``_gen_rays`` for the contiguous pixel slice [lin_base, lin_base +
-    n): the twin of the lin-input form's ray-gen.  ``lin_base`` is data, an
-    integer, never a leaf."""
-    frame = begin_frame(packed.camera, width / height)
-    dt = packed.camera.pos.dtype
-    lin = int(lin_base) + torch.arange(n, device=packed.device)
-    xs = (lin % width).to(dt) + aa[0]
-    ys = (lin // width).to(dt) + aa[1]
-    return screen_rays(packed.camera, frame, float(width), float(height), xs, ys)
-
-
 # --------------------------------------------------------------------------
 # The autograd Function
 # --------------------------------------------------------------------------
@@ -455,7 +438,8 @@ def form_rays(packed, lay: Round0Layout, prm, form, tensors):
         return tensors[0], tensors[1]
     a0 = lay.off["aa"]
     base, n = form or (0, lay.width * lay.height)
-    return _gen_rays_lin(packed, lay.width, lay.height, prm[a0:a0 + 2], base, n)
+    lin = int(base) + torch.arange(n, device=packed.device)
+    return pixel_rays(packed.camera, lay.width, lay.height, lin, prm[a0:a0 + 2])
 
 
 class _DiffRound0(torch.autograd.Function):

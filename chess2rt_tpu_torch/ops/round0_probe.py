@@ -109,12 +109,9 @@ def round0_stage(lay: Round0Layout, prm: torch.Tensor, stage: str) -> Tuple[torc
         raise RuntimeError(f"round0_stage: the {stage} build of csrc/round0.cu is not the one expected")
     out = torch.empty((2, n), dtype=torch.float32, device=dev)
     lists = list_scratch(lay, n, dev)
-    with torch.cuda.device(dev):
-        err = lib.c2rt_round0(prm.data_ptr(), lay.program_on(dev).data_ptr(), lay.n_prm, lay.program.size,
-                              int(lay.program[H_LIST_CAP]), None, None, None if lists is None else lists.data_ptr(),
-                              out.data_ptr(), None, n, lay.width, lay.height, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"round0_stage: kernel launch failed: {cuda_build.error_string(name, err)}")
+    cuda_build.launch(name, "c2rt_round0", dev, prm.data_ptr(), lay.program_on(dev).data_ptr(), lay.n_prm,
+                      lay.program.size, int(lay.program[H_LIST_CAP]), None, None,
+                      None if lists is None else lists.data_ptr(), out.data_ptr(), None, n, lay.width, lay.height)
     launches[stage] += 1
     return out[0], out[1]
 

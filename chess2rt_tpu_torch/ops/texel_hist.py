@@ -104,18 +104,13 @@ def _texel_hist_cuda(keys, vals, n_texels):
     out = torch.zeros((n_texels, c), dtype=torch.float32, device=keys.device)
     if n == 0 or n_texels <= 0:
         return out
-    lib = cuda_build.load("texel_hist")
     span, n_spans = plan(n)
     # one scratch buffer: the 2 * n_spans partial rows, then their int32 keys
     scratch = torch.empty((2 * n_spans * (c + 1),), dtype=torch.float32, device=keys.device)
     svals = scratch.data_ptr()
     skeys = svals + 4 * 2 * n_spans * c
     vec = load_width(c, vals.data_ptr(), out.data_ptr(), svals)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = lib.c2rt_texel_hist(keys.data_ptr(), vals.data_ptr(), out.data_ptr(), n, c, n_texels, span,
-                                  BLOCK_THREADS, vec, skeys, svals, stream)
-    if err != 0:
-        raise RuntimeError(f"texel_histogram: kernel launch failed: {cuda_build.error_string('texel_hist', err)}")
+    cuda_build.launch("texel_hist", "c2rt_texel_hist", keys.device, keys.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                      n, c, n_texels, span, BLOCK_THREADS, vec, skeys, svals)
     launches += 1
     return out

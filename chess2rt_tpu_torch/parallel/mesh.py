@@ -220,14 +220,13 @@ def _fused_trace_fns(static: SceneStatic, trace=round0):
     gi_trace_fn), each possibly None (then ``render_samples`` keeps the
     twin's tracer).
 
-    * ``trace_fn(packed, orig, dir, stats=None)``: K1's ray-input form
-      through ``trace`` (its call decided per batch by
+    * ``trace_fn(packed, orig, dir, stats=None)``: ``flagship.trace_rays``,
+      K1's ray-input form through ``trace`` (its call decided per batch by
       ``flagship.round0_call``, so gradients take the residual form), the
-      deferred texels (``combine_outputs``) and the bounce rounds
-      (``build_bounce_finisher(..., is_slab=True)``, cached per ray-batch
-      width: shard width or chunk-slab width), for Whitted scenes K1 covers
-      (DoF and stereo included).  ``stats`` is accepted and not counted, as
-      in JAX;
+      deferred texels and the bounce rounds (``build_bounce_finisher(...,
+      is_slab=True)``, cached per ray-batch width: shard width or
+      chunk-slab width), for Whitted scenes K1 covers (DoF and stereo
+      included).  ``stats`` is accepted and not counted, as in JAX;
     * ``gi_trace_fn(packed, orig, dir, key)``: the fused GI tracer
       (``ops/gi.build_gi_tracer``, which takes any ray-batch width, so one
       serves every width) for the GI scenes it covers.
@@ -242,19 +241,13 @@ def _fused_trace_fns(static: SceneStatic, trace=round0):
     trace_fn = gi_trace_fn = None
     if not static.gi_enabled and supports(static):
         lay = layout(static, W, H)
-        finishers = {}
+        finisher = functools.lru_cache(maxsize=None)(lambda n: F.build_bounce_finisher(static, W, H, n, is_slab=True))
 
         def trace_fn(packed, o3, d3, st=None):
             if o3.dtype != torch.float32:
                 return trace_whitted(packed, static, o3, d3, st)
-            n = int(o3.shape[0])
-            if n not in finishers:
-                finishers[n] = F.build_bounce_finisher(static, W, H, n, is_slab=True)
-            call = F.round0_call(packed, trace)
-            prm = lay.pack(packed)
-            o = call(lay, prm, o3.contiguous(), d3.contiguous())
-            color, cont, atten, ro, rd = F.combine_outputs(packed, static, o, F._env_dirs(static, d3))
-            return finishers[n](packed, prm, color, cont, atten, ro, rd, call)
+            return F.trace_rays(packed, static, lay, lay.pack(packed), finisher(int(o3.shape[0])),
+                                F.round0_call(packed, trace), lambda: (o3, d3))
 
     if supports_gi(static):
         tracer = build_gi_tracer(static, W, H, trace)

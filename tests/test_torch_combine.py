@@ -42,7 +42,7 @@ from chess2rt_tpu_torch.models.packed import from_leaves, leaves, pack_scene
 from chess2rt_tpu_torch.ops import flagship as F
 from chess2rt_tpu_torch.ops import prng
 from chess2rt_tpu_torch.ops import round0 as R
-from chess2rt_tpu_torch.ops.round0_grad import _gen_rays_lin
+from chess2rt_tpu_torch.ops.camera import pixel_rays
 from chess2rt_tpu_torch.render.pipeline import render_frame
 from chess2rt_tpu_torch.scenes import csg_free_scene, flagship_standin, sky_cubemap
 
@@ -71,7 +71,8 @@ def _tap(tp, ts):
     """K1's screen tap (its plain version) and the directions of its rays."""
     lay = R.layout(ts, W, H)
     prm = lay.pack(tp)
-    dirs = _gen_rays_lin(tp, W, H, prm[lay.off["aa"]:lay.off["aa"] + 2], 0, W * H)[1] if ts.has_env else None
+    aa = prm[lay.off["aa"]:lay.off["aa"] + 2]
+    dirs = pixel_rays(tp.camera, W, H, torch.arange(W * H), aa)[1] if ts.has_env else None
     return R.round0_reference(lay, prm), dirs
 
 

@@ -351,14 +351,14 @@ def test_lin_input_lane_base_above_2_pow_24(cuda):
     """An 8K frame's last shards start above 2^24: the f32 lin slot holds
     every multiple of 128, and the kernel's lanes are those of the ray-input
     form on the same pixels' rays."""
-    from chess2rt_tpu_torch.ops.round0_grad import _gen_rays_lin
+    from chess2rt_tpu_torch.ops.camera import pixel_rays
 
     w, h = 7680, 4320
     tp, ts = pack_scene(flagship_standin(T, w, h), device=cuda)
     lay = R.layout(ts, w, h)
     base = 2**24 + 128 * 5  # an odd multiple of 128
     out = R.round0(lay, lay.pack(tp, (0.0, 0.0), base), lin_input=True, n_lanes=4096)
-    o3, d3 = _gen_rays_lin(tp, w, h, (0.0, 0.0), base, 4096)
+    o3, d3 = pixel_rays(tp.camera, w, h, base + torch.arange(4096, device=cuda), (0.0, 0.0))
     ref = R.round0(lay, lay.pack(tp), o3.contiguous(), d3.contiguous())
     _assert_close(out, ref, lay.names)
     shifted = R.round0(lay, lay.pack(tp, (0.0, 0.0), base + 128), lin_input=True, n_lanes=4096)

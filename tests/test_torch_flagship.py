@@ -96,3 +96,188 @@ def _round0_continuations(tp, ts, w, h):
     o = R.round0(lay, lay.pack(tp))
     _, cont, *_ = F.combine_outputs(tp, ts, o)
     return cont
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pixel_rays_take_the_scenes_dtype(dtype):
+    """``camera.pixel_rays`` computes in the camera's dtype; ``pack_scene``
+    rounds every floating leaf to one dtype, so that is the scene's
+    (``ScenePacked.dtype``, ``node_matrix``'s), at any lane base."""
+    from chess2rt_tpu_torch.models.packed import leaves
+    from chess2rt_tpu_torch.ops.camera import pixel_rays
+
+    tp, _ = pack_scene(flagship_standin(TT, 8, 6), dtype=dtype, device="cpu")
+    assert {x.dtype for x in leaves(tp) if x.is_floating_point()} == {dtype}
+    o3, d3 = pixel_rays(tp.camera, 8, 6, 24 + torch.arange(12), (0.3, 0.3))
+    assert o3.dtype == d3.dtype == tp.dtype == dtype and o3.shape == d3.shape == (12, 3)
+    assert torch.allclose((d3 * d3).sum(-1), torch.ones(12, dtype=dtype))
+
+
+# --------------------------------------------------------------------------
+# The renderers' path census
+# --------------------------------------------------------------------------
+
+# each case: the stand-in's arguments, its frame size, the settings
+# it renders under, and the renderer that draws it ("frame": render_frame,
+# "rows": the rows renderer on the second half of the frame, "mesh": the
+# sharded renderer on a one-entry mesh, whose Monte-Carlo frames go through
+# the per-shard sampler and its ``trace_fn``)
+CENSUS_CASES = {
+    "quirk_mirror": ({}, (32, 24), {}, "frame"),
+    "quirk_env": ({"env": True}, (32, 24), {}, "frame"),
+    "chunked": ({}, (48, 40), {"chunk_pixels": 1024}, "frame"),
+    "adaptive_compacted": ({}, (64, 48), {"aa_adaptive": True, "aa_capacity": 2048}, "frame"),
+    "adaptive_overflow": ({}, (64, 48), {"aa_adaptive": True}, "frame"),
+    "texel_reuse": ({}, (32, 24), {"texel_tap_reuse": True}, "frame"),
+    "dof": ({"dof": True, "env": True, "samples": 2}, (32, 24), {}, "frame"),
+    "dof_slabs": ({"dof": True, "env": True, "samples": 2}, (48, 40), {"chunk_pixels": 1024}, "frame"),
+    "dof_adaptive_compacted": ({"dof": True, "samples": 2}, (32, 24), {"aa_adaptive": True}, "frame"),
+    "stereo": ({"stereo": True}, (32, 24), {}, "frame"),
+    "rows_quirk": ({"env": True}, (32, 24), {}, "rows"),
+    "rows_adaptive": ({}, (32, 24), {"aa_adaptive": True}, "rows"),
+    "mesh_trace_fn": ({"dof": True, "env": True, "samples": 2}, (16, 12), {}, "mesh"),
+}
+
+# each case's counters and c2rt.* spans (``census_run``): the host reads by
+# site, the bounce rounds, Monte-Carlo passes, environment gathers, glue
+# combines and reused taps, and K1's calls (c2rt.k1: round0's launch
+# counters move only on the card); mesh's trace_fn batches carry their
+# c2rt.tap span as every other ray batch does
+CENSUS = {
+    "quirk_mirror": {
+        "bounce_rounds": 5, "c2rt.frame": 1, "c2rt.gather": 15, "c2rt.k1": 10, "c2rt.round": 5,
+        "c2rt.sync.flagship.block_alive": 10, "c2rt.sync.flagship.block_count": 5, "c2rt.tap": 5, "combine_glue": 10,
+        "sync.flagship.block_alive": 10, "sync.flagship.block_count": 5,
+    },
+    "quirk_env": {
+        "bounce_rounds": 5, "c2rt.env": 10, "c2rt.frame": 1, "c2rt.gather": 15, "c2rt.k1": 10, "c2rt.round": 5,
+        "c2rt.sync.flagship.block_alive": 10, "c2rt.sync.flagship.block_count": 5, "c2rt.tap": 5, "combine_glue": 10,
+        "env_gathers": 10, "sync.flagship.block_alive": 10, "sync.flagship.block_count": 5,
+    },
+    "chunked": {
+        "bounce_rounds": 10, "c2rt.frame": 1, "c2rt.gather": 30, "c2rt.k1": 20, "c2rt.round": 10,
+        "c2rt.sync.flagship.block_alive": 20, "c2rt.sync.flagship.block_count": 10, "c2rt.tap": 10,
+        "combine_glue": 20, "sync.flagship.block_alive": 20, "sync.flagship.block_count": 10,
+    },
+    "adaptive_compacted": {
+        "bounce_rounds": 5, "c2rt.frame": 1, "c2rt.gather": 16, "c2rt.k1": 10, "c2rt.round": 5,
+        "c2rt.sync.flagship.aa_count": 1, "c2rt.sync.flagship.block_alive": 10, "c2rt.sync.flagship.block_count": 5,
+        "c2rt.tap": 5, "combine_glue": 10, "sync.flagship.aa_count": 1, "sync.flagship.block_alive": 10,
+        "sync.flagship.block_count": 5,
+    },
+    "adaptive_overflow": {
+        "bounce_rounds": 5, "c2rt.frame": 1, "c2rt.gather": 15, "c2rt.k1": 10, "c2rt.round": 5,
+        "c2rt.sync.flagship.aa_count": 1, "c2rt.sync.flagship.block_alive": 10, "c2rt.sync.flagship.block_count": 5,
+        "c2rt.tap": 5, "combine_glue": 10, "sync.flagship.aa_count": 1, "sync.flagship.block_alive": 10,
+        "sync.flagship.block_count": 5,
+    },
+    "texel_reuse": {
+        "bounce_rounds": 5, "c2rt.frame": 1, "c2rt.gather": 15, "c2rt.k1": 10, "c2rt.round": 5,
+        "c2rt.sync.flagship.block_alive": 10, "c2rt.sync.flagship.block_count": 5,
+        "c2rt.sync.flagship.reuse_count": 4, "c2rt.tap": 5, "combine_glue": 10, "reuse_taps": 4,
+        "sync.flagship.block_alive": 10, "sync.flagship.block_count": 5, "sync.flagship.reuse_count": 4,
+    },
+    "dof": {
+        "bounce_rounds": 10, "c2rt.draw": 40, "c2rt.env": 20, "c2rt.frame": 1, "c2rt.gather": 30, "c2rt.k1": 20,
+        "c2rt.mc_pass": 10, "c2rt.raygen": 10, "c2rt.round": 10, "c2rt.sync.flagship.block_alive": 20,
+        "c2rt.sync.flagship.block_count": 10, "c2rt.tap": 10, "combine_glue": 20, "env_gathers": 20, "mc_passes": 10,
+        "sync.flagship.block_alive": 20, "sync.flagship.block_count": 10,
+    },
+    "dof_slabs": {
+        "bounce_rounds": 20, "c2rt.draw": 40, "c2rt.env": 40, "c2rt.frame": 1, "c2rt.gather": 60, "c2rt.k1": 40,
+        "c2rt.mc_pass": 10, "c2rt.raygen": 10, "c2rt.round": 20, "c2rt.sync.flagship.block_alive": 40,
+        "c2rt.sync.flagship.block_count": 20, "c2rt.tap": 20, "combine_glue": 40, "env_gathers": 40, "mc_passes": 10,
+        "sync.flagship.block_alive": 40, "sync.flagship.block_count": 20,
+    },
+    "dof_adaptive_compacted": {
+        "bounce_rounds": 10, "c2rt.draw": 40, "c2rt.frame": 1, "c2rt.gather": 31, "c2rt.k1": 20, "c2rt.mc_pass": 10,
+        "c2rt.raygen": 10, "c2rt.round": 10, "c2rt.sync.flagship.block_alive": 20,
+        "c2rt.sync.flagship.block_count": 10, "c2rt.sync.flagship.mc_aa_count": 1, "c2rt.tap": 10,
+        "combine_glue": 20, "mc_passes": 10, "sync.flagship.block_alive": 20, "sync.flagship.block_count": 10,
+        "sync.flagship.mc_aa_count": 1,
+    },
+    "stereo": {
+        "bounce_rounds": 10, "c2rt.frame": 1, "c2rt.gather": 30, "c2rt.k1": 20, "c2rt.mc_pass": 5, "c2rt.raygen": 5,
+        "c2rt.round": 10, "c2rt.sync.flagship.block_alive": 20, "c2rt.sync.flagship.block_count": 10, "c2rt.tap": 10,
+        "combine_glue": 20, "mc_passes": 5, "sync.flagship.block_alive": 20, "sync.flagship.block_count": 10,
+    },
+    "rows_quirk": {
+        "bounce_rounds": 5, "c2rt.env": 10, "c2rt.gather": 15, "c2rt.k1": 10, "c2rt.round": 5,
+        "c2rt.sync.flagship.block_alive": 10, "c2rt.sync.flagship.block_count": 5, "c2rt.tap": 5, "combine_glue": 10,
+        "env_gathers": 10, "sync.flagship.block_alive": 10, "sync.flagship.block_count": 5,
+    },
+    "rows_adaptive": {
+        "bounce_rounds": 5, "c2rt.gather": 16, "c2rt.k1": 10, "c2rt.round": 5, "c2rt.sync.flagship.aa_count": 1,
+        "c2rt.sync.flagship.block_alive": 10, "c2rt.sync.flagship.block_count": 5, "c2rt.tap": 5, "combine_glue": 10,
+        "sync.flagship.aa_count": 1, "sync.flagship.block_alive": 10, "sync.flagship.block_count": 5,
+    },
+    "mesh_trace_fn": {
+        "bounce_rounds": 10, "c2rt.draw": 40, "c2rt.env": 20, "c2rt.gather": 20, "c2rt.k1": 20, "c2rt.round": 10,
+        "c2rt.sync.flagship.full_alive": 20, "c2rt.tap": 10, "combine_glue": 20, "env_gathers": 20,
+        "sync.flagship.full_alive": 20,
+    },
+}
+
+
+def _census_counters():
+    from chess2rt_tpu_torch.utils import spans
+
+    return {"bounce_rounds": F.bounce_rounds, "mc_passes": F.mc_passes, "env_gathers": F.env_gathers,
+            "combine_glue": F.combine_glue, "reuse_taps": F.reuse_taps,
+            **{f"sync.{k}": v for k, v in spans.syncs.items()}}
+
+
+def census_run(case):
+    """One census case under the CPU profiler: (the counters' change and
+    the count of each ``c2rt.*`` span, zeros left out; the frame)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chess2rt_tpu_torch.ops import prng
+    from chess2rt_tpu_torch.parallel.mesh import make_sharded_render_fn
+    from chess2rt_tpu_torch.render.pipeline import aa_detect
+
+    args, (w, h), settings, renderer = CENSUS_CASES[case]
+    tp, ts = pack_scene(flagship_standin(TT, w, h, **args), device="cpu")
+    ts = dataclasses.replace(ts, **settings)
+    key = prng.PRNGKey(22)
+    half = w * h // 2
+    if renderer == "frame":
+        def draw():
+            return render_frame(tp, ts, key)
+    elif renderer == "mesh":
+        fn = make_sharded_render_fn(ts, (torch.device("cpu"),))
+
+        def draw():
+            return fn(tp, key)
+    else:
+        rows = F.build_rows_renderer(ts, w, h, half)
+        mask = None
+        if ts.aa_adaptive:
+            with torch.no_grad():
+                base = F.build_flagship_renderer(dataclasses.replace(ts, aa_enabled=False), w, h)(tp)
+            mask = aa_detect(base).reshape(-1)[half:]
+
+        def draw():
+            return rows(tp, half, mask=mask)
+
+    before = _census_counters()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        img = draw()
+    counts = {k: v - before[k] for k, v in _census_counters().items() if v != before[k]}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("c2rt."):
+            counts[e.name()] = counts.get(e.name(), 0) + 1
+    return counts, img
+
+
+@pytest.mark.parametrize("case", list(CENSUS_CASES))
+def test_renderer_path_census(case):
+    """Every branch of the renderers (the un-chunked quirk frame with its
+    block bounces, chunk slabs, adaptive AA compacted and overflowing,
+    texel_tap_reuse, DoF at full width, in slabs and adaptive-compacted,
+    stereo, the rows renderer quirk and adaptive, and mesh's trace_fn on
+    one shard) makes exactly its host reads, bounce rounds, passes, gathers
+    and spans."""
+    counts, img = census_run(case)
+    assert counts == CENSUS[case]
+    assert bool(torch.isfinite(img).all()) and img.max().item() > 0.05
