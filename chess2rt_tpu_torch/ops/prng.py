@@ -11,7 +11,11 @@ A copy of the algorithm, not an import of it: the port never imports JAX.
 
 * Keys are tiny, so they live on the host as numpy ``uint32[2]`` arrays
   (numpy's unsigned arithmetic wraps exactly): deriving a key costs no
-  device work and no sync.
+  device work and no sync.  ``split`` and ``fold_in`` run threefry on
+  Python ints (``_threefry_int``, all the keys of a split in one pass),
+  since numpy's per-call cost would own its ~70 ufunc calls on a few
+  elements.  ``_threefry_np``, the rounds on numpy arrays, is the plain
+  version the tests hold them against.
 * ``uniform`` draws on the device of the caller's choosing: the CUDA kernel
   csrc/threefry.cu on the card, its plain PyTorch version
   ``uniform_reference`` on the CPU, nothing else.  The plain version does
@@ -31,6 +35,7 @@ A copy of the algorithm, not an import of it: the port never imports JAX.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Union
 
@@ -68,6 +73,60 @@ def _threefry_np(key, x0, x1):
     return x0, x1
 
 
+def _threefry_int(k1: int, k2: int, x1: int, rep: int = 1):
+    """threefry2x32 on Python ints of the counter pairs (0, x1) under the
+    key (k1, k2), both words below 2**32: ``_threefry_np``'s rounds
+    unrolled, each line a round (rotations 13, 15, 26, 6, then 17, 29, 16,
+    24) or a key injection (the schedule k1, k2, k3 = k1 ^ k2 ^ parity,
+    turned by one each time).
+
+    The ints hold their pairs in lanes 64 bits apart, as many lanes as
+    ``rep`` (1 in each) has, so one pass derives every key of a split.  A
+    word sits in its lane's low 32 bits.  The high 32 bits are a guard: they
+    take x0's carries (x0 only adds, and stays below 2**37 a lane), x1's
+    carries and the bits a rotation moves out of the word or down from the
+    lane above; x1 is masked back to its words after every step, and x0 at
+    the end, so no lane reaches another.  Returns the lanes of (x0, x1),
+    each word below 2**32."""
+    m = M32 * rep
+    k3 = (k1 ^ k2 ^ _PARITY) * rep
+    k1, k2 = k1 * rep, k2 * rep
+    x0 = k1; x1 = (x1 + k2) & m
+    x0 += x1; x1 = ((x1 << 13 | x1 >> 19) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 15 | x1 >> 17) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 26 | x1 >> 6) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 6 | x1 >> 26) ^ x0) & m
+    x0 += k2; x1 = (x1 + k3 + rep) & m
+    x0 += x1; x1 = ((x1 << 17 | x1 >> 15) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 29 | x1 >> 3) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 16 | x1 >> 16) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 24 | x1 >> 8) ^ x0) & m
+    x0 += k3; x1 = (x1 + k1 + 2 * rep) & m
+    x0 += x1; x1 = ((x1 << 13 | x1 >> 19) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 15 | x1 >> 17) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 26 | x1 >> 6) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 6 | x1 >> 26) ^ x0) & m
+    x0 += k1; x1 = (x1 + k2 + 3 * rep) & m
+    x0 += x1; x1 = ((x1 << 17 | x1 >> 15) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 29 | x1 >> 3) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 16 | x1 >> 16) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 24 | x1 >> 8) ^ x0) & m
+    x0 += k2; x1 = (x1 + k3 + 4 * rep) & m
+    x0 += x1; x1 = ((x1 << 13 | x1 >> 19) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 15 | x1 >> 17) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 26 | x1 >> 6) ^ x0) & m
+    x0 += x1; x1 = ((x1 << 6 | x1 >> 26) ^ x0) & m
+    x0 += k3; x1 = (x1 + k1 + 5 * rep) & m
+    return x0 & m, x1
+
+
+@functools.lru_cache(maxsize=None)
+def _lanes(num: int):
+    """(``rep``, the counters): 1, and 0, 1, ..., num - 1, in num 64-bit
+    lanes of an int."""
+    return sum(1 << 64 * j for j in range(num)), sum(j << 64 * j for j in range(num))
+
+
 def PRNGKey(seed: int) -> np.ndarray:
     """The key of an integer seed (``threefry_seed``): its high and low 32
     bits."""
@@ -95,16 +154,21 @@ def _counters(n: int):
 
 
 def split(key, num: int = 2) -> np.ndarray:
-    """``num`` new keys, [num, 2] uint32 (``_threefry_split_foldlike``)."""
-    b1, b2 = _threefry_np(key, *_counters(num))
-    return np.stack([b1, b2], axis=-1)
+    """``num`` new keys, [num, 2] uint32 (``_threefry_split_foldlike``):
+    threefry of the counters (0, j), every key in one pass."""
+    with span("c2rt.keys"):
+        rep, iota = _lanes(num)
+        b1, b2 = _threefry_int(int(key[0]) & M32, int(key[1]) & M32, iota, rep)
+        # lane j's 8 bytes, little-endian: b1's word, then b2's
+        words = bytearray((b2 << 32 | b1).to_bytes(8 * num, "little"))
+        return np.frombuffer(words, "<u4").reshape(num, 2)
 
 
 def fold_in(key, data: int) -> np.ndarray:
     """The key folded with an integer (``_threefry_fold_in``): threefry of
     the counter (0, data mod 2**32)."""
-    b1, b2 = _threefry_np(key, np.zeros(1, np.uint32), np.array([int(data) & M32], np.uint32))
-    return np.array([b1[0], b2[0]], dtype=np.uint32)
+    with span("c2rt.keys"):
+        return np.array(_threefry_int(int(key[0]) & M32, int(key[1]) & M32, int(data) & M32), dtype=np.uint32)
 
 
 def _shape(shape) -> tuple:

@@ -142,7 +142,9 @@ CENSUS_CASES = {
 # site, the bounce rounds, Monte-Carlo passes, environment gathers, glue
 # combines and reused taps, and K1's calls (c2rt.k1: round0's launch
 # counters move only on the card); mesh's trace_fn batches carry their
-# c2rt.tap span as every other ray batch does
+# c2rt.tap span as every other ray batch does; c2rt.keys counts the key
+# derivations, one per split or fold_in: the frame's key, 2 per DoF pass (its
+# four keys, the disc's two) and 1 per AA tap (a split, or mesh's fold_in)
 CENSUS = {
     "quirk_mirror": {
         "bounce_rounds": 5, "c2rt.frame": 1, "c2rt.gather": 15, "c2rt.k1": 10, "c2rt.round": 5,
@@ -179,27 +181,28 @@ CENSUS = {
     },
     "dof": {
         "bounce_rounds": 10, "c2rt.draw": 40, "c2rt.env": 20, "c2rt.frame": 1, "c2rt.gather": 30, "c2rt.k1": 20,
-        "c2rt.mc_pass": 10, "c2rt.raygen": 10, "c2rt.round": 10, "c2rt.sync.flagship.block_alive": 20,
+        "c2rt.keys": 25, "c2rt.mc_pass": 10, "c2rt.raygen": 10, "c2rt.round": 10, "c2rt.sync.flagship.block_alive": 20,
         "c2rt.sync.flagship.block_count": 10, "c2rt.tap": 10, "combine_glue": 20, "env_gathers": 20, "mc_passes": 10,
         "sync.flagship.block_alive": 20, "sync.flagship.block_count": 10,
     },
     "dof_slabs": {
         "bounce_rounds": 20, "c2rt.draw": 40, "c2rt.env": 40, "c2rt.frame": 1, "c2rt.gather": 60, "c2rt.k1": 40,
-        "c2rt.mc_pass": 10, "c2rt.raygen": 10, "c2rt.round": 20, "c2rt.sync.flagship.block_alive": 40,
+        "c2rt.keys": 25, "c2rt.mc_pass": 10, "c2rt.raygen": 10, "c2rt.round": 20, "c2rt.sync.flagship.block_alive": 40,
         "c2rt.sync.flagship.block_count": 20, "c2rt.tap": 20, "combine_glue": 40, "env_gathers": 40, "mc_passes": 10,
         "sync.flagship.block_alive": 40, "sync.flagship.block_count": 20,
     },
     "dof_adaptive_compacted": {
-        "bounce_rounds": 10, "c2rt.draw": 40, "c2rt.frame": 1, "c2rt.gather": 31, "c2rt.k1": 20, "c2rt.mc_pass": 10,
-        "c2rt.raygen": 10, "c2rt.round": 10, "c2rt.sync.flagship.block_alive": 20,
-        "c2rt.sync.flagship.block_count": 10, "c2rt.sync.flagship.mc_aa_count": 1, "c2rt.tap": 10,
-        "combine_glue": 20, "mc_passes": 10, "sync.flagship.block_alive": 20, "sync.flagship.block_count": 10,
+        "bounce_rounds": 10, "c2rt.draw": 40, "c2rt.frame": 1, "c2rt.gather": 31, "c2rt.k1": 20, "c2rt.keys": 25,
+        "c2rt.mc_pass": 10, "c2rt.raygen": 10, "c2rt.round": 10, "c2rt.sync.flagship.block_alive": 20,
+        "c2rt.sync.flagship.block_count": 10, "c2rt.sync.flagship.mc_aa_count": 1, "c2rt.tap": 10, "combine_glue": 20,
+        "mc_passes": 10, "sync.flagship.block_alive": 20, "sync.flagship.block_count": 10,
         "sync.flagship.mc_aa_count": 1,
     },
     "stereo": {
-        "bounce_rounds": 10, "c2rt.frame": 1, "c2rt.gather": 30, "c2rt.k1": 20, "c2rt.mc_pass": 5, "c2rt.raygen": 5,
-        "c2rt.round": 10, "c2rt.sync.flagship.block_alive": 20, "c2rt.sync.flagship.block_count": 10, "c2rt.tap": 10,
-        "combine_glue": 20, "mc_passes": 5, "sync.flagship.block_alive": 20, "sync.flagship.block_count": 10,
+        "bounce_rounds": 10, "c2rt.frame": 1, "c2rt.gather": 30, "c2rt.k1": 20, "c2rt.keys": 5, "c2rt.mc_pass": 5,
+        "c2rt.raygen": 5, "c2rt.round": 10, "c2rt.sync.flagship.block_alive": 20, "c2rt.sync.flagship.block_count": 10,
+        "c2rt.tap": 10, "combine_glue": 20, "mc_passes": 5, "sync.flagship.block_alive": 20,
+        "sync.flagship.block_count": 10,
     },
     "rows_quirk": {
         "bounce_rounds": 5, "c2rt.env": 10, "c2rt.gather": 15, "c2rt.k1": 10, "c2rt.round": 5,
@@ -212,8 +215,8 @@ CENSUS = {
         "sync.flagship.aa_count": 1, "sync.flagship.block_alive": 10, "sync.flagship.block_count": 5,
     },
     "mesh_trace_fn": {
-        "bounce_rounds": 10, "c2rt.draw": 40, "c2rt.env": 20, "c2rt.gather": 20, "c2rt.k1": 20, "c2rt.round": 10,
-        "c2rt.sync.flagship.full_alive": 20, "c2rt.tap": 10, "combine_glue": 20, "env_gathers": 20,
+        "bounce_rounds": 10, "c2rt.draw": 40, "c2rt.env": 20, "c2rt.gather": 20, "c2rt.k1": 20, "c2rt.keys": 25,
+        "c2rt.round": 10, "c2rt.sync.flagship.full_alive": 20, "c2rt.tap": 10, "combine_glue": 20, "env_gathers": 20,
         "sync.flagship.full_alive": 20,
     },
 }

@@ -5,6 +5,10 @@ package's ``camera.screen_rays``.
 * keys: ``PRNGKey``, ``split`` into 1, 2, 4 and 7 keys and ``fold_in`` at 0,
   1 and 2**31 - 1, over several seeds (jax 0.9's default threefry2x32 in
   its partitionable form);
+* the two forms of a key derivation, threefry on Python ints
+  (``_threefry_int``: a key a pass, or a split's keys in one pass) and on
+  numpy arrays (``_threefry_np``, the plain version), against each other
+  and ``jax.random``, at few keys and at 255-257; a split into no keys;
 * ``uniform`` in f32 and, under x64, f64 over the shapes (), (7,), (3, 5)
   and (1 << 20,); a draw is positional: the full-width draw gathered at
   some lanes is what those lanes hold;
@@ -63,6 +67,52 @@ def test_keys_match_jax(seed):
     k = prng.split(mine, 4)[3]
     assert np.array_equal(prng.split(prng.fold_in(k, 9), 3),
                           np.asarray(jax.random.split(jax.random.fold_in(jax.random.split(key, 4)[3], 9), 3)))
+
+
+M32 = prng.M32
+# keys of words at the ends of the 32-bit range, and of seeds above 2**32 (a
+# high word); splits into the few keys the renderers take and into many
+# (lanes past the 256th); fold_in's data at the ends of the 32-bit range and
+# below 0 (taken mod 2**32, as fold_in takes it)
+WORD_KEYS = [(0, 0), (0, M32), (M32, 0), (M32, M32)]
+HIGH_SEEDS = [2**32 + 5, 2**33 + 12345, 2**63 - 1]
+NUMS = [1, 2, 3, 4, 255, 256, 257]
+FOLD_DATA = [0, 1, 2**31 - 1, 2**32 - 1, -3]
+
+
+@pytest.mark.parametrize("words, seed", [(w, None) for w in WORD_KEYS] + [(None, s) for s in HIGH_SEEDS],
+                         ids=[f"words{w}" for w in WORD_KEYS] + [f"seed{s}" for s in HIGH_SEEDS])
+def test_the_two_forms_match_each_other_and_jax(words, seed):
+    if seed is None:
+        key = np.array(words, np.uint32)
+    else:
+        key = prng.PRNGKey(seed)
+        with x64():
+            assert np.array_equal(key, np.asarray(jax.random.PRNGKey(seed)))
+    jkey = jnp.asarray(key)
+    k1, k2 = (int(w) for w in key)
+    for num in NUMS:
+        scalar = np.array([prng._threefry_int(k1, k2, j) for j in range(num)], np.uint32)  # a key a pass
+        vector = np.stack(prng._threefry_np(key, *prng._counters(num)), axis=-1)
+        have = prng.split(key, num)
+        assert have.dtype == np.uint32 and have.shape == (num, 2)
+        assert np.array_equal(scalar, vector) and np.array_equal(have, vector), num
+        assert np.array_equal(have, np.asarray(jax.random.split(jkey, num))), num
+    for data in FOLD_DATA:
+        x1 = data & M32
+        scalar = np.array(prng._threefry_int(k1, k2, x1), np.uint32)
+        vector = np.concatenate(prng._threefry_np(key, np.zeros(1, np.uint32), np.array([x1], np.uint32)))
+        have = prng.fold_in(key, data)
+        assert have.dtype == np.uint32 and have.shape == (2,)
+        assert np.array_equal(scalar, vector) and np.array_equal(have, vector), data
+        assert np.array_equal(have, np.asarray(jax.random.fold_in(jkey, x1))), data
+
+
+def test_a_split_into_no_keys_is_empty():
+    key = prng.PRNGKey(23)
+    have = prng.split(key, 0)
+    assert have.dtype == np.uint32 and have.shape == (0, 2)
+    assert np.asarray(jax.random.split(jnp.asarray(key), 0)).shape == (0, 2)
 
 
 def _bits(x):

@@ -120,6 +120,16 @@ def test_a_gi_frame_has_a_span_per_bounce_round_and_batch(case):
     assert d["syncs"] == {"gi.alive": d["gi_rounds"] - batches}
 
 
+@pytest.mark.parametrize("case", list(GI))
+def test_a_gi_frame_spans_each_key_derivation(case):
+    """One ``c2rt.keys`` span per ``prng.split``: the frame's key (AA off),
+    one split(k, 4) per path, and per executed round one split(k, 3) per
+    path-slab of the batch."""
+    _, events, d = _runs(case)
+    K = GI[case].get("gi_path_batch") or 1
+    assert _count(events, "c2rt.keys") == 1 + 2 + K * d["gi_rounds"]
+
+
 def test_a_gradient_step_spans_the_backward():
     tp, ts = _scene("block")
     ts = dataclasses.replace(ts, aa_enabled=False)
